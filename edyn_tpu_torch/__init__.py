@@ -1,0 +1,23 @@
+"""edyn_tpu_torch — the PyTorch and CUDA port of edyn_tpu for NVIDIA Hopper.
+
+Same public surface and subpackage layout as ``edyn_tpu``: a world is a
+structure of tensors stepped by plain PyTorch code around hand-written CUDA
+kernels (``csrc/``), on the device the caller picks (``cuda`` by default).
+"""
+from .config import Settings
+from .core.builder import Material, RigidBodyDef, WorldBuilder
+from .core.state import KIND_DYNAMIC, KIND_KINEMATIC, KIND_STATIC, WorldState
+from .core.world import World, derive_meta, make_world
+from .shapes.params import (
+    BoxShape, CapsuleShape, CylinderShape, PlaneShape, PolyhedronShape,
+    SphereShape,
+)
+from .simulation.stepper import SceneMeta, physics_step
+
+__all__ = [
+    "Settings", "Material", "RigidBodyDef", "WorldBuilder", "WorldState",
+    "World", "make_world", "derive_meta", "SceneMeta", "physics_step",
+    "KIND_DYNAMIC", "KIND_KINEMATIC", "KIND_STATIC",
+    "SphereShape", "BoxShape", "CapsuleShape", "CylinderShape", "PlaneShape",
+    "PolyhedronShape",
+]

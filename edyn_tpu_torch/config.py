@@ -1,0 +1,61 @@
+"""Engine constants and runtime settings (PyTorch port).
+
+Same tiers and values as ``edyn_tpu/config.py``: hard constants
+(reference: include/edyn/config/constants.hpp) and the frozen runtime
+``Settings`` (reference: include/edyn/context/settings.hpp:21-58). The port
+runs in float32 only; ``DTYPE`` is the one scalar type of every float
+tensor it builds.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+# --- hard constants (reference: include/edyn/config/constants.hpp) ---
+MAX_CONTACTS = 4
+COLLISION_THRESHOLD = 0.01
+CONTACT_BREAKING_THRESHOLD = 0.02
+CONTACT_MERGING_THRESHOLD = 0.01
+CONTACT_CACHING_THRESHOLD = 0.04
+ISLAND_LINEAR_SLEEP_THRESHOLD = 0.005
+ISLAND_ANGULAR_SLEEP_THRESHOLD = math.pi / 48.0
+ISLAND_TIME_TO_SLEEP = 2.0
+SUPPORT_FEATURE_TOLERANCE = 0.005
+CONTACT_POSITION_CORRECTION_RATE = 0.2
+CONTACT_POSITION_SOLVER_MIN_ERROR = -0.005
+CONVEX_MESH_RELEVANT_DIRECTION_TOLERANCE = 0.0006
+# Pair admission margin: a pair occupies a manifold slot only while the
+# bodies' swept tight AABBs, each inflated by this margin, overlap (the
+# combined gap equals the reference's manifold-destruction threshold,
+# broadphase.hpp m_separation_threshold = 1.3 * contact_breaking).
+PAIR_SEPARATION_MARGIN = 0.65 * CONTACT_BREAKING_THRESHOLD
+
+GRAVITY_EARTH = (0.0, -9.8, 0.0)  # reference: include/edyn/math/constants.hpp
+LARGE_SCALAR = 1e9  # stiffness above this => rigid contact
+
+DTYPE = torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class Settings:
+    """Runtime settings (reference: include/edyn/context/settings.hpp:21-58).
+    Field for field the same as ``edyn_tpu.Settings``."""
+    fixed_dt: float = 1.0 / 60.0
+    gravity: tuple = GRAVITY_EARTH
+    max_steps_per_update: int = 10
+    num_solver_velocity_iterations: int = 8
+    num_solver_position_iterations: int = 3
+    num_restitution_iterations: int = 8
+    num_individual_restitution_iterations: int = 3
+    paused: bool = False
+    # batched-impulse relaxation: impulses into shared bodies are scaled by
+    # the body's constraint degree (mass splitting)
+    mass_splitting: bool = True
+    enable_sleeping: bool = True
+    # speculative contact distance (reference: collision_threshold)
+    collision_threshold: float = COLLISION_THRESHOLD
+
+    def replace(self, **kw) -> "Settings":
+        return dataclasses.replace(self, **kw)

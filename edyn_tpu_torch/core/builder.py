@@ -1,0 +1,270 @@
+"""Scene building: rigidbody_def -> tensor world state.
+
+Counterpart of ``edyn_tpu/core/builder.py`` (reference:
+include/edyn/util/rigidbody.hpp rigidbody_def, make_rigidbody): bodies are
+staged host-side in float32 numpy, as the JAX builder stages them, and
+``finalize`` builds the tensors on the target device. Supports the convex
+and plane shapes; compounds, meshes and joints come with later slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..shapes.params import (
+    PolyhedronShape, ShapeType, pack_polyhedra, shape_roll_direction,
+)
+from ..shapes.inertia import moment_of_inertia, polyhedron_inertia
+from .state import (
+    KIND_DYNAMIC, KIND_STATIC, MAX_EXCLUSIONS, ContactTable, JointTable,
+    MixTable, PolyTable, WorldState,
+)
+
+ALL_GROUPS = 0xFFFFFFFF
+
+
+@dataclasses.dataclass
+class Material:
+    """Reference: include/edyn/comp/material.hpp:15-31."""
+    restitution: float = 0.0
+    friction: float = 0.5
+    spin_friction: float = 0.0
+    roll_friction: float = 0.0
+    stiffness: float = 1e10
+    damping: float = 1e10
+    id: int = -1
+
+
+@dataclasses.dataclass
+class RigidBodyDef:
+    """Reference: rigidbody_def (include/edyn/util/rigidbody.hpp:29-75)."""
+    kind: int = KIND_DYNAMIC
+    position: Sequence[float] = (0.0, 0.0, 0.0)
+    orientation: Sequence[float] = (0.0, 0.0, 0.0, 1.0)  # xyzw
+    mass: float = 1.0
+    inertia: Optional[np.ndarray] = None
+    linvel: Sequence[float] = (0.0, 0.0, 0.0)
+    angvel: Sequence[float] = (0.0, 0.0, 0.0)
+    center_of_mass: Optional[Sequence[float]] = None
+    gravity: Optional[Sequence[float]] = None
+    shape: object = None
+    material: Optional[Material] = dataclasses.field(default_factory=Material)
+    collision_group: int = ALL_GROUPS
+    collision_mask: int = ALL_GROUPS
+    presentation: bool = True
+    sleeping_disabled: bool = False
+    networked: bool = False
+
+
+def _qrot(q, v):
+    qv = q[:3]
+    t = 2.0 * np.cross(qv, v)
+    return v + q[3] * t + np.cross(qv, t)
+
+
+class WorldBuilder:
+    """Accumulates bodies host-side; ``finalize()`` builds the WorldState."""
+
+    def __init__(self, gravity=None):
+        self.default_gravity = (None if gravity is None
+                                else np.asarray(gravity, np.float64))
+        self.defs: list[RigidBodyDef] = []
+        self._polyhedra: list[PolyhedronShape] = []
+        self._poly_index: dict[int, int] = {}
+        self.exclusions: list[tuple[int, int]] = []
+        self.material_mixes: list[tuple[int, int, Material]] = []
+
+    def make_rigidbody(self, def_: RigidBodyDef) -> int:
+        """Returns the body's slot index."""
+        idx = len(self.defs)
+        self.defs.append(def_)
+        if isinstance(def_.shape, PolyhedronShape):
+            key = id(def_.shape)
+            if key not in self._poly_index:
+                self._poly_index[key] = len(self._polyhedra)
+                self._polyhedra.append(def_.shape)
+        return idx
+
+    def exclude_collision(self, a: int, b: int):
+        self.exclusions.append((a, b))
+
+    def insert_material_mixing(self, id_a: int, id_b: int,
+                               material: Material):
+        self.material_mixes.append((id_a, id_b, material))
+
+    def finalize(self, capacity: Optional[int] = None,
+                 max_manifolds: Optional[int] = None,
+                 device="cpu") -> WorldState:
+        from ..shapes.aabb import compute_aabbs
+        from ..shapes.convex import build_convex_table
+
+        n = len(self.defs)
+        N = capacity or max(n, 1)
+        if N < n:
+            raise ValueError(f"capacity {N} < {n} bodies")
+        M = max_manifolds if max_manifolds is not None else max(64, 8 * N)
+
+        poly_np = pack_polyhedra(self._polyhedra)
+        f = np.float32  # staged in float32 exactly as the JAX builder does
+        pos = np.zeros((N, 3), f)
+        orn = np.zeros((N, 4), f)
+        orn[:, 3] = 1
+        linvel = np.zeros((N, 3), f)
+        angvel = np.zeros((N, 3), f)
+        mass_inv = np.zeros((N,), f)
+        inertia_inv = np.zeros((N, 3, 3), f)
+        restitution = np.zeros((N,), f)
+        friction = np.full((N,), 0.5, f)
+        spin_fr = np.zeros((N,), f)
+        roll_fr = np.zeros((N,), f)
+        stiffness = np.full((N,), 1e10, f)
+        damping = np.full((N,), 1e10, f)
+        has_mat = np.zeros((N,), bool)
+        mat_id = np.full((N,), -1, np.int32)
+        gravity = np.zeros((N, 3), f)
+        kind = np.full((N,), KIND_STATIC, np.int32)
+        valid = np.zeros((N,), bool)
+        sleeping_dis = np.zeros((N,), bool)
+        networked = np.zeros((N,), bool)
+        group = np.full((N,), ALL_GROUPS, np.int64)
+        mask = np.full((N,), ALL_GROUPS, np.int64)
+        excl = np.full((N, MAX_EXCLUSIONS), -1, np.int32)
+        stype = np.zeros((N,), np.int32)
+        sparams = np.zeros((N, 4), np.float32)
+        sindex = np.zeros((N,), np.int32)
+        com = np.zeros((N, 3), f)
+        roll_axis = np.zeros((N, 3), f)
+
+        for i, d in enumerate(self.defs):
+            valid[i] = True
+            kind[i] = d.kind
+            pos[i] = d.position
+            orn[i] = d.orientation
+            orn[i] /= np.linalg.norm(orn[i])
+            linvel[i] = d.linvel
+            angvel[i] = d.angvel
+            if d.center_of_mass is not None:
+                com[i] = d.center_of_mass
+                com_w = _qrot(np.asarray(orn[i], np.float64), com[i])
+                pos[i] = np.asarray(d.position) + com_w
+                linvel[i] = np.asarray(d.linvel) + np.cross(angvel[i], com_w)
+            default_g = (self.default_gravity if self.default_gravity
+                         is not None else np.asarray((0.0, -9.8, 0.0)))
+            gravity[i] = d.gravity if d.gravity is not None else (
+                default_g if d.kind == KIND_DYNAMIC else 0.0)
+            sleeping_dis[i] = d.sleeping_disabled
+            networked[i] = d.networked
+            group[i] = d.collision_group
+            mask[i] = d.collision_mask
+
+            sh = d.shape
+            if sh is None:
+                stype[i] = ShapeType.NONE
+            elif isinstance(sh, PolyhedronShape):
+                stype[i] = ShapeType.POLYHEDRON
+                sindex[i] = self._poly_index[id(sh)]
+                sparams[i, 0] = sindex[i]
+            else:
+                st, prm = sh.pack()
+                stype[i] = st
+                sparams[i] = prm
+            roll_axis[i] = shape_roll_direction(int(stype[i]), sparams[i])
+
+            if d.kind == KIND_DYNAMIC:
+                if not (d.mass > 0 and np.isfinite(d.mass)):
+                    raise ValueError("dynamic body needs finite positive mass")
+                mass_inv[i] = 1.0 / d.mass
+                if d.inertia is not None:
+                    I = np.asarray(d.inertia, np.float64)
+                    I = np.diag(I) if I.ndim == 1 else I
+                elif isinstance(sh, PolyhedronShape):
+                    I = polyhedron_inertia(sh.vertices, d.mass)
+                elif sh is not None:
+                    I = np.diag(moment_of_inertia(int(stype[i]), sparams[i],
+                                                  d.mass))
+                else:
+                    raise ValueError("dynamic amorphous body requires "
+                                     "explicit inertia")
+                if d.center_of_mass is not None and d.inertia is None:
+                    dvec = np.asarray(d.center_of_mass, np.float64)
+                    sk = np.array([[0, -dvec[2], dvec[1]],
+                                   [dvec[2], 0, -dvec[0]],
+                                   [-dvec[1], dvec[0], 0]])
+                    I = I + d.mass * (sk.T @ sk)
+                inertia_inv[i] = np.linalg.inv(I)
+
+            if d.material is not None:
+                has_mat[i] = True
+                m = d.material
+                restitution[i] = m.restitution
+                friction[i] = m.friction
+                spin_fr[i] = m.spin_friction
+                roll_fr[i] = m.roll_friction
+                stiffness[i] = m.stiffness
+                damping[i] = m.damping
+                mat_id[i] = m.id
+
+        for a, b in self.exclusions:
+            for (x, y) in ((a, b), (b, a)):
+                excl[x, np.argmax(excl[x] == -1)] = y
+
+        def t(x):
+            x = np.asarray(x)
+            if x.dtype == np.float64:
+                x = x.astype(np.float32)
+            return torch.as_tensor(x, device=device)
+
+        poly = PolyTable(t(poly_np.verts), t(poly_np.vert_mask),
+                         t(poly_np.face_normals), t(poly_np.face_mask),
+                         t(poly_np.edge_dirs), t(poly_np.edge_mask))
+        convex = build_convex_table(stype, sparams, sindex, poly_np,
+                                    device=device)
+        if self.material_mixes:
+            ids = np.array([[ia, ib] for ia, ib, _ in self.material_mixes],
+                           np.int32)
+            vals = np.array([[m.restitution, m.friction, m.spin_friction,
+                              m.roll_friction, m.stiffness, m.damping]
+                             for _, _, m in self.material_mixes], np.float32)
+            mix = MixTable(ids=t(ids), vals=t(vals))
+        else:
+            mix = MixTable.empty(device)
+
+        def zf(*s):
+            return torch.zeros(s, dtype=torch.float32, device=device)
+
+        scalar = lambda v, dt: torch.tensor(v, dtype=dt, device=device)
+        ws = WorldState(
+            pos=t(pos), orn=t(orn), linvel=t(linvel), angvel=t(angvel),
+            mass_inv=t(mass_inv), inertia_inv=t(inertia_inv), com=t(com),
+            restitution=t(restitution), friction=t(friction),
+            spin_friction=t(spin_fr), roll_friction=t(roll_fr),
+            stiffness=t(stiffness), damping=t(damping),
+            has_material=t(has_mat), material_id=t(mat_id),
+            gravity=t(gravity), kind=t(kind), valid=t(valid),
+            sleeping_disabled=t(sleeping_dis), networked=t(networked),
+            group=t(group), mask=t(mask), exclusions=t(excl),
+            shape_type=t(stype), shape_params=t(sparams),
+            shape_index=t(sindex),
+            aabb_min=zf(N, 3), aabb_max=zf(N, 3),
+            bp_aabb_min=torch.full((N, 3), 1e30, device=device),
+            bp_aabb_max=torch.full((N, 3), -1e30, device=device),
+            roll_axis=t(roll_axis),
+            island_id=torch.full((N,), -1, dtype=torch.int32, device=device),
+            sleep_timer=zf(N),
+            asleep=torch.zeros((N,), dtype=torch.bool, device=device),
+            edge_pointed=torch.zeros((M,), dtype=torch.bool, device=device),
+            labels_stable=scalar(False, torch.bool),
+            island_stable_steps=scalar(0, torch.int32),
+            bp_carry_ok=scalar(False, torch.bool),
+            contacts=ContactTable.zeros(M, device),
+            joints=JointTable.zeros(1, device),
+            poly=poly, convex=convex, mix_table=mix,
+            step_count=scalar(0, torch.int32),
+            sim_time=scalar(0.0, torch.float32),
+            overflow=torch.zeros((5,), dtype=torch.int32, device=device))
+        amin, amax = compute_aabbs(ws.shape_type, ws.origin_pos(), ws.orn,
+                                   ws.convex)
+        return dataclasses.replace(ws, aabb_min=amin, aabb_max=amax)

@@ -1,0 +1,86 @@
+"""Carrying a world state across packages as numpy.
+
+``tree`` is a nested dict of numpy arrays with the field names of
+``edyn_tpu.core.state.WorldState`` (sub-tables ``contacts``, ``joints``,
+``poly``, ``convex``, ``mix_table`` as nested dicts), in the JAX package's
+dtypes: pair keys uint32 with uint32 max as the invalid key, collision
+group/mask uint32, float32 floats. The caller flattens the JAX state; this
+module never sees a JAX type.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..shapes.convex import ConvexTable
+from .state import (
+    INVALID_KEY, ContactTable, JointTable, MixTable, PolyTable, WorldState,
+)
+
+JAX_INVALID_KEY = np.uint32(np.iinfo(np.uint32).max)
+_SUBTABLES = {"contacts": ContactTable, "joints": JointTable,
+              "poly": PolyTable, "convex": ConvexTable,
+              "mix_table": MixTable}
+_KEY_FIELDS = ("key", "sort_key")
+_BIT_FIELDS = ("group", "mask")
+
+
+def _to_tensor(name, x, device):
+    x = np.asarray(x)
+    if name in _KEY_FIELDS:
+        k = x.astype(np.int64)
+        k[x == JAX_INVALID_KEY] = INVALID_KEY
+        x = k
+    elif name in _BIT_FIELDS:
+        x = x.astype(np.int64)
+    elif x.dtype == np.float64:
+        x = x.astype(np.float32)
+    return torch.as_tensor(np.array(x, order="C"), device=device)
+
+
+def _to_numpy(name, t):
+    x = t.detach().cpu().numpy()
+    if name in _KEY_FIELDS:
+        k = np.where(x == INVALID_KEY, np.int64(JAX_INVALID_KEY), x)
+        return k.astype(np.uint32)
+    if name in _BIT_FIELDS:
+        return x.astype(np.uint32)
+    return x
+
+
+def _check_keys(cls, tree):
+    want = {f.name for f in dataclasses.fields(cls)}
+    got = set(tree)
+    if want != got:
+        raise KeyError(f"{cls.__name__}: missing {sorted(want - got)}, "
+                       f"unexpected {sorted(got - want)}")
+
+
+def state_from_numpy(tree: dict, device="cpu") -> WorldState:
+    """Build a WorldState on ``device`` from a numpy tree."""
+    _check_keys(WorldState, tree)
+    kw = {}
+    for name, val in tree.items():
+        if name in _SUBTABLES:
+            cls = _SUBTABLES[name]
+            _check_keys(cls, val)
+            kw[name] = cls(**{k: _to_tensor(k, v, device)
+                              for k, v in val.items()})
+        else:
+            kw[name] = _to_tensor(name, val, device)
+    return WorldState(**kw)
+
+
+def state_to_numpy(state: WorldState) -> dict:
+    """The numpy tree of a WorldState (inverse of ``state_from_numpy``)."""
+    out = {}
+    for f in dataclasses.fields(state):
+        val = getattr(state, f.name)
+        if f.name in _SUBTABLES:
+            out[f.name] = {g.name: _to_numpy(g.name, getattr(val, g.name))
+                           for g in dataclasses.fields(val)}
+        else:
+            out[f.name] = _to_numpy(f.name, val)
+    return out

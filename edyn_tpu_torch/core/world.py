@@ -1,0 +1,200 @@
+"""World: the user-facing handle around the state and the step (counterpart
+of ``edyn_tpu/core/world.py``; reference: include/edyn/edyn.hpp:66-150 and
+the fixed-timestep accumulator, stepper_sequential.cpp:45-65)."""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..config import Settings
+from ..simulation.stepper import SceneMeta, physics_step
+from .builder import WorldBuilder
+from .state import WorldState, grow_contact_table
+
+
+def _pairs_for(n_bodies: int) -> int:
+    # 16 pairs per body covers the settled mixed pile's measured demand
+    # (14.2/body) with headroom; grow-on-overflow is the backstop
+    return max(256, min(16 * n_bodies, 1 << 19))
+
+
+def derive_meta(state: WorldState, max_pairs: Optional[int] = None,
+                **kw) -> SceneMeta:
+    """The static scene facts of a freshly built state (host read)."""
+    valid = state.valid.cpu().numpy()
+    stypes = state.shape_type.cpu().numpy()
+    present = frozenset(int(t) for t in np.unique(stypes[valid]))
+    if max_pairs is None:
+        max_pairs = _pairs_for(int(valid.sum()))
+    max_pairs = min(max_pairs, state.contacts.key.shape[0])
+    kw.setdefault("bucket_cap", max(512, max_pairs // 2))
+    kw.setdefault("max_rows", max_pairs)
+    has_sr = bool((state.spin_friction.cpu().numpy()[valid] > 0).any()
+                  or (state.roll_friction.cpu().numpy()[valid] > 0).any()
+                  or (state.mix_table.vals.cpu().numpy()[:, 2:4] > 0).any())
+    kw.setdefault("has_spin_roll", has_sr)
+    if bool(state.joints.valid.any()):
+        raise NotImplementedError("joints are not ported yet")
+    return SceneMeta(types_present=present, max_pairs=max_pairs, **kw)
+
+
+class World:
+    """Owns the state and drives the step."""
+
+    GROW_FACTOR = 1.3
+
+    def __init__(self, state: WorldState, settings: Settings = Settings(),
+                 meta: Optional[SceneMeta] = None):
+        self.state = state
+        self.settings = settings
+        self.meta = meta or derive_meta(state)
+        self._accumulator = 0.0
+        self._last_time: Optional[float] = None
+        # grow-on-overflow: a step that dropped pairs, candidates or rows
+        # bumps the capacity before the next step. The JAX package checks
+        # after each step_n batch and every 16th step() only, because
+        # reading its counters stalls the device; the port's stepper syncs
+        # every step anyway. A 10k-body pile that lands needs ~19 pairs a
+        # body, more than the 16 of _pairs_for: checked once per batch, it
+        # dropped floor contacts for tens of steps and bodies fell through
+        # the floor.
+        self.auto_grow = True
+
+    @property
+    def device(self):
+        return self.state.device
+
+    # -- stepping -------------------------------------------------------
+    def step(self, n: int = 1):
+        """Advance n fixed-dt steps."""
+        for _ in range(n):
+            self.state = physics_step(self.state, self.settings, self.meta)
+            if self.auto_grow:
+                self._maybe_grow()
+        return self
+
+    def step_n(self, n: int):
+        """Advance n fixed-dt steps (the JAX package's single-program batch;
+        the port steps from the host either way, so this is ``step``)."""
+        return self.step(n)
+
+    def _maybe_grow(self):
+        """Any nonzero drop counter of the last step bumps the matching
+        capacity by GROW_FACTOR; live state is padded, never rebuilt. Window
+        alarms (overflow[3]) do not trigger growth."""
+        ovf = self.state.overflow.cpu().numpy()
+        if ovf[[0, 1, 2, 4]].max() <= 0:
+            return False
+        meta = self.meta
+        changes = {}
+        if ovf[0] > 0 or ovf[4] > 0:
+            new_pairs = -(-int(meta.max_pairs * self.GROW_FACTOR) // 128) * 128
+            changes["max_pairs"] = new_pairs
+            if meta.max_rows is not None:
+                changes["max_rows"] = max(meta.max_rows,
+                                          min(new_pairs, meta.max_rows * 2))
+            if meta.bucket_cap is not None:
+                changes["bucket_cap"] = max(meta.bucket_cap, new_pairs // 2)
+            st = self.state
+            # the carried pair list is the truncated one: recompute it
+            self.state = dataclasses.replace(
+                st,
+                bp_carry_ok=torch.zeros_like(st.bp_carry_ok),
+                contacts=grow_contact_table(st.contacts, new_pairs),
+                edge_pointed=torch.cat([
+                    st.edge_pointed,
+                    torch.zeros((new_pairs - meta.max_pairs,),
+                                dtype=torch.bool, device=st.device)]))
+        if ovf[1] > 0 and meta.bucket_cap is not None:
+            changes["bucket_cap"] = -(-int(max(
+                changes.get("bucket_cap", meta.bucket_cap),
+                meta.bucket_cap * self.GROW_FACTOR)) // 128) * 128
+        if ovf[2] > 0 and meta.max_rows is not None:
+            changes["max_rows"] = -(-int(max(
+                changes.get("max_rows", meta.max_rows),
+                meta.max_rows * self.GROW_FACTOR)) // 128) * 128
+        if not changes:
+            return False
+        self.meta = dataclasses.replace(meta, **changes)
+        self.state = dataclasses.replace(
+            self.state, overflow=torch.zeros_like(self.state.overflow))
+        return True
+
+    def update(self, elapsed: Optional[float] = None):
+        """Variable-rate update with the fixed-dt accumulator and the
+        max-steps cap."""
+        now = time.perf_counter()
+        if elapsed is None:
+            elapsed = 0.0 if self._last_time is None else now - self._last_time
+        self._last_time = now
+        if self.settings.paused:
+            return self
+        self._accumulator += elapsed
+        num = int(self._accumulator // self.settings.fixed_dt)
+        num = min(num, self.settings.max_steps_per_update)
+        self._accumulator -= num * self.settings.fixed_dt
+        return self.step(num)
+
+    def set_settings(self, **kw):
+        self.settings = self.settings.replace(**kw)
+        return self
+
+    # -- accessors ------------------------------------------------------
+    def position(self, i):
+        return self.state.pos[i].cpu().numpy()
+
+    def orientation(self, i):
+        return self.state.orn[i].cpu().numpy()
+
+    def linvel(self, i):
+        return self.state.linvel[i].cpu().numpy()
+
+    def angvel(self, i):
+        return self.state.angvel[i].cpu().numpy()
+
+    def is_asleep(self, i) -> bool:
+        return bool(self.state.asleep[i])
+
+    def origin(self, i):
+        """Shape-origin world position."""
+        return self.state.origin_pos()[i].cpu().numpy()
+
+    def overflow_counters(self) -> dict:
+        """Last-step capacity-truncation counters (all zero = nothing was
+        silently dropped)."""
+        ovf = self.state.overflow.cpu().numpy()
+        return {"broadphase_pairs": int(ovf[0]),
+                "narrowphase_candidates": int(ovf[1]),
+                "contact_rows": int(ovf[2]),
+                "broadphase_window_alarms": int(ovf[3]),
+                "manifold_slots": int(ovf[4])}
+
+
+def resolve_device(device=None) -> torch.device:
+    """``cuda`` unless the caller names a device. Without a GPU, asking for
+    the default raises: the port never falls back to the CPU on its own."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device='cpu' to run on "
+                               "the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def make_world(builder: WorldBuilder, settings: Settings = Settings(),
+               capacity: Optional[int] = None,
+               max_pairs: Optional[int] = None, device=None) -> World:
+    """Finalize a builder into a stepping world on ``device`` (default
+    ``cuda``). The manifold table is sized to max_pairs."""
+    dev = resolve_device(device)
+    if max_pairs is None:
+        max_pairs = _pairs_for(len(builder.defs))
+    if builder.default_gravity is None:
+        builder.default_gravity = np.asarray(settings.gravity, np.float64)
+    state = builder.finalize(capacity=capacity, max_manifolds=max_pairs,
+                             device=dev)
+    return World(state, settings, derive_meta(state, max_pairs))

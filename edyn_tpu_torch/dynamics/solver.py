@@ -1,0 +1,436 @@
+"""Batched impulse solver, the contact part (counterpart of
+``edyn_tpu/dynamics/solver.py``; reference: src/edyn/dynamics/solver.cpp,
+constraint_row.cpp, constraint_row_friction.cpp).
+
+Row semantics are those of the JAX package: every contact point is one row
+block (normal + 2 coupled friction directions, plus spin and rolling rows);
+each iteration solves all rows against the iteration-start deltas and
+scatter-adds the results (block Jacobi with mass splitting).
+
+The JAX package has two variants of the iteration and restitution loops
+(jnp and Pallas, chosen by ``SceneMeta.pallas_solver``). The port has one:
+the loops run over the packed row table (``solver_kernels.pack_rows_t``)
+and call the ``solver_kernels`` wrappers, which take the CUDA kernel on the
+card and the plain version on the CPU.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..config import LARGE_SCALAR
+from ..core.state import KIND_STATIC
+from ..math import quat, vec
+from . import solver_kernels as sk
+
+BIG = 1e18
+
+
+@dataclasses.dataclass
+class RowDir:
+    """One constraint direction: angular jacobians Ja = r x d and the
+    inertia-applied responses t = I^-1 Ja, eff. mass and rhs."""
+    JaA: torch.Tensor
+    JaB: torch.Tensor
+    tA: torch.Tensor
+    tB: torch.Tensor
+    eff_mass: torch.Tensor
+    rhs: torch.Tensor
+
+
+@dataclasses.dataclass
+class ContactRows:
+    """One row block per live contact point, compacted into a prefix."""
+    valid: torch.Tensor
+    a: torch.Tensor
+    b: torch.Tensor
+    ab: torch.Tensor
+    inv_mA: torch.Tensor
+    inv_mB: torch.Tensor
+    n: torch.Tensor
+    t1: torch.Tensor
+    t2: torch.Tensor
+    rn: RowDir
+    r1: RowDir
+    r2: RowDir
+    friction: torch.Tensor
+    restitution: torch.Tensor
+    upper_n: torch.Tensor
+    soft: torch.Tensor
+    spin_friction: Optional[torch.Tensor]
+    roll_friction: Optional[torch.Tensor]
+    sA_n: Optional[torch.Tensor]
+    sB_n: Optional[torch.Tensor]
+    sA_t1: Optional[torch.Tensor]
+    sB_t1: Optional[torch.Tensor]
+    sA_t2: Optional[torch.Tensor]
+    sB_t2: Optional[torch.Tensor]
+    em_spin: Optional[torch.Tensor]
+    em_roll1: Optional[torch.Tensor]
+    em_roll2: Optional[torch.Tensor]
+    rhs_spin: Optional[torch.Tensor]
+    rhs_roll1: Optional[torch.Tensor]
+    rhs_roll2: Optional[torch.Tensor]
+    roll_t1: Optional[torch.Tensor]
+    roll_t2: Optional[torch.Tensor]
+    rA: torch.Tensor
+    rB: torch.Tensor
+    row_slot: torch.Tensor   # [R] int: flattened manifold point slot
+    base_dist: torch.Tensor  # [R] step-start separation
+    dropped: int             # live contacts beyond max_rows (host int)
+    count: int               # live rows (a prefix of this length)
+
+
+def pack_solver_view(state):
+    """[N,35] per-body inputs for row building: orn 0:4 | linvel 4:7 |
+    angvel 7:10 | inv_m 10 | inv_I world 11:20 | friction 20 |
+    restitution 21 | spin_f 22 | roll_f 23 | stiffness 24 | damping 25 |
+    material_id 26 | has_material 27 | asleep 28 | com 29:32 |
+    roll_axis 32:35."""
+    N = state.capacity
+    Iw = state.inertia_world_inv().reshape(N, 9)
+    f = lambda x: x.to(torch.float32)[:, None]
+    return torch.cat([
+        state.orn, state.linvel, state.angvel, f(state.mass_inv), Iw,
+        f(state.friction), f(state.restitution), f(state.spin_friction),
+        f(state.roll_friction), f(state.stiffness), f(state.damping),
+        f(state.material_id), f(state.has_material), f(state.asleep),
+        state.com, state.roll_axis,
+    ], dim=1)
+
+
+def pack_manifold_points(man):
+    """[M,4,14]: pivot_a 0:3 | pivot_b 3:6 | local_normal 6:9 |
+    attachment 9 | distance 10 | point_valid 11 | friction_scale 12 |
+    restitution_scale 13."""
+    f = lambda x: x.to(torch.float32)[..., None]
+    return torch.cat([
+        man.pivot_a, man.pivot_b, man.local_normal,
+        f(man.normal_attachment), f(man.distance), f(man.point_valid),
+        f(man.friction_scale), f(man.restitution_scale),
+    ], dim=-1)
+
+
+def _mv(M, v):
+    return torch.einsum("...ij,...j->...i", M, v)
+
+
+def _em(term):
+    return torch.where(term > 1e-12, 1.0 / torch.clamp(term, min=1e-12),
+                       torch.zeros_like(term))
+
+
+def _make_dir(d, rA, rB, inv_mA, inv_IA, inv_mB, inv_IB, degA, degB):
+    JaA = vec.cross(rA, d)
+    JaB = -vec.cross(rB, d)
+    tA = _mv(inv_IA, JaA)
+    tB = _mv(inv_IB, JaB)
+    term = (vec.dot(d, d) * inv_mA * degA + vec.dot(tA, JaA) * degA
+            + vec.dot(d, d) * inv_mB * degB + vec.dot(tB, JaB) * degB)
+    return JaA, JaB, tA, tB, _em(term)
+
+
+def build_contact_rows(state, man, dt: float, use_restitution_solver: bool,
+                       mass_splitting: bool = True,
+                       with_spin_roll: bool = True,
+                       max_rows: int | None = None) -> ContactRows:
+    """Rows compacted to the live contact points (at most ``max_rows``);
+    ``row_slot`` maps each row back to its manifold point."""
+    M, P = man.point_valid.shape
+    Rfull = M * P
+    dev = man.point_valid.device
+
+    inactive = state.asleep | ((state.kind == KIND_STATIC) & state.valid)
+    code = state.has_material.to(torch.int32) + inactive.to(torch.int32) * 2
+    ca = code[man.body_a.long()]
+    cb = code[man.body_b.long()]
+    elig = man.valid & ((ca & 1) > 0) & ((cb & 1) > 0) \
+        & ~(((ca & 2) > 0) & ((cb & 2) > 0))
+    valid0 = (man.point_valid & elig[:, None]).reshape(Rfull)
+
+    R = max_rows or Rfull
+    if R < Rfull:
+        src = torch.nonzero(valid0).flatten()
+        cnt = src.shape[0]
+        row_slot = torch.full((R,), Rfull - 1, dtype=torch.int64, device=dev)
+        live = min(cnt, R)
+        row_slot[:live] = src[:live]
+        valid = torch.zeros((R,), dtype=torch.bool, device=dev)
+        valid[:live] = True
+        rows_dropped = max(cnt - R, 0)
+        live_count = live
+    else:
+        row_slot = torch.arange(Rfull, device=dev)
+        valid = valid0
+        rows_dropped = 0
+        live_count = Rfull
+
+    pair_idx = torch.div(row_slot, P, rounding_mode="floor")
+    a = man.body_a[pair_idx].long()
+    b = man.body_b[pair_idx].long()
+    ab = torch.cat([a, b])
+
+    pt = pack_manifold_points(man).reshape(Rfull, 14)[row_slot]
+    pa_l = pt[:, 0:3]
+    pb_l = pt[:, 3:6]
+    ln = pt[:, 6:9]
+    attach = pt[:, 9].to(torch.int32)
+    dist = pt[:, 10]
+    fr_scale = pt[:, 12]
+    re_scale = pt[:, 13]
+
+    g = pack_solver_view(state)[ab]
+    ga, gb = g[:R], g[R:]
+    orn_a, orn_b = ga[:, 0:4], gb[:, 0:4]
+    va, wa = ga[:, 4:7], ga[:, 7:10]
+    vb, wb = gb[:, 4:7], gb[:, 7:10]
+    zero = torch.zeros_like(ga[:, 10])
+    inv_mA = torch.where(valid, ga[:, 10], zero)
+    inv_mB = torch.where(valid, gb[:, 10], zero)
+    inv_IA = ga[:, 11:20].reshape(R, 3, 3) * valid[:, None, None]
+    inv_IB = gb[:, 11:20].reshape(R, 3, 3) * valid[:, None, None]
+
+    n = torch.where((attach == 1)[:, None], quat.rotate(orn_a, ln),
+                    torch.where((attach == 2)[:, None],
+                                quat.rotate(orn_b, ln), ln))
+    rA = quat.rotate(orn_a, pa_l - ga[:, 29:32])
+    rB = quat.rotate(orn_b, pb_l - gb[:, 29:32])
+
+    if mass_splitting:
+        v2 = valid.to(torch.float32)
+        deg = torch.ones((state.capacity,), device=dev).index_add(
+            0, ab, torch.cat([v2, v2]))
+        dg = torch.clamp(deg[ab] - 1.0, min=1.0)
+        degA, degB = dg[:R], dg[R:]
+    else:
+        degA = degB = torch.ones_like(inv_mA)
+
+    t1, t2 = vec.orthonormal_basis(n)
+
+    def dir_rows(d, rhs_fn):
+        JaA, JaB, tA, tB, em = _make_dir(d, rA, rB, inv_mA, inv_IA, inv_mB,
+                                         inv_IB, degA, degB)
+        relvel = (vec.dot(d, va) + vec.dot(JaA, wa)
+                  - vec.dot(d, vb) + vec.dot(JaB, wb))
+        return RowDir(JaA=JaA, JaB=JaB, tA=tA, tB=tB, eff_mass=em,
+                      rhs=rhs_fn(relvel))
+
+    restit_mix = torch.minimum(ga[:, 21], gb[:, 21])
+    friction = torch.sqrt(torch.clamp(ga[:, 20] * gb[:, 20], min=0.0))
+    spin_fr = torch.maximum(ga[:, 22], gb[:, 22])
+    roll_fr = torch.maximum(ga[:, 23], gb[:, 23])
+    stiff = 1.0 / (1.0 / torch.clamp(ga[:, 24], min=1.0)
+                   + 1.0 / torch.clamp(gb[:, 24], min=1.0))
+    dampc = 1.0 / (1.0 / torch.clamp(ga[:, 25], min=1.0)
+                   + 1.0 / torch.clamp(gb[:, 25], min=1.0))
+
+    mix = state.mix_table
+    if mix.ids.shape[0] > 0:
+        ida = ga[:, 26].to(torch.int32)
+        idb = gb[:, 26].to(torch.int32)
+        lo = torch.minimum(ida, idb)[:, None]
+        hi = torch.maximum(ida, idb)[:, None]
+        tlo = torch.minimum(mix.ids[:, 0], mix.ids[:, 1])[None, :]
+        thi = torch.maximum(mix.ids[:, 0], mix.ids[:, 1])[None, :]
+        match = (lo == tlo) & (hi == thi) & (lo >= 0)
+        has = torch.any(match, dim=1)
+        v = mix.vals[torch.argmax(match.to(torch.int32), dim=1)]
+        restit_mix = torch.where(has, v[:, 0], restit_mix)
+        friction = torch.where(has, v[:, 1], friction)
+        spin_fr = torch.where(has, v[:, 2], spin_fr)
+        roll_fr = torch.where(has, v[:, 3], roll_fr)
+        stiff = torch.where(has & (v[:, 4] > 0), v[:, 4], stiff)
+        dampc = torch.where(has & (v[:, 5] > 0), v[:, 5], dampc)
+
+    friction = friction * fr_scale
+    restit_mix = torch.clamp(restit_mix * re_scale, 0.0, 1.0)
+    restitution = (torch.zeros_like(restit_mix) if use_restitution_solver
+                   else restit_mix)
+    error = torch.where(dist > 0, dist / dt, torch.zeros_like(dist))
+
+    rn = dir_rows(n, lambda rv: -(error * 0.2 + rv * (1.0 + restitution)))
+    r1 = dir_rows(t1, lambda rv: -rv)
+    r2 = dir_rows(t2, lambda rv: -rv)
+
+    sr = dict.fromkeys(("sA_n", "sB_n", "sA_t1", "sB_t1", "sA_t2", "sB_t2",
+                        "em_spin", "em_roll1", "em_roll2", "rhs_spin",
+                        "rhs_roll1", "rhs_roll2", "roll_t1", "roll_t2"))
+    if with_spin_roll:
+        def ang_row(d):
+            sA = _mv(inv_IA, d)
+            sB = _mv(inv_IB, -d)
+            term = vec.dot(sA, d) * degA + vec.dot(sB, -d) * degB
+            return sA, sB, _em(term)
+
+        rdA = ga[:, 32:35]
+        rdB = gb[:, 32:35]
+        wrA = quat.rotate(orn_a, rdA)
+        wrB = quat.rotate(orn_b, rdB)
+        hasA = vec.length_sqr(rdA) > 1e-12
+        hasB = vec.length_sqr(rdB) > 1e-12
+        one = torch.ones_like(inv_mA)
+
+        def roll_aligned(t):
+            sc = torch.where(hasA, vec.dot(wrA, t), one) \
+                * torch.where(hasB, vec.dot(wrB, t), one)
+            return t * sc[..., None]
+
+        roll_t1 = roll_aligned(t1)
+        roll_t2 = roll_aligned(t2)
+        sA_n, sB_n, em_spin = ang_row(n)
+        sA_t1, sB_t1, em_roll1 = ang_row(roll_t1)
+        sA_t2, sB_t2, em_roll2 = ang_row(roll_t2)
+        rel_w = wa - wb
+        sr = dict(sA_n=sA_n, sB_n=sB_n, sA_t1=sA_t1, sB_t1=sB_t1,
+                  sA_t2=sA_t2, sB_t2=sB_t2, em_spin=em_spin,
+                  em_roll1=em_roll1, em_roll2=em_roll2,
+                  rhs_spin=-vec.dot(n, rel_w),
+                  rhs_roll1=-vec.dot(roll_t1, rel_w),
+                  rhs_roll2=-vec.dot(roll_t2, rel_w),
+                  roll_t1=roll_t1, roll_t2=roll_t2)
+    else:
+        spin_fr = roll_fr = None
+
+    soft = stiff < LARGE_SCALAR
+    pen = torch.clamp(-dist, min=0.0)
+    relvel_n = (vec.dot(n, va) + vec.dot(rn.JaA, wa)
+                - vec.dot(n, vb) + vec.dot(rn.JaB, wb))
+    spring_cap = torch.clamp((stiff * pen + dampc
+                              * torch.clamp(-relvel_n, min=0.0)) * dt,
+                             min=0.0)
+    upper_n = torch.where(soft, spring_cap, torch.full_like(spring_cap, BIG))
+
+    return ContactRows(valid=valid, a=a, b=b, ab=ab,
+                       inv_mA=inv_mA, inv_mB=inv_mB,
+                       n=n, t1=t1, t2=t2, rn=rn, r1=r1, r2=r2,
+                       friction=friction, restitution=restit_mix,
+                       upper_n=upper_n, soft=soft,
+                       spin_friction=spin_fr, roll_friction=roll_fr,
+                       rA=rA, rB=rB, row_slot=row_slot, base_dist=dist,
+                       dropped=rows_dropped, count=live_count, **sr)
+
+
+def rows_prefix(rows: ContactRows, Rs: int) -> ContactRows:
+    """First Rs rows of a compacted row table (the caller guarantees
+    rows.count <= Rs)."""
+    if Rs > rows.valid.shape[0]:
+        raise ValueError("prefix wider than the row table")
+
+    def cut(x):
+        if isinstance(x, RowDir):
+            return RowDir(*(getattr(x, f.name)[:Rs]
+                            for f in dataclasses.fields(RowDir)))
+        if isinstance(x, torch.Tensor):
+            return x[:Rs]
+        return x
+
+    kw = {f.name: cut(getattr(rows, f.name))
+          for f in dataclasses.fields(ContactRows)}
+    kw["ab"] = torch.cat([rows.a[:Rs], rows.b[:Rs]])
+    return ContactRows(**kw)
+
+
+def refresh_contact_rhs(rows: ContactRows, state, dt: float,
+                        use_restitution_solver: bool) -> ContactRows:
+    """Recompute rhs terms against the current velocities (after the
+    restitution pre-pass and gravity; reference solver.cpp:387-405)."""
+    velp = torch.cat([state.linvel, state.angvel], dim=1)
+    R = rows.valid.shape[0]
+    g = velp[rows.ab]
+    va, wa, vb, wb = g[:R, 0:3], g[:R, 3:6], g[R:, 0:3], g[R:, 3:6]
+    dist = rows.base_dist
+    error = torch.where(dist > 0, dist / dt, torch.zeros_like(dist))
+    restitution = 0.0 if use_restitution_solver else rows.restitution
+
+    def rv(d, rd):
+        return (vec.dot(d, va) + vec.dot(rd.JaA, wa)
+                - vec.dot(d, vb) + vec.dot(rd.JaB, wb))
+
+    rn = dataclasses.replace(rows.rn, rhs=-(error * 0.2 + rv(rows.n, rows.rn)
+                                            * (1.0 + restitution)))
+    r1 = dataclasses.replace(rows.r1, rhs=-rv(rows.t1, rows.r1))
+    r2 = dataclasses.replace(rows.r2, rhs=-rv(rows.t2, rows.r2))
+    if rows.sA_n is None:
+        return dataclasses.replace(rows, rn=rn, r1=r1, r2=r2)
+    rel_w = wa - wb
+    return dataclasses.replace(rows, rn=rn, r1=r1, r2=r2,
+                               rhs_spin=-vec.dot(rows.n, rel_w),
+                               rhs_roll1=-vec.dot(rows.roll_t1, rel_w),
+                               rhs_roll2=-vec.dot(rows.roll_t2, rel_w))
+
+
+def warm_start_contacts(rows: ContactRows, imp6, dvw):
+    """Apply the stored impulses [R,6] (normal 0 | friction 1:3 | spin 3 |
+    roll 4:6) to the packed [N,6] deltas before iterating (reference:
+    constraint_row.cpp warm_start)."""
+    m = lambda x: torch.where(rows.valid, x, torch.zeros_like(x))[:, None]
+    dn_ = m(imp6[:, 0])
+    df1_ = m(imp6[:, 1])
+    df2_ = m(imp6[:, 2])
+    lin = rows.n * dn_ + rows.t1 * df1_ + rows.t2 * df2_
+    lin_a = rows.inv_mA[:, None] * lin
+    lin_b = rows.inv_mB[:, None] * -lin
+    ang_a = rows.rn.tA * dn_ + rows.r1.tA * df1_ + rows.r2.tA * df2_
+    ang_b = rows.rn.tB * dn_ + rows.r1.tB * df1_ + rows.r2.tB * df2_
+    if rows.sA_n is not None:
+        ds_ = m(imp6[:, 3])
+        dr1_ = m(imp6[:, 4])
+        dr2_ = m(imp6[:, 5])
+        ang_a = ang_a + rows.sA_n * ds_ + rows.sA_t1 * dr1_ \
+            + rows.sA_t2 * dr2_
+        ang_b = ang_b + rows.sB_n * ds_ + rows.sB_t1 * dr1_ \
+            + rows.sB_t2 * dr2_
+    upd = torch.cat([torch.cat([lin_a, ang_a], 1),
+                     torch.cat([lin_b, ang_b], 1)])
+    return dvw.index_add(0, rows.ab, upd)
+
+
+def scatter_upd_t(x_t, ab_p, upd):
+    """Scatter-add a kernel's [12,Rp] endpoint update into transposed
+    [6,N] body deltas (a-half to rows a, b-half to rows b)."""
+    return x_t.index_add(1, ab_p, torch.cat([upd[:6], upd[6:]], dim=1))
+
+
+def solve_contacts_once(tbl, imp_t, dvw_t, ab_p, with_sr: bool):
+    """One velocity iteration: gather -> K1 -> scatter-add. imp_t [6,Rp],
+    dvw_t [6,N]."""
+    g = dvw_t[:, ab_p]
+    imp_t, upd = sk.solve_iteration(tbl, imp_t, g, with_sr)
+    return imp_t, scatter_upd_t(dvw_t, ab_p, upd)
+
+
+def solve_restitution(state, tbl, ab_p, num_iterations: int,
+                      num_individual_iterations: int):
+    """Restitution shock-propagation pre-pass over the packed table
+    (reference: restitution_solver.cpp:86-408). Outer passes play the role
+    of BFS levels and stop early once no row approaches faster than the
+    threshold. Returns (linvel, angvel)."""
+    relvel_threshold = -0.005
+    N = state.capacity
+    Rp = tbl.shape[1]
+    dev = tbl.device
+    valid_p = tbl[55:56, :] > 0.5
+    restit_p = tbl[56:57, :]
+
+    velp_t = torch.cat([state.linvel, state.angvel], dim=1).T.contiguous()
+    for it in range(num_iterations):
+        relvel = sk.relvel(tbl, velp_t[:, ab_p])
+        active = valid_p & (relvel < relvel_threshold) & (restit_p > 0)
+        # device branches (solver.py:643 and :730 in the JAX package):
+        # host-synced. The JAX loop exits one pass later, after a pass that
+        # adds a zero update; stopping here gives the same velocities.
+        if not bool(torch.any(active)):
+            break
+        rhs = -relvel * (1.0 + restit_p)
+        dyn = torch.cat([rhs, active.to(torch.float32)], dim=0)
+        dvw_t = torch.zeros((6, N), device=dev)
+        imp3_t = torch.zeros((3, Rp), device=dev)
+        for _ in range(num_individual_iterations):
+            g = dvw_t[:, ab_p]
+            imp3_t, upd = sk.restitution_iteration(tbl, dyn, imp3_t, g)
+            dvw_t = scatter_upd_t(dvw_t, ab_p, upd)
+        velp_t = velp_t + dvw_t
+    velp = velp_t.T
+    return velp[:, 0:3], velp[:, 3:6]

@@ -1,0 +1,488 @@
+"""The solver's four per-row kernels, their plain PyTorch versions, and the
+packed row table they read.
+
+Counterpart of ``edyn_tpu/dynamics/pallas_solver.py``. The contact-row
+constants are packed once per solve phase into ONE component-major
+``[C, Rp]`` float32 table (``pack_rows_t``, the same layout as the JAX
+package's), and every iteration runs as
+
+    gather (index_select) -> kernel -> scatter-add (index_add_)
+
+with the gather and the scatter-add in PyTorch around the kernel, as they
+stay in XLA around the Pallas kernels.
+
+Kernels (CUDA C++ in ``edyn_tpu_torch/csrc/solver_kernels.cu``, built with
+nvcc for sm_90a at first use and loaded with ctypes):
+- ``solve_iteration``: one velocity iteration (K1, replaces
+  ``pallas_solver.solve_iteration_pallas``);
+- ``ngs_iteration``: one NGS position iteration (K2, replaces
+  ``ngs_iteration_pallas``);
+- ``restitution_iteration``: one restitution inner iteration (K3a,
+  replaces ``restitution_iteration_pallas``);
+- ``relvel``: normal relative velocity per row (K3b, replaces
+  ``relvel_pallas``).
+
+Each wrapper takes the plain version for tensors on the CPU; for CUDA
+tensors it launches the kernel, or raises. It never falls back.
+``LAUNCHES`` counts kernel launches per wrapper.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+BLK = 128
+BIG = 1e18
+
+# Row layout of the packed table (component-major, [C, Rp]).
+# Base block:
+#   n 0:3 | t1 3:6 | t2 6:9
+#   rn.JaA 9:12 | rn.JaB 12:15 | rn.tA 15:18 | rn.tB 18:21
+#   r1.JaA 21:24 | r1.JaB 24:27 | r1.tA 27:30 | r1.tB 30:33
+#   r2.JaA 33:36 | r2.JaB 36:39 | r2.tA 39:42 | r2.tB 42:45
+#   em_n 45 | em_1 46 | em_2 47 | rhs_n 48 | rhs_1 49 | rhs_2 50
+#   inv_mA 51 | inv_mB 52 | friction 53 | upper_n 54 | valid 55
+#   restitution 56 | rA 57:60 | rB 60:63 | base_dist 63 | ngs_valid 64
+C_BASE = 65
+# Spin/roll block (appended when the scene has spin/roll materials):
+#   sA_n +0:3 | sB_n +3:6 | sA_t1 +6:9 | sB_t1 +9:12 | sA_t2 +12:15
+#   sB_t2 +15:18 | roll_t1 +18:21 | roll_t2 +21:24
+#   em_spin +24 | em_roll1 +25 | em_roll2 +26
+#   rhs_spin +27 | rhs_roll1 +28 | rhs_roll2 +29 | spin_f +30 | roll_f +31
+C_SR = 32
+
+_B = dict(n=0, t1=3, t2=6, JaA_n=9, JaB_n=12, tA_n=15, tB_n=18,
+          JaA_1=21, JaB_1=24, tA_1=27, tB_1=30,
+          JaA_2=33, JaB_2=36, tA_2=39, tB_2=42,
+          em_n=45, em_1=46, em_2=47, rhs_n=48, rhs_1=49, rhs_2=50,
+          inv_mA=51, inv_mB=52, friction=53, upper_n=54, valid=55,
+          restitution=56, rA=57, rB=60, base_dist=63, ngs_valid=64)
+_S = dict(sA_n=0, sB_n=3, sA_t1=6, sB_t1=9, sA_t2=12, sB_t2=15,
+          roll_t1=18, roll_t2=21, em_spin=24, em_roll1=25, em_roll2=26,
+          rhs_spin=27, rhs_roll1=28, rhs_roll2=29, spin_f=30, roll_f=31)
+_VEC3 = {"n", "t1", "t2", "rA", "rB"} | {
+    f"{p}_{d}" for p in ("JaA", "JaB", "tA", "tB") for d in "n12"} | {
+    "sA_n", "sB_n", "sA_t1", "sB_t1", "sA_t2", "sB_t2", "roll_t1", "roll_t2"}
+
+# Table rows each kernel reads: the table bytes its memory bound counts.
+ROWS_READ = {
+    "solve_iteration": C_BASE - 9,  # rows 0..55, and the C_SR block with sr
+    "ngs_iteration": 20,  # n, tA_n, tB_n, em_n, inv_m x2, rA, rB, dist, ngs
+    "restitution_iteration": 51,  # n,t1,t2, 3 dirs x4, 3 em, inv_m x2, fr
+    "relvel": 9,                  # n, JaA_n, JaB_n
+}
+
+
+def rows_read(name: str, with_sr: bool = False) -> int:
+    """Table rows kernel ``name`` reads per contact row."""
+    sr = C_SR if with_sr and name == "solve_iteration" else 0
+    return ROWS_READ[name] + sr
+
+
+LAUNCHES = {"solve_iteration": 0, "ngs_iteration": 0,
+            "restitution_iteration": 0, "relvel": 0}
+
+
+def reset_launch_counts():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# table packing
+# ---------------------------------------------------------------------------
+
+def pack_rows_t(rows):
+    """Pack the per-row solve constants into ONE [C, Rp] float32 table (Rp
+    padded to a BLK multiple) and the padded endpoint indices. Returns
+    (tbl, a_p, b_p, Rp)."""
+    R = rows.valid.shape[0]
+    Rp = -(-R // BLK) * BLK
+    pad = Rp - R
+
+    def p1(x):
+        x = x.to(torch.float32)
+        return torch.nn.functional.pad(x, (0, pad))[None, :]
+
+    def p3(x):
+        x = x.to(torch.float32)
+        return torch.nn.functional.pad(x, (0, 0, 0, pad)).T
+
+    parts = [
+        p3(rows.n), p3(rows.t1), p3(rows.t2),
+        p3(rows.rn.JaA), p3(rows.rn.JaB), p3(rows.rn.tA), p3(rows.rn.tB),
+        p3(rows.r1.JaA), p3(rows.r1.JaB), p3(rows.r1.tA), p3(rows.r1.tB),
+        p3(rows.r2.JaA), p3(rows.r2.JaB), p3(rows.r2.tA), p3(rows.r2.tB),
+        p1(rows.rn.eff_mass), p1(rows.r1.eff_mass), p1(rows.r2.eff_mass),
+        p1(rows.rn.rhs), p1(rows.r1.rhs), p1(rows.r2.rhs),
+        p1(rows.inv_mA), p1(rows.inv_mB), p1(rows.friction),
+        p1(torch.clamp(rows.upper_n, max=BIG)), p1(rows.valid),
+        p1(rows.restitution), p3(rows.rA), p3(rows.rB), p1(rows.base_dist),
+        p1(rows.valid & ~rows.soft),
+    ]
+    if rows.sA_n is not None:
+        parts += [
+            p3(rows.sA_n), p3(rows.sB_n), p3(rows.sA_t1), p3(rows.sB_t1),
+            p3(rows.sA_t2), p3(rows.sB_t2), p3(rows.roll_t1),
+            p3(rows.roll_t2),
+            p1(rows.em_spin), p1(rows.em_roll1), p1(rows.em_roll2),
+            p1(rows.rhs_spin), p1(rows.rhs_roll1), p1(rows.rhs_roll2),
+            p1(rows.spin_friction), p1(rows.roll_friction),
+        ]
+    tbl = torch.cat(parts, dim=0).contiguous()
+    a_p = torch.nn.functional.pad(rows.a, (0, pad))
+    b_p = torch.nn.functional.pad(rows.b, (0, pad))
+    return tbl, a_p, b_p, Rp
+
+
+def _unpack(tbl, with_sr: bool):
+    """Named row views of the table: [Rp] tensors, 3-tuples for vectors."""
+    d = {}
+    for name, r in _B.items():
+        d[name] = (tuple(tbl[r + c] for c in range(3)) if name in _VEC3
+                   else tbl[r])
+    if with_sr:
+        for name, r in _S.items():
+            r += C_BASE
+            d[name] = (tuple(tbl[r + c] for c in range(3)) if name in _VEC3
+                       else tbl[r])
+    return d
+
+
+def _dot3(a, b):
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+
+def _drel(d, JaA, JaB, va, wa, vb, wb):
+    return _dot3(d, va) + _dot3(JaA, wa) - _dot3(d, vb) + _dot3(JaB, wb)
+
+
+def _split_g(g):
+    Rp = g.shape[1] // 2
+    return (tuple(g[c, :Rp] for c in range(3)),
+            tuple(g[c + 3, :Rp] for c in range(3)),
+            tuple(g[c, Rp:] for c in range(3)),
+            tuple(g[c + 3, Rp:] for c in range(3)))
+
+
+def _where(c, x):
+    return torch.where(c, x, torch.zeros_like(x))
+
+
+def _circle(i1, i2, max_len):
+    ln = torch.sqrt(i1 * i1 + i2 * i2)
+    sc = torch.where(ln > torch.clamp(max_len, min=1e-12),
+                     max_len / torch.clamp(ln, min=1e-12),
+                     torch.ones_like(ln))
+    return i1 * sc, i2 * sc
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def solve_iteration_plain(tbl, imp_t, g, with_sr: bool):
+    """K1's plain version. tbl [C,Rp]; imp_t [6,Rp]; g [6,2Rp] gathered
+    endpoint deltas (a-half, then b-half). Returns (imp_t' [6,Rp],
+    upd [12,Rp]: ua lin 0:3 | ua ang 3:6 | ub lin 6:9 | ub ang 9:12)."""
+    C = _unpack(tbl, with_sr)
+    dva, dwa, dvb, dwb = _split_g(g)
+    n_imp, f1, f2, s_imp, ri1, ri2 = (imp_t[i] for i in range(6))
+
+    dlam = (C["rhs_n"] - _drel(C["n"], C["JaA_n"], C["JaB_n"],
+                               dva, dwa, dvb, dwb)) * C["em_n"]
+    new_n = torch.minimum(torch.clamp(n_imp + dlam, min=0.0), C["upper_n"])
+    dn = new_n - n_imp
+    d1 = (C["rhs_1"] - _drel(C["t1"], C["JaA_1"], C["JaB_1"],
+                             dva, dwa, dvb, dwb)) * C["em_1"]
+    d2 = (C["rhs_2"] - _drel(C["t2"], C["JaA_2"], C["JaB_2"],
+                             dva, dwa, dvb, dwb)) * C["em_2"]
+    imp1, imp2 = _circle(f1 + d1, f2 + d2, C["friction"] * new_n)
+    ok = C["valid"] > 0.5
+    dn_ = _where(ok, dn)
+    df1_ = _where(ok, imp1 - f1)
+    df2_ = _where(ok, imp2 - f2)
+    lin = [C["n"][c] * dn_ + C["t1"][c] * df1_ + C["t2"][c] * df2_
+           for c in range(3)]
+    ua_l = [C["inv_mA"] * lin[c] for c in range(3)]
+    ub_l = [-C["inv_mB"] * lin[c] for c in range(3)]
+    ua_a = [C["tA_n"][c] * dn_ + C["tA_1"][c] * df1_ + C["tA_2"][c] * df2_
+            for c in range(3)]
+    ub_a = [C["tB_n"][c] * dn_ + C["tB_1"][c] * df1_ + C["tB_2"][c] * df2_
+            for c in range(3)]
+    if with_sr:
+        rel_s = _dot3(C["n"], dwa) - _dot3(C["n"], dwb)
+        max_s = C["spin_f"] * new_n
+        new_s = torch.minimum(torch.maximum(
+            s_imp + (C["rhs_spin"] - rel_s) * C["em_spin"], -max_s), max_s)
+        ds = new_s - s_imp
+        dr1 = (C["rhs_roll1"] - (_dot3(C["roll_t1"], dwa)
+                                 - _dot3(C["roll_t1"], dwb))) * C["em_roll1"]
+        dr2 = (C["rhs_roll2"] - (_dot3(C["roll_t2"], dwa)
+                                 - _dot3(C["roll_t2"], dwb))) * C["em_roll2"]
+        r1n, r2n = _circle(ri1 + dr1, ri2 + dr2, C["roll_f"] * new_n)
+        ds_ = _where(ok, ds)
+        dr1_ = _where(ok, r1n - ri1)
+        dr2_ = _where(ok, r2n - ri2)
+        for c in range(3):
+            ua_a[c] = ua_a[c] + C["sA_n"][c] * ds_ \
+                + C["sA_t1"][c] * dr1_ + C["sA_t2"][c] * dr2_
+            ub_a[c] = ub_a[c] + C["sB_n"][c] * ds_ \
+                + C["sB_t1"][c] * dr1_ + C["sB_t2"][c] * dr2_
+        s_out, r1_out, r2_out = new_s, r1n, r2n
+    else:
+        s_out, r1_out, r2_out = s_imp, ri1, ri2
+    oimp = torch.stack([new_n, imp1, imp2, s_out, r1_out, r2_out])
+    oupd = torch.stack(ua_l + ua_a + ub_l + ub_a)
+    return oimp, oupd
+
+
+def restitution_iteration_plain(tbl, dyn, imp3_t, g):
+    """K3a's plain version. dyn [2,Rp]: rhs_n | active; imp3_t [3,Rp].
+    Returns (imp3_t' [3,Rp], upd [12,Rp])."""
+    C = _unpack(tbl, False)
+    dva, dwa, dvb, dwb = _split_g(g)
+    rhs_n = dyn[0]
+    active = dyn[1] > 0.5
+    n_i, f1, f2 = imp3_t[0], imp3_t[1], imp3_t[2]
+    dlam = (rhs_n - _drel(C["n"], C["JaA_n"], C["JaB_n"],
+                          dva, dwa, dvb, dwb)) * C["em_n"]
+    new_n = torch.clamp(n_i + dlam, min=0.0)
+    dn = new_n - n_i
+    d1 = -_drel(C["t1"], C["JaA_1"], C["JaB_1"], dva, dwa, dvb, dwb) \
+        * C["em_1"]
+    d2 = -_drel(C["t2"], C["JaA_2"], C["JaB_2"], dva, dwa, dvb, dwb) \
+        * C["em_2"]
+    imp1, imp2 = _circle(f1 + d1, f2 + d2, C["friction"] * new_n)
+    dn_ = _where(active, dn)
+    df1_ = _where(active, imp1 - f1)
+    df2_ = _where(active, imp2 - f2)
+    lin = [C["n"][c] * dn_ + C["t1"][c] * df1_ + C["t2"][c] * df2_
+           for c in range(3)]
+    ua_l = [C["inv_mA"] * lin[c] for c in range(3)]
+    ub_l = [-C["inv_mB"] * lin[c] for c in range(3)]
+    ua_a = [C["tA_n"][c] * dn_ + C["tA_1"][c] * df1_ + C["tA_2"][c] * df2_
+            for c in range(3)]
+    ub_a = [C["tB_n"][c] * dn_ + C["tB_1"][c] * df1_ + C["tB_2"][c] * df2_
+            for c in range(3)]
+    return (torch.stack([new_n, imp1, imp2]),
+            torch.stack(ua_l + ua_a + ub_l + ub_a))
+
+
+def relvel_plain(tbl, g):
+    """K3b's plain version: normal relative velocity per row, [1,Rp]."""
+    C = _unpack(tbl, False)
+    va, wa, vb, wb = _split_g(g)
+    return _drel(C["n"], C["JaA_n"], C["JaB_n"], va, wa, vb, wb)[None, :]
+
+
+def ngs_iteration_plain(tbl, g, rate: float, max_corr: float):
+    """K2's plain version. g [6,2Rp] gathered position/rotation deltas.
+    Returns (upd [12,Rp], err [1,Rp])."""
+    C = _unpack(tbl, False)
+    dpa, daa, dpb, dab = _split_g(g)
+
+    def cross(a, b):
+        return (a[1] * b[2] - a[2] * b[1],
+                a[2] * b[0] - a[0] * b[2],
+                a[0] * b[1] - a[1] * b[0])
+
+    ca = cross(daa, C["rA"])
+    cb = cross(dab, C["rB"])
+    corr_rel = tuple(dpa[c] + ca[c] - dpb[c] - cb[c] for c in range(3))
+    dist = C["base_dist"] + _dot3(corr_rel, C["n"])
+    error = torch.clamp(torch.clamp(-dist, min=0.0), max=max_corr)
+    error = _where(C["ngs_valid"] > 0.5, error)
+    lam = error * rate * C["em_n"]
+    ua_l = [C["inv_mA"] * C["n"][c] * lam for c in range(3)]
+    ua_a = [C["tA_n"][c] * lam for c in range(3)]
+    ub_l = [-C["inv_mB"] * C["n"][c] * lam for c in range(3)]
+    ub_a = [C["tB_n"][c] * lam for c in range(3)]
+    return torch.stack(ua_l + ua_a + ub_l + ub_a), error[None, :]
+
+
+# ---------------------------------------------------------------------------
+# build and load
+# ---------------------------------------------------------------------------
+
+_SRC = Path(__file__).resolve().parents[1] / "csrc" / "solver_kernels.cu"
+_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "edyn_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC",
+              # no contraction into FMAs: each kernel rounds op by op as its
+              # plain version does (parity first)
+              "-fmad=false"]
+_lib = None
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+
+
+def build_library(verbose: bool = False) -> Path:
+    """Compile ``csrc/solver_kernels.cu`` into ``build/edyn_tpu_torch/``
+    (named by the source's hash, so an edited source rebuilds). Returns the
+    library's path."""
+    src = _SRC.read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = _BUILD_DIR / f"solver_kernels_{tag}.so"
+    if out.exists():
+        return out
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SRC)]
+    if verbose:
+        cmd.insert(1, "-Xptxas=-v")
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    if verbose:
+        print(proc.stdout + proc.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build_library()))
+        P, I = ctypes.c_void_p, ctypes.c_int
+        sigs = {
+            "edyn_solve_iteration": [P, P, P, P, P, I, I, P],
+            "edyn_restitution_iteration": [P, P, P, P, P, P, I, P],
+            "edyn_relvel": [P, P, P, I, P],
+            "edyn_ngs_iteration": [P, P, P, P, I, ctypes.c_float,
+                                   ctypes.c_float, P],
+        }
+        for name, args in sigs.items():
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _on_cpu(*ts) -> bool:
+    devs = {t.device.type for t in ts}
+    if devs == {"cpu"}:
+        return True
+    if devs != {"cuda"} or len({t.device for t in ts}) != 1:
+        raise ValueError(f"tensors on {sorted({str(t.device) for t in ts})}:"
+                         " all on the CPU or all on one CUDA device")
+    return False
+
+
+def _check(t, name, shape):
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: float32 expected, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(shape)} expected, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: contiguous tensor expected")
+
+
+def _stream(t):
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _launched(name, rc):
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+    LAUNCHES[name] += 1
+
+
+def _table_dims(tbl, with_sr):
+    C, Rp = tbl.shape
+    want = C_BASE + (C_SR if with_sr else 0)
+    if C < want:
+        raise ValueError(f"table has {C} rows, {want} needed")
+    return C, Rp
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def solve_iteration(tbl, imp_t, g, with_sr: bool):
+    """K1: one velocity iteration (see ``solve_iteration_plain``)."""
+    if _on_cpu(tbl, imp_t, g):
+        return solve_iteration_plain(tbl, imp_t, g, with_sr)
+    C, Rp = _table_dims(tbl, with_sr)
+    _check(tbl, "tbl", (C, Rp))
+    _check(imp_t, "imp_t", (6, Rp))
+    _check(g, "g", (6, 2 * Rp))
+    oimp = torch.empty((6, Rp), dtype=torch.float32, device=tbl.device)
+    oupd = torch.empty((12, Rp), dtype=torch.float32, device=tbl.device)
+    rc = _load().edyn_solve_iteration(
+        tbl.data_ptr(), imp_t.data_ptr(), g.data_ptr(), oimp.data_ptr(),
+        oupd.data_ptr(), Rp, int(bool(with_sr)), _stream(tbl))
+    _launched("solve_iteration", rc)
+    return oimp, oupd
+
+
+def restitution_iteration(tbl, dyn, imp3_t, g):
+    """K3a: one restitution inner iteration."""
+    if _on_cpu(tbl, dyn, imp3_t, g):
+        return restitution_iteration_plain(tbl, dyn, imp3_t, g)
+    C, Rp = _table_dims(tbl, False)
+    _check(tbl, "tbl", (C, Rp))
+    _check(dyn, "dyn", (2, Rp))
+    _check(imp3_t, "imp3_t", (3, Rp))
+    _check(g, "g", (6, 2 * Rp))
+    oimp = torch.empty((3, Rp), dtype=torch.float32, device=tbl.device)
+    oupd = torch.empty((12, Rp), dtype=torch.float32, device=tbl.device)
+    rc = _load().edyn_restitution_iteration(
+        tbl.data_ptr(), dyn.data_ptr(), imp3_t.data_ptr(), g.data_ptr(),
+        oimp.data_ptr(), oupd.data_ptr(), Rp, _stream(tbl))
+    _launched("restitution_iteration", rc)
+    return oimp, oupd
+
+
+def relvel(tbl, g):
+    """K3b: normal relative velocity per row, [1,Rp]."""
+    if _on_cpu(tbl, g):
+        return relvel_plain(tbl, g)
+    C, Rp = _table_dims(tbl, False)
+    _check(tbl, "tbl", (C, Rp))
+    _check(g, "g", (6, 2 * Rp))
+    out = torch.empty((1, Rp), dtype=torch.float32, device=tbl.device)
+    rc = _load().edyn_relvel(tbl.data_ptr(), g.data_ptr(), out.data_ptr(),
+                             Rp, _stream(tbl))
+    _launched("relvel", rc)
+    return out
+
+
+def ngs_iteration(tbl, g, rate: float, max_corr: float):
+    """K2: one NGS position iteration; returns (upd [12,Rp], err [1,Rp])."""
+    if _on_cpu(tbl, g):
+        return ngs_iteration_plain(tbl, g, rate, max_corr)
+    C, Rp = _table_dims(tbl, False)
+    _check(tbl, "tbl", (C, Rp))
+    _check(g, "g", (6, 2 * Rp))
+    upd = torch.empty((12, Rp), dtype=torch.float32, device=tbl.device)
+    err = torch.empty((1, Rp), dtype=torch.float32, device=tbl.device)
+    rc = _load().edyn_ngs_iteration(
+        tbl.data_ptr(), g.data_ptr(), upd.data_ptr(), err.data_ptr(), Rp,
+        float(rate), float(max_corr), _stream(tbl))
+    _launched("ngs_iteration", rc)
+    return upd, err

@@ -1,0 +1,244 @@
+"""The fixed-dt simulation step (counterpart of
+``edyn_tpu/simulation/stepper.py``; reference:
+stepper_sequential.cpp:28-152, solver.cpp:387-468). Phase order:
+
+  AABBs -> broadphase (or the pair-list carry) -> manifold slots ->
+  narrowphase -> islands & sleep -> contact rows -> solve phase
+  (restitution -> gravity -> rhs refresh -> warm start -> velocity
+  iterations -> impulse writeback -> integrate -> position iterations)
+
+PyTorch runs eagerly, so each device-side branch of the JAX step
+(``lax.cond`` / ``while_loop``) is a host-synced Python branch here; each
+site says so where it is taken.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..collision.broadphase import decode_keys, find_pairs
+from ..collision.manifold import set_drop, update_slots
+from ..collision.narrowphase import update_contacts
+from ..config import PAIR_SEPARATION_MARGIN, Settings
+from ..dynamics import islands as islands_mod
+from ..dynamics import solver as solver_mod
+from ..dynamics import solver_kernels as sk
+from ..dynamics.position import solve_positions
+from ..math import quat
+from ..shapes.aabb import compute_aabbs
+from ..shapes.params import ShapeType
+
+
+@dataclasses.dataclass(frozen=True)
+class SceneMeta:
+    """Static scene facts and padded capacities (field meanings as in
+    ``edyn_tpu.SceneMeta``; the kernel-selection flags have no counterpart:
+    the tensors' device selects the kernel)."""
+    types_present: frozenset
+    max_pairs: int
+    bucket_cap: int | None = None
+    island_iters: int = 4
+    wide_cap: int = 64
+    max_rows: int | None = None
+    has_spin_roll: bool = True
+    has_joints: bool = False
+    sleep_gating: bool = True
+
+
+def apply_gravity(state, dt: float):
+    """reference: include/edyn/sys/apply_gravity.hpp:12."""
+    active = state.awake_dynamic
+    linvel = torch.where(active[:, None], state.linvel + state.gravity * dt,
+                         state.linvel)
+    return dataclasses.replace(state, linvel=linvel)
+
+
+def integrate_velocities(state, dv, dw, dt: float):
+    """Apply solver deltas and integrate transforms (reference:
+    island_solver.cpp:358-376)."""
+    active = state.awake_dynamic
+    linvel = torch.where(active[:, None], state.linvel + dv, state.linvel)
+    angvel = torch.where(active[:, None], state.angvel + dw, state.angvel)
+    moving = active | (state.is_kinematic & state.valid)
+    pos = torch.where(moving[:, None], state.pos + linvel * dt, state.pos)
+    orn = torch.where(moving[:, None], quat.integrate(state.orn, angvel, dt),
+                      state.orn)
+    return dataclasses.replace(state, linvel=linvel, angvel=angvel, pos=pos,
+                               orn=orn)
+
+
+def _solve_phase(state, man, rows, settings: Settings, use_rest: bool):
+    """Everything row-dependent between narrowphase and the step epilogue,
+    on a (possibly prefix-sliced) row table."""
+    dt = settings.fixed_dt
+    tbl, a_p, b_p, Rp = sk.pack_rows_t(rows)
+    ab_p = torch.cat([a_p, b_p])
+
+    if use_rest:
+        linvel, angvel = solver_mod.solve_restitution(
+            state, tbl, ab_p, settings.num_restitution_iterations,
+            settings.num_individual_restitution_iterations)
+        state = dataclasses.replace(state, linvel=linvel, angvel=angvel)
+
+    state = apply_gravity(state, dt)
+
+    # refresh the rhs rows of the packed table (rhs_n 48 | rhs_1 49 |
+    # rhs_2 50; spin/roll rhs at C_BASE+27:30)
+    rows = solver_mod.refresh_contact_rhs(rows, state, dt, use_rest)
+    pad = Rp - rows.valid.shape[0]
+
+    def prhs(*xs):
+        return torch.nn.functional.pad(torch.stack(xs), (0, pad))
+
+    tbl[48:51] = prhs(rows.rn.rhs, rows.r1.rhs, rows.r2.rhs)
+    with_sr = rows.sA_n is not None
+    if with_sr:
+        tbl[sk.C_BASE + 27:sk.C_BASE + 30] = prhs(
+            rows.rhs_spin, rows.rhs_roll1, rows.rhs_roll2)
+
+    # warm start + velocity iterations; deltas travel transposed [6, N]
+    N = state.capacity
+    M, P = man.point_valid.shape
+    slot = rows.row_slot
+    imp_packed = torch.cat([
+        man.normal_impulse[..., None], man.friction_impulse,
+        man.spin_impulse[..., None], man.roll_impulse], dim=-1)
+    imp6 = imp_packed.reshape(M * P, 6)[slot]
+    dvw = solver_mod.warm_start_contacts(
+        rows, imp6, torch.zeros((N, 6), device=state.device))
+    imp_t = torch.nn.functional.pad(imp6, (0, 0, 0, pad)).T.contiguous()
+    dvw_t = dvw.T.contiguous()
+    for _ in range(settings.num_solver_velocity_iterations):
+        imp_t, dvw_t = solver_mod.solve_contacts_once(tbl, imp_t, dvw_t,
+                                                      ab_p, with_sr)
+    dvw = dvw_t.T
+    imp6 = imp_t.T[:rows.valid.shape[0]]
+
+    # store applied impulses for next-step warm starting: one packed
+    # scatter through the row compaction map, invalid rows dropped
+    slot_w = torch.where(rows.valid, slot, torch.full_like(slot, M * P))
+    flat = set_drop(imp_packed.reshape(M * P, 6), slot_w, imp6)
+    flat = flat.reshape(M, P, 6)
+    man = dataclasses.replace(
+        man,
+        normal_impulse=flat[..., 0].contiguous(),
+        friction_impulse=flat[..., 1:3].contiguous(),
+        spin_impulse=flat[..., 3].contiguous(),
+        roll_impulse=flat[..., 4:6].contiguous())
+    state = dataclasses.replace(state, contacts=man)
+
+    state = integrate_velocities(state, dvw[:, 0:3], dvw[:, 3:6], dt)
+    return solve_positions(state, tbl, ab_p,
+                           settings.num_solver_position_iterations)
+
+
+def prepare_rows(state, settings: Settings, meta: SceneMeta):
+    """The step up to the contact rows: AABBs, broadphase, manifolds,
+    narrowphase, islands and row building. Returns (state, man, rows,
+    counters) where counters = (broadphase pairs dropped, narrowphase
+    candidates dropped, manifold slots dropped)."""
+    dt = settings.fixed_dt
+    amin, amax = compute_aabbs(state.shape_type, state.origin_pos(),
+                               state.orn, state.convex)
+    # carried pair-admission boxes: re-seated (swept tight box + margin)
+    # only when the swept tight box escapes them
+    swept = state.linvel * dt
+    tmin = amin + torch.clamp(swept, max=0.0)
+    tmax = amax + torch.clamp(swept, min=0.0)
+    escaped = torch.any((tmin < state.bp_aabb_min)
+                        | (tmax > state.bp_aabb_max), dim=-1)
+    bp_min = torch.where(escaped[:, None], tmin - PAIR_SEPARATION_MARGIN,
+                         state.bp_aabb_min)
+    bp_max = torch.where(escaped[:, None], tmax + PAIR_SEPARATION_MARGIN,
+                         state.bp_aabb_max)
+    state = dataclasses.replace(state, aabb_min=amin, aabb_max=amax,
+                                bp_aabb_min=bp_min, bp_aabb_max=bp_max)
+
+    # pair-list carry: when no valid body's box re-seated, last step's
+    # sorted pair list is what find_pairs would emit. Reused only when the
+    # last step dropped no pair: a truncated list must be recomputed so the
+    # drop keeps being reported until the world grows (unlike the JAX
+    # package, whose carry reports 0 and so never grows).
+    # device branch (stepper.py:367 in the JAX package): host-synced here
+    validb = state.valid & (state.shape_type != ShapeType.NONE)
+    can_reuse = (bool(state.bp_carry_ok)
+                 and not bool(torch.any(escaped & validb))
+                 and int(state.overflow[0]) == 0)
+    P = meta.max_pairs
+    if can_reuse:
+        keys = state.contacts.sort_key[:P]
+        pvalid = state.contacts.sort_pvalid[:P]
+        _, pa, pb = decode_keys(keys, state.capacity)
+        bp_dropped = 0
+    else:
+        keys, pa, pb, pvalid, bp_dropped = find_pairs(state, P, meta.wide_cap)
+    state = dataclasses.replace(
+        state, bp_carry_ok=torch.tensor(True, device=state.device))
+
+    old = state.contacts
+    man, edge_dropped, man_dropped, pairs_same = update_slots(
+        old, keys, pa, pb, pvalid)
+    # bodies whose near-contact manifold was destroyed must wake
+    edge_wake = edge_dropped & torch.any(old.point_valid, -1)
+    wake_bodies = torch.zeros((state.capacity,), dtype=torch.bool,
+                              device=state.device)
+    wake_bodies[old.body_a[edge_wake].long()] = True
+    wake_bodies[old.body_b[edge_wake].long()] = True
+    man, np_dropped = update_contacts(state, man, settings.collision_threshold,
+                                      meta.types_present, meta.bucket_cap, dt)
+
+    # steady-state island skip: unchanged pair list and pointed mask for
+    # >= 2*RESET_PERIOD steps
+    pointed = man.valid & torch.any(man.point_valid, -1)
+    steady = pairs_same and bool(torch.all(pointed == state.edge_pointed))
+    stable_steps = (state.island_stable_steps + 1 if steady
+                    else torch.zeros_like(state.island_stable_steps))
+    state = dataclasses.replace(state, contacts=man, edge_pointed=pointed,
+                                island_stable_steps=stable_steps)
+    skip_labels = int(stable_steps) >= 2 * islands_mod.RESET_PERIOD
+    state = islands_mod.update_sleep(state, man, dt, settings.enable_sleeping,
+                                     meta.island_iters,
+                                     wake_bodies=wake_bodies,
+                                     skip_labels=skip_labels)
+
+    rows = solver_mod.build_contact_rows(
+        state, man, dt, settings.num_restitution_iterations > 0,
+        settings.mass_splitting, meta.has_spin_roll, meta.max_rows)
+    return state, man, rows, (bp_dropped, np_dropped, man_dropped)
+
+
+def solve_width(rows, meta: SceneMeta) -> int:
+    """The sleep-gating ladder: the narrowest of R/8, 3R/4 and R (rounded up
+    to 256) that holds the live rows. Numbers are identical in every tier.
+    Device branch (stepper.py:452 in the JAX package): host-synced."""
+    Rfull = rows.valid.shape[0]
+    if not (meta.sleep_gating and meta.max_rows is not None):
+        return Rfull
+    quantum = 256
+    for num, den in ((1, 8), (3, 4)):
+        Rs = max(quantum, -(-(Rfull * num // den) // quantum) * quantum)
+        if Rs < Rfull and rows.count <= Rs:
+            return Rs
+    return Rfull
+
+
+def physics_step(state, settings: Settings, meta: SceneMeta):
+    """One fixed-dt step of the whole world."""
+    dt = settings.fixed_dt
+    state, man, rows, (bp_dropped, np_dropped, man_dropped) = prepare_rows(
+        state, settings, meta)
+    width = solve_width(rows, meta)
+    if width < rows.valid.shape[0]:
+        rows_w = solver_mod.rows_prefix(rows, width)
+    else:
+        rows_w = rows
+    state = _solve_phase(state, man, rows_w, settings,
+                         settings.num_restitution_iterations > 0)
+    return dataclasses.replace(
+        state,
+        step_count=state.step_count + 1,
+        sim_time=state.sim_time + dt,
+        overflow=torch.tensor([bp_dropped, np_dropped, rows.dropped, 0,
+                               man_dropped], dtype=torch.int32,
+                              device=state.device))

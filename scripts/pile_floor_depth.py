@@ -1,0 +1,83 @@
+#!/usr/bin/env python3
+"""How deep the bodies of a falling ``mixed_pile`` sink into the floor, in
+either package, step by step.
+
+    JAX_PLATFORMS=cpu python3 scripts/pile_floor_depth.py --package jax \\
+        --bodies 2000 --steps 120
+    python3 scripts/pile_floor_depth.py --package torch --device cpu \\
+        --bodies 2000 --steps 120
+
+Builds ``mixed_pile(--bodies, seed=--seed)`` with the Settings defaults and
+steps it one step at a time, growing the world after any step that dropped
+pairs (the port's policy; the JAX package's own ``step`` checks every 16th
+step only). After each step it prints the lowest body centre, the lowest
+body top (AABB) and the median centre of the dynamic bodies; the last line
+is one JSON object with the per-step lowest centres. Only the chosen
+package is imported, so the two runs are separate processes.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+
+def _world(package: str, n_bodies: int, seed: int, device: str):
+    if package == "jax":
+        import edyn_tpu as et
+        from edyn_tpu.utils.scenes import mixed_pile
+        b, _ = mixed_pile(n_bodies=n_bodies, seed=seed)
+        return et.make_world(b)
+    import edyn_tpu_torch as et
+    from edyn_tpu_torch.utils.scenes import mixed_pile
+    b, _ = mixed_pile(n_bodies=n_bodies, seed=seed)
+    return et.make_world(b, device=device)
+
+
+def _host(x):
+    return x.cpu().numpy() if hasattr(x, "cpu") else __import__(
+        "numpy").asarray(x)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--package", choices=("jax", "torch"), required=True)
+    ap.add_argument("--bodies", type=int, default=2000)
+    ap.add_argument("--steps", type=int, default=120)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="the port's device (torch only)")
+    a = ap.parse_args()
+    import numpy as np
+
+    w = _world(a.package, a.bodies, a.seed, a.device)
+    t0 = time.perf_counter()
+    lowest = []
+    for i in range(a.steps):
+        w.step(1)
+        w._maybe_grow()
+        st = w.state
+        dyn = _host(st.is_dynamic)
+        y = _host(st.pos)[dyn][:, 1]
+        top = _host(st.aabb_max)[dyn][:, 1]
+        lowest.append(float(y.min()))
+        print(f"step {i + 1}: lowest centre {y.min():.5f}, lowest top "
+              f"{top.min():.5f}, median centre {np.median(y):.5f}, "
+              f"centres below 0: {int((y < 0).sum())}, max_pairs "
+              f"{w.meta.max_pairs}", flush=True)
+    print(json.dumps({"package": a.package, "bodies": a.bodies,
+                      "seed": a.seed, "steps": a.steps,
+                      "seconds": time.perf_counter() - t0,
+                      "lowest_centre": min(lowest),
+                      "lowest_centre_final": lowest[-1],
+                      "lowest_centre_per_step": lowest}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
