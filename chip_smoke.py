@@ -7,22 +7,32 @@ Phases, each of which raises on failure (the run then exits non-zero and
 prints no result):
 
 1. Device and build: the card's name and power limit from ``nvidia-smi``,
-   then ``nvcc`` builds ``edyn_tpu_torch/csrc/solver_kernels.cu``.
+   then one ``nvcc`` per source of ``edyn_tpu_torch/csrc/`` (solver
+   kernels K1-K3b, the UNIFIED narrowphase kernel K4, the overlap count
+   K5), all started together.
 2. Kernels against their plain PyTorch versions on the card, on random
-   inputs at the main path's full width (C = 97 table rows, Rp = 160,128):
-   max abs difference, the kernel's device time with its inputs read from
-   device memory and with them in L2 (CUDA-graph replays), the plain
-   version's, one call with its host work, and the memory bound.
+   inputs at the main path's full width: the solver kernels at C = 97
+   table rows, Rp = 160,128; K4 on 190,000 random pairs of the 10k pile's
+   side table (C = 84), with and without rim axes; K5 on 65,573 random
+   AABBs. Max abs difference, the kernel's device time with its inputs read
+   from device memory and with them in L2 (CUDA-graph replays), the plain
+   version's, one call with its host work, and the bound.
 3. The main path: ``mixed_pile(10_000)`` -> ``make_world`` (cuda) ->
    ``World.step_n(120)``, with every kernel's launch count set to 0 just
    before and read just after. Checks finite state, launch counts within
    (0, per-step maximum x steps], and the pile checks of the JAX package's
    ``test_mixed_pile_settles_and_no_tunnel`` (see ``FLOOR_BURIAL``); then
-   that test itself, a 60-body pile settled for 240 steps, on the card.
-4. The kernels again on the packed row table of a real step of that pile.
+   the ``suggest_max_pairs`` entry point once on the landed pile (K5, its
+   count equal to the plain one); then that JAX test itself, a 60-body pile
+   settled for 240 steps, on the card.
+4. The kernels again on a real step of that pile: the solver kernels on its
+   packed row table; K4 on its live UNIFIED pairs, against its plain
+   version and against the port's ``support_sat.collide_support`` under
+   the parity contract of ``tests/test_pallas_narrowphase.py``.
 5. Card against CPU: one step of a settled 1,000-body pile, on the card
-   and from a copy on the CPU (plain versions), held per body at the
-   whole-step tolerances of the test suite (see ``card_vs_cpu``).
+   (K4 in the UNIFIED bucket) and from a copy on the CPU (``support_sat``
+   there, plain solver versions), held per body at the whole-step
+   tolerances of the test suite (see ``card_vs_cpu``).
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -61,7 +71,18 @@ KERNELS = {
 }
 FLOPS_K1 = {False: 150, True: 250}  # without / with the spin-roll rows
 SOURCE = "edyn_tpu_torch/csrc/solver_kernels.cu"
+SOURCES = ("solver_kernels", "unified_kernel", "overlap_count")
+K4 = dict(name="collide_support",
+          source="edyn_tpu_torch/csrc/unified_kernel.cu",
+          replaces="edyn_tpu/collision/kernels/pallas_unified.py:568")
+K5 = dict(name="count_overlaps",
+          source="edyn_tpu_torch/csrc/overlap_count.cu",
+          replaces="edyn_tpu/ops/overlap_count.py:85")
+K5_OPS_PER_PAIR = 8   # 6 interval compares, the validity test, the count
 TOL = 1e-5  # |kernel - plain| <= TOL * (1 + |plain|): same rounding, f32
+K4_WITHIN = 0.999  # share of K4's pairs that must be within TOL everywhere
+THRESHOLD = 0.01   # Settings.collision_threshold
+K4_PAIRS = 190_000  # random pairs: about the landing pile's live count
 # the main path: the bench's pile, stepped until most of it has landed
 N_BODIES = 10_000
 STEPS = 120
@@ -240,10 +261,264 @@ def check_kernels(inp, with_sr: bool, label: str) -> dict:
     return out
 
 
+def count_ops(fn):
+    """Elementwise operations ``fn`` runs, counted from the ATen calls it
+    makes: the elements each arithmetic, compare, select and logic op
+    writes, and the elements each reduction reads. Views, gathers, copies
+    and fills are free. Returns (total, {ATen op: count})."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    ew = {"add", "sub", "rsub", "mul", "div", "neg", "reciprocal", "sqrt",
+          "abs", "clamp", "clamp_min", "clamp_max", "maximum", "minimum",
+          "where", "gt", "ge", "lt", "le", "eq", "ne", "bitwise_and",
+          "bitwise_or", "bitwise_not", "logical_and", "logical_or",
+          "logical_not"}
+    red = {"amax", "amin", "argmax", "argmin", "max", "min", "sum", "all",
+           "any"}
+
+    by_op = {}
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__.rstrip("_")
+            n = (out.numel() if name in ew and hasattr(out, "numel")
+                 else args[0].numel() if name in red else 0)
+            if n:
+                by_op[name] = by_op.get(name, 0) + n
+            return out
+
+    with Count():
+        fn()
+    return sum(by_op.values()), by_op
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS_PER_S
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, ops=ops)
+
+
+# Share of the pairs with contact allowed beyond the contract's deepest-depth
+# and normal limits. tests/test_pallas_narrowphase.py holds those limits on
+# every one of 256 random pairs. On the live pairs of the landed 10k pile
+# (115,801 pairs, 36,573 with contact) the JAX package's own kernel and its
+# jnp path, run op by op on the CPU on the same inputs, differ beyond them on
+# 2-3 pairs (deepest depth up to 0.12 m) exactly as K4 and support_sat do on
+# the card (scripts/torch_unified_diff.py, then its --replay). 2e-4 allows
+# about twice that count.
+CONTRACT_TAIL = 2e-4
+
+
+def parity_contract(got, pv_ref, d_ref, n_ref, label: str) -> dict:
+    """tests/test_pallas_narrowphase.py's contract between a K4 output
+    [K, 4, 12] and a reference's point validity, distance and normal:
+    contact existence differs on < 1% of pairs, the deepest depth within
+    5e-4 and its normal within 2e-3 (on all but CONTRACT_TAIL of the pairs
+    with contact), point counts within 1 on > 97% of the shallow pairs."""
+    import torch
+    pv_got = got[..., 11] > 0.5
+    d_got = torch.where(pv_got, got[..., 10], torch.full_like(d_ref, 1e9))
+    d_ref = torch.where(pv_ref, d_ref, torch.full_like(d_ref, 1e9))
+    has_got, has_ref = pv_got.any(-1), pv_ref.any(-1)
+    exist = float((has_got != has_ref).float().mean())
+    both = has_got & has_ref
+    n_both = max(int(both.sum()), 1)
+
+    def deepest_normal(n, d):
+        i = d.argmin(-1)
+        return n[torch.arange(len(i), device=n.device), i]
+    depth = (d_got.min(-1).values - d_ref.min(-1).values).abs()[both]
+    normal = (deepest_normal(got[..., 6:9], d_got)
+              - deepest_normal(n_ref, d_ref)).abs().amax(-1)[both]
+    shallow = both & (d_ref.min(-1).values > -0.05)
+    count_ok = float(((pv_got.sum(-1) - pv_ref.sum(-1)).abs()[shallow] <= 1)
+                     .float().mean()) if bool(shallow.any()) else 1.0
+    out = dict(pairs=len(got), existence_differs=exist,
+               with_contact=int(both.sum()),
+               deepest_depth_max=float(depth.max()) if len(depth) else 0.0,
+               deepest_depth_over_5e4=int((depth > 5e-4).sum()),
+               deepest_normal_max=float(normal.max()) if len(normal) else 0.0,
+               deepest_normal_over_2e3=int((normal > 2e-3).sum()),
+               shallow_count_within_1=count_ok)
+    tail = CONTRACT_TAIL * n_both
+    if not (exist < 0.01 and out["deepest_depth_over_5e4"] <= tail
+            and out["deepest_normal_over_2e3"] <= tail and count_ok > 0.97):
+        raise AssertionError(f"[{label}] K4 breaks the parity contract: "
+                             f"{out}")
+    return out
+
+
+def check_unified(tbl, ka, kb, dims, rim: bool, label: str,
+                  timed: bool) -> dict:
+    """K4 against its plain version on the same pairs: every output element
+    within TOL x (1 + |plain|) on at least K4_WITHIN of the pairs, and the
+    parity contract on all of them. Timed like the solver kernels when
+    ``timed``."""
+    import torch
+    from edyn_tpu_torch.collision.kernels import unified_kernel as uk
+
+    def calls(t, a, b):
+        return (lambda: uk.collide_support_unified(t, a, b, dims, THRESHOLD,
+                                                   rim),
+                lambda: uk.collide_support_plain(t[:, a], t[:, b], dims,
+                                                 THRESHOLD, rim))
+    kern, plain = calls(tbl, ka, kb)
+    got = kern()
+    torch.cuda.synchronize()
+    want = plain()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"[{label}] K4 output not finite")
+    d = (got - want).abs().reshape(len(ka), -1)
+    within = (d <= TOL * (1 + want.abs().reshape(len(ka), -1))).all(-1)
+    share = float(within.float().mean())
+    bit_equal = int((d == 0).all(-1).sum())
+    if share < K4_WITHIN:
+        raise AssertionError(f"[{label}] K4 within {TOL} x (1+|plain|) on "
+                             f"only {share:.5f} of {len(ka)} pairs")
+    contract = parity_contract(got, want[..., 11] > 0.5, want[..., 10],
+                               want[..., 6:9], label)
+    out = dict(pairs=len(ka), rim_axes=rim, max_abs_err=float(d.max()),
+               within_tol=share, bit_equal_pairs=bit_equal,
+               valid_points=int((want[..., 11] > 0.5).sum()),
+               contract_vs_plain=contract)
+    msg = (f"[{label}] K4 rim_axes={rim}: {len(ka)} pairs, {bit_equal} "
+           f"bit-equal, {share:.6f} within {TOL} x (1+|plain|), max abs err "
+           f"{out['max_abs_err']:.3g}, {out['valid_points']} valid points")
+    if timed:
+        C, N = tbl.shape
+        nbytes = 4 * C * N + 16 * len(ka) + 4 * 48 * len(ka)
+        # operations counted on a CPU copy of 4,096 of the pairs' columns:
+        # the count is the code's, not the device's dispatch
+        m = min(4096, len(ka))
+        ca, cb = tbl[:, ka[:m]].cpu(), tbl[:, kb[:m]].cpu()
+        total, by_op = count_ops(lambda: uk.collide_support_plain(
+            ca, cb, dims, THRESHOLD, rim))
+        per_pair = total / m
+        log(f"[{label}] K4 operations per pair by ATen op (torch "
+            f"{torch.__version__}): " + ", ".join(
+                f"{k} {v / m:.0f}" for k, v in sorted(
+                    by_op.items(), key=lambda kv: -kv[1])))
+        n_sets = max(2, -(-3 * L2_BYTES // nbytes))
+        sets = [calls(tbl.clone(), ka.clone(), kb.clone())
+                for _ in range(n_sets - 1)] + [(kern, plain)]
+        out.update(ms=device_ms([k for k, _ in sets]),
+                   plain_ms=device_ms([p for _, p in sets],
+                                      per_graph=n_sets),
+                   warm_ms=device_ms([kern]), call_ms=call_ms(kern, 20),
+                   ops_per_pair=per_pair, n_sets=n_sets,
+                   **bound(nbytes, per_pair * len(ka)))
+        del sets
+        msg += (f"; device {out['ms'] * 1e3:.2f} us L2-cold ({n_sets} input "
+                f"sets), {out['warm_ms'] * 1e3:.2f} us L2-warm; plain "
+                f"{out['plain_ms'] * 1e3:.2f} us; bound "
+                f"{out['bound_ms'] * 1e3:.2f} us ({out['bound_by']}: "
+                f"{nbytes / 1e6:.2f} MB, {per_pair:.0f} ops/pair); one call "
+                f"with its host work {out['call_ms'] * 1e3:.1f} us")
+    log(msg)
+    return out
+
+
+def random_pairs(n_bodies: int, K: int, seed: int, dev):
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ka = torch.randint(0, n_bodies, (K,), generator=g, device=dev)
+    kb = torch.randint(0, n_bodies, (K,), generator=g, device=dev)
+    return ka, torch.where(kb == ka, (kb + 1) % n_bodies, kb)
+
+
+def unified_pairs(st):
+    """The live UNIFIED pairs of a state's manifold table, as the
+    narrowphase selects them (both sides, in table order)."""
+    from edyn_tpu_torch.collision import narrowphase as nph
+    cls, _, _, _ = nph.live_classes(st, st.contacts)
+    sel = (cls == nph.B_UNIFIED).nonzero()[:, 0]
+    return st.contacts.body_a[sel].long(), st.contacts.body_b[sel].long()
+
+
+def versus_support_sat(st, ka, kb, rim: bool) -> dict:
+    """K4 against the port's support_sat.collide_support (the jnp path's
+    port) on the same pairs: the TPU kernel's own parity contract, on the
+    card. support_sat runs in the narrowphase's CHUNK-pair chunks."""
+    import torch
+    from edyn_tpu_torch.collision.kernels import unified_kernel as uk
+    from edyn_tpu_torch.collision.kernels.support import (pack_side_table,
+                                                          side_from_packed)
+    from edyn_tpu_torch.collision.kernels.support_sat import collide_support
+    from edyn_tpu_torch.collision.narrowphase import CHUNK
+    tbl, dims = uk.pack_side_table_t(st)
+    got = uk.collide_support_unified(tbl, ka, kb, dims, THRESHOLD, rim)
+    packed, pdims = pack_side_table(st)
+    pv, dist, nrm = [], [], []
+    for c0 in range(0, len(ka), CHUNK):
+        a, b = ka[c0:c0 + CHUNK], kb[c0:c0 + CHUNK]
+        r = collide_support(side_from_packed(packed[a], pdims),
+                            side_from_packed(packed[b], pdims), THRESHOLD,
+                            rim_axes=rim)
+        pv.append(r.point_valid)
+        dist.append(r.distance)
+        nrm.append(r.normal)
+    out = parity_contract(got, torch.cat(pv), torch.cat(dist),
+                          torch.cat(nrm), "K4 vs support_sat")
+    log(f"[real step] K4 against support_sat.collide_support: {out}")
+    return out
+
+
+def random_aabbs(n: int, seed: int, dev):
+    """n boxes in a 30 m cube, half extents 0.1-0.8 m (about 14 overlaps a
+    box), 10% invalid."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c = torch.rand((n, 3), generator=g, device=dev) * 30.0
+    h = 0.1 + 0.7 * torch.rand((n, 3), generator=g, device=dev)
+    v = torch.rand((n,), generator=g, device=dev) > 0.1
+    return (c - h).contiguous(), (c + h).contiguous(), v
+
+
+def check_overlaps(amin, amax, valid, label: str, timed: bool) -> dict:
+    """K5 against its plain version: the counts exactly equal. Timed when
+    ``timed``: the kernel in CUDA-graph replays (L2-cold over rotating
+    input sets, and L2-warm), the plain version (it synchronises per row
+    block) and one call with its host work by CUDA events."""
+    from edyn_tpu_torch.ops import overlap_count as ov
+    got = ov.count_overlaps(amin, amax, valid)
+    want = ov.count_overlaps_plain(amin, amax, valid)
+    if got != want:
+        raise AssertionError(f"[{label}] K5 counts {got}, plain {want}")
+    N = amin.shape[0]
+    out = dict(n=N, count=got, max_abs_err=float(abs(got - want)))
+    msg = f"[{label}] K5: {N} boxes, {got} overlapping pairs, equal to plain"
+    if timed:
+        nbytes = N * (3 * 4 + 3 * 4 + 1) + 8
+        n_sets = max(2, -(-3 * L2_BYTES // nbytes))
+        sets = [(amin.clone(), amax.clone(), valid.clone())
+                for _ in range(n_sets - 1)] + [(amin, amax, valid)]
+        kern = lambda a=amin, b=amax, v=valid: ov.count_overlaps_tensor(a, b,
+                                                                         v)
+        out.update(ms=device_ms([lambda s=s: ov.count_overlaps_tensor(*s)
+                                 for s in sets]),
+                   warm_ms=device_ms([kern]),
+                   plain_ms=call_ms(lambda: ov.count_overlaps_plain(
+                       amin, amax, valid), 3),
+                   call_ms=call_ms(lambda: ov.count_overlaps(amin, amax,
+                                                             valid), 20),
+                   n_sets=n_sets,
+                   **bound(nbytes, K5_OPS_PER_PAIR * N * (N - 1) / 2))
+        del sets
+        msg += (f"; device {out['ms'] * 1e3:.2f} us L2-cold ({n_sets} input "
+                f"sets), {out['warm_ms'] * 1e3:.2f} us L2-warm; plain "
+                f"{out['plain_ms'] * 1e3:.2f} us; bound "
+                f"{out['bound_ms'] * 1e3:.2f} us ({out['bound_by']}); one "
+                f"call with its host work {out['call_ms'] * 1e3:.1f} us")
+    log(msg)
+    return out
+
+
 def main_path(n_bodies: int, steps: int, dev):
     """Phase 3: the port's main path through the user-facing entry points."""
     import torch
     import edyn_tpu_torch as et
+    from edyn_tpu_torch.collision.kernels import unified_kernel as uk
     from edyn_tpu_torch.dynamics import solver_kernels as sk
     from edyn_tpu_torch.utils.scenes import mixed_pile
 
@@ -257,6 +532,7 @@ def main_path(n_bodies: int, steps: int, dev):
         f"{world.meta.has_spin_roll}")
 
     sk.reset_launch_counts()
+    uk.reset_launch_counts()
     t0 = time.perf_counter()
     first = max(1, steps - 20)
     world.step_n(first)
@@ -265,7 +541,7 @@ def main_path(n_bodies: int, steps: int, dev):
     world.step_n(steps - first)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = dict(sk.LAUNCHES)
+    launches = dict(sk.LAUNCHES, **uk.LAUNCHES)
 
     st = world.state
     s = world.settings
@@ -273,7 +549,8 @@ def main_path(n_bodies: int, steps: int, dev):
                 "ngs_iteration": s.num_solver_position_iterations,
                 "restitution_iteration": s.num_restitution_iterations
                 * s.num_individual_restitution_iterations,
-                "relvel": s.num_restitution_iterations}
+                "relvel": s.num_restitution_iterations,
+                "collide_support": 1}
     awake = int((st.awake_dynamic).sum())
     rows_count = rows_in_use(world)
     log(f"[main] {steps} steps in {t2 - t0:.3f} s = "
@@ -331,6 +608,26 @@ def check_pile(st, floor: float, label: str) -> float:
     if float(st.pos[dyn][:, [0, 2]].abs().max()) > 25.0:
         raise AssertionError(f"[{label}] a body escaped the bin")
     return lowest
+
+
+def suggest_path(world) -> dict:
+    """The ``suggest_max_pairs`` entry point once on the landed pile: K5
+    launched once, its budget that of the plain count."""
+    from edyn_tpu_torch.ops import overlap_count as ov
+    st = world.state
+    ov.reset_launch_counts()
+    budget = ov.suggest_max_pairs(st)
+    launches = ov.LAUNCHES["count_overlaps"]
+    plain = ov.count_overlaps_plain(st.aabb_min, st.aabb_max, st.valid)
+    log(f"[suggest] suggest_max_pairs = {budget} (plain count {plain}, "
+        f"max_pairs {world.meta.max_pairs}); K5 launches {launches}")
+    if launches != 1:
+        raise AssertionError(f"suggest_max_pairs launched K5 {launches} "
+                             "times, 1 expected")
+    if budget != max(256, int(plain * 1.5)):
+        raise AssertionError(f"suggest_max_pairs gives {budget}, the plain "
+                             f"count {plain} gives {max(256, int(plain * 1.5))}")
+    return dict(budget=budget, count=plain, launches=launches)
 
 
 def reference_pile(dev) -> float:
@@ -546,7 +843,11 @@ def run() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from edyn_tpu_torch.dynamics import solver_kernels as sk
+    from edyn_tpu_torch.collision.kernels import unified_kernel as uk
+    from edyn_tpu_torch.utils import cuda_lib
+    from edyn_tpu_torch.shapes.params import ShapeType
+    from edyn_tpu_torch.utils.scenes import mixed_pile
+    import edyn_tpu_torch as et
 
     # 1. device and build
     line = gpu_line()
@@ -556,8 +857,9 @@ def run() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    lib = sk.build_library(verbose=True)
-    log(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s")
+    libs = cuda_lib.build_libraries(SOURCES, verbose=True)
+    log(f"[build] {sorted(p.name for p in libs.values())} in "
+        f"{time.perf_counter() - t0:.1f} s")
     dev = torch.device("cuda")
 
     # 2. kernels against their plain versions at the main path's full width
@@ -567,15 +869,38 @@ def run() -> int:
                                        0, dev), True, "random")
     check_kernels(random_inputs(C_BASE, Rp_full, N_BODIES + 5, 1, dev),
                   False, "random, no spin/roll rows")
+    fresh = et.make_world(mixed_pile(n_bodies=N_BODIES, seed=0)[0],
+                          device=dev)
+    tbl, dims = uk.pack_side_table_t(fresh.state)
+    ka, kb = random_pairs(fresh.state.capacity, K4_PAIRS, 2, dev)
+    k4_rand = [check_unified(tbl, ka, kb, dims, rim, "random pairs", False)
+               for rim in (True, False)]
+    del fresh, tbl, ka, kb
+    k5_rand = check_overlaps(*random_aabbs(65_573, 3, dev), "random AABBs",
+                             True)
 
-    # 3. the main path, and the JAX package's own pile test
+    # 3. the main path, the suggest_max_pairs entry point, and the JAX
+    #    package's own pile test
     world, launches, main = main_path(N_BODIES, STEPS, dev)
+    suggest = suggest_path(world)
     main["pile_of_60_lowest_centre"] = reference_pile(dev)
 
-    # 4. the kernels on a real step's table
+    # 4. the kernels on a real step: the solver's table, the live UNIFIED
+    #    pairs (against the plain version and against support_sat), the
+    #    pile's AABBs
     inp, with_sr = real_inputs(world)
     real = check_kernels(inp, with_sr, "real step")
-    del world, inp
+    del inp
+    st = world.state
+    tbl, dims = uk.pack_side_table_t(st)
+    ka, kb = unified_pairs(st)
+    rim = ShapeType.CYLINDER in world.meta.types_present  # as the step
+    k4_real = check_unified(tbl, ka, kb, dims, rim, "real step", True)
+    k4_real["vs_support_sat"] = versus_support_sat(st, ka, kb, rim)
+    k5_real = check_overlaps(st.aabb_min.contiguous(),
+                             st.aabb_max.contiguous(), st.valid, "real step",
+                             False)
+    del world, tbl, ka, kb, st
 
     # 5. card against CPU
     versus = card_vs_cpu(dev)
@@ -594,7 +919,32 @@ def run() -> int:
             real_warm_ms=real[name]["warm_ms"],
             real_call_ms=real[name]["call_ms"],
             real_bound_ms=real[name]["bound_ms"]))
-    log(json.dumps({"main_path": main, "card_vs_cpu": versus}))
+    k4_all = k4_rand + [k4_real]
+    kernels.append(dict(
+        K4, route="cuda", launches=launches[K4["name"]],
+        max_abs_err=max(r["max_abs_err"] for r in k4_all),
+        tol=f"{TOL} x (1 + |plain|) on >= {K4_WITHIN} of pairs",
+        within_tol=min(r["within_tol"] for r in k4_all),
+        bit_equal_pairs=sum(r["bit_equal_pairs"] for r in k4_all),
+        pairs=sum(r["pairs"] for r in k4_all),
+        ms=k4_real["ms"], plain_ms=k4_real["plain_ms"],
+        bound_ms=k4_real["bound_ms"], bound_us=k4_real["bound_ms"] * 1e3,
+        bound_by=k4_real["bound_by"], library_ms=None,
+        warm_ms=k4_real["warm_ms"], call_ms=k4_real["call_ms"],
+        real_pairs=k4_real["pairs"], ops_per_pair=k4_real["ops_per_pair"],
+        bytes=k4_real["bytes"], C=uk.table_rows(dims)))
+    kernels.append(dict(
+        K5, route="cuda", launches=suggest["launches"],
+        max_abs_err=max(k5_rand["max_abs_err"], k5_real["max_abs_err"]),
+        tol="exact", ms=k5_rand["ms"], plain_ms=k5_rand["plain_ms"],
+        bound_ms=k5_rand["bound_ms"], bound_us=k5_rand["bound_ms"] * 1e3,
+        bound_by=k5_rand["bound_by"], library_ms=None,
+        warm_ms=k5_rand["warm_ms"], call_ms=k5_rand["call_ms"],
+        n=k5_rand["n"], real_n=k5_real["n"], real_count=k5_real["count"]))
+    log(json.dumps({"main_path": main, "suggest_max_pairs": suggest,
+                    "k4": {"random": k4_rand, "real": k4_real},
+                    "k5": {"random": k5_rand, "real": k5_real},
+                    "card_vs_cpu": versus}))
     log(f"gpu: {line}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,10 @@ the collide_* matrix under src/edyn/collision/collide/).
    tangents; candidates outside either supporting feature's tangent slab are
    rejected (or clamped when both features are flat), then reduced to 4.
 
-This is the port of the JAX package's jnp path; on the TPU the same bucket
-runs as the Pallas kernel ``collide_support_pallas``.
+This is the port of the JAX package's jnp path, and it runs the UNIFIED
+bucket on the CPU; on CUDA the bucket runs as K4
+(``unified_kernel.collide_support_unified``, the counterpart of the Pallas
+kernel ``collide_support_pallas``), see ``collision/narrowphase.py``.
 """
 from __future__ import annotations
 

@@ -6,6 +6,18 @@ Buckets in this slice: UNIFIED (any convex pair, support-mapped SAT),
 BOXBOX (box pair, face clipping) and PLANE (convex vs plane). The compound
 and mesh buckets come with a later slice, and ``update_contacts`` refuses a
 world whose shape types would need them.
+
+The UNIFIED bucket runs by the device, as in the JAX package, whose
+``_use_pallas(None)`` runs its Pallas kernel on a TPU and its jnp path
+elsewhere:
+- on CUDA it is ONE launch of K4 (``unified_kernel.collide_support_unified``,
+  the counterpart of ``collide_support_pallas``) over the live prefix of the
+  compacted selection, reading the transposed side table;
+- on the CPU it is ``support_sat.collide_support`` (the port of the jnp
+  path), in ``CHUNK``-pair chunks that bound its temporaries, so a CPU step
+  computes what the JAX package's CPU step computes.
+K4's plain version (``collide_support_plain``) is held against the JAX
+kernel by the tests and against K4 by ``chip_smoke.py``; no step runs it.
 """
 from __future__ import annotations
 
@@ -22,14 +34,15 @@ from .kernels import box_box
 from .kernels.plane_unified import collide_convex_plane
 from .kernels.support import pack_side_table, side_from_packed
 from .kernels.support_sat import collide_support
+from .kernels.unified_kernel import collide_support_unified, pack_side_table_t
 from .manifold import merge_points
 
 S = ShapeType
 B_UNIFIED, B_BOXBOX, B_PLANE = 0, 1, 2
 CONVEX_TYPES = (S.SPHERE, S.BOX, S.CAPSULE, S.CYLINDER, S.POLYHEDRON)
 SUPPORTED_TYPES = frozenset(CONVEX_TYPES + (S.PLANE, S.NONE))
-# pairs per kernel call: bounds the [K, axes, verts, 3] temporaries of the
-# support-mapped SAT at the 10k-body main path
+# pairs per call of a plain bucket: bounds the [K, axes, verts, 3]
+# temporaries of the support-mapped SAT on the CPU
 CHUNK = 32768
 
 
@@ -81,6 +94,22 @@ def _run_bucket(bucket, A, B, threshold, has_cyl):
     return collide_convex_plane(A, B, threshold)
 
 
+def live_classes(state, man):
+    """Per manifold pair: (bucket class, -1 where no bucket runs it; swap;
+    frozen: both sides asleep or static, points kept verbatim; stale: live
+    pair beyond the breaking threshold, points dropped)."""
+    ba = man.body_a.long()
+    bb = man.body_b.long()
+    cls, swap = classify(state.shape_type[ba], state.shape_type[bb])
+    inactive = state.asleep | ((state.kind == KIND_STATIC) & state.valid)
+    frozen = inactive[ba] & inactive[bb]
+    _BT = CONTACT_BREAKING_THRESHOLD
+    pre = (torch.all(state.aabb_min[ba] - _BT <= state.aabb_max[bb], -1)
+           & torch.all(state.aabb_max[ba] + _BT >= state.aabb_min[bb], -1))
+    cls = torch.where(man.valid & ~frozen & pre, cls, torch.full_like(cls, -1))
+    return cls, swap, frozen, man.valid & ~frozen & ~pre
+
+
 def update_contacts(state, man, threshold: float, types_present: frozenset,
                     bucket_cap: int | None = None, dt: float = 1.0 / 60.0):
     """Run the bucket kernels over the manifold pair list and merge fresh
@@ -96,18 +125,7 @@ def update_contacts(state, man, threshold: float, types_present: frozenset,
     cap = bucket_cap or M
     ba = man.body_a.long()
     bb = man.body_b.long()
-    ta = state.shape_type[ba]
-    tb = state.shape_type[bb]
-    cls, swap = classify(ta, tb)
-    # sleeping and static-static pairs are skipped entirely; their points
-    # are kept verbatim below
-    inactive = state.asleep | ((state.kind == KIND_STATIC) & state.valid)
-    frozen = inactive[ba] & inactive[bb]
-    _BT = CONTACT_BREAKING_THRESHOLD
-    pre = (torch.all(state.aabb_min[ba] - _BT <= state.aabb_max[bb], -1)
-           & torch.all(state.aabb_max[ba] + _BT >= state.aabb_min[bb], -1))
-    cls = torch.where(man.valid & ~frozen & pre, cls, torch.full_like(cls, -1))
-    stale = man.valid & ~frozen & ~pre
+    cls, swap, frozen, stale = live_classes(state, man)
     man = dataclasses.replace(
         man, point_valid=man.point_valid & ~stale[:, None])
 
@@ -124,6 +142,19 @@ def update_contacts(state, man, threshold: float, types_present: frozenset,
         this_cap = sel.shape[0]
         dropped += max(count - this_cap, 0)
         live = min(count, this_cap)
+        if bucket == B_UNIFIED and dev.type == "cuda":
+            # K4 over the whole live prefix; the bucket needs no swap, and
+            # its friction/restitution scales are ones (narrowphase.py:266
+            # in the JAX package)
+            if live:
+                s = sel[:live].long()
+                table_t, dims_t = pack_side_table_t(state)
+                out = collide_support_unified(table_t, ba[s], bb[s], dims_t,
+                                              threshold, rim_axes=has_cyl)
+                new_pts[s] = torch.cat([
+                    out[..., :12], torch.ones(out.shape[:2] + (2,),
+                                              device=dev)], dim=-1)
+            continue
         # padded bucket rows produce nothing the JAX path keeps, so only the
         # live prefix is computed, in chunks
         for c0 in range(0, live, CHUNK):

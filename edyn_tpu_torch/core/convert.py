@@ -18,6 +18,7 @@ from ..shapes.convex import ConvexTable
 from .state import (
     INVALID_KEY, ContactTable, JointTable, MixTable, PolyTable, WorldState,
 )
+from .world import resolve_device
 
 JAX_INVALID_KEY = np.uint32(np.iinfo(np.uint32).max)
 _SUBTABLES = {"contacts": ContactTable, "joints": JointTable,
@@ -58,8 +59,11 @@ def _check_keys(cls, tree):
                        f"unexpected {sorted(got - want)}")
 
 
-def state_from_numpy(tree: dict, device="cpu") -> WorldState:
-    """Build a WorldState on ``device`` from a numpy tree."""
+def state_from_numpy(tree: dict, device=None) -> WorldState:
+    """Build a WorldState on ``device`` from a numpy tree: ``cuda`` unless
+    the caller names a device (raises without a GPU, as ``make_world``
+    does)."""
+    device = resolve_device(device)
     _check_keys(WorldState, tree)
     kw = {}
     for name, val in tree.items():

@@ -12,7 +12,7 @@ with the gather and the scatter-add in PyTorch around the kernel, as they
 stay in XLA around the Pallas kernels.
 
 Kernels (CUDA C++ in ``edyn_tpu_torch/csrc/solver_kernels.cu``, built with
-nvcc for sm_90a at first use and loaded with ctypes):
+nvcc for sm_90a at first use and loaded with ctypes by ``utils/cuda_lib``):
 - ``solve_iteration``: one velocity iteration (K1, replaces
   ``pallas_solver.solve_iteration_pallas``);
 - ``ngs_iteration``: one NGS position iteration (K2, replaces
@@ -29,14 +29,10 @@ tensors it launches the kernel, or raises. It never falls back.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
+
+from ..utils import cuda_lib
 
 BLK = 128
 BIG = 1e18
@@ -309,106 +305,20 @@ def ngs_iteration_plain(tbl, g, rate: float, max_corr: float):
 
 
 # ---------------------------------------------------------------------------
-# build and load
+# load
 # ---------------------------------------------------------------------------
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "solver_kernels.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "edyn_tpu_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC",
-              # no contraction into FMAs: each kernel rounds op by op as its
-              # plain version does (parity first)
-              "-fmad=false"]
-_lib = None
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    if home and (Path(home) / "bin" / "nvcc").exists():
-        return str(Path(home) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
-
-
-def build_library(verbose: bool = False) -> Path:
-    """Compile ``csrc/solver_kernels.cu`` into ``build/edyn_tpu_torch/``
-    (named by the source's hash, so an edited source rebuilds). Returns the
-    library's path."""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = _BUILD_DIR / f"solver_kernels_{tag}.so"
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SRC)]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return out
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES = {
+    "edyn_solve_iteration": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "edyn_restitution_iteration": [_P, _P, _P, _P, _P, _P, _I, _P],
+    "edyn_relvel": [_P, _P, _P, _I, _P],
+    "edyn_ngs_iteration": [_P, _P, _P, _P, _I, _F, _F, _P],
+}
 
 
 def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build_library()))
-        P, I = ctypes.c_void_p, ctypes.c_int
-        sigs = {
-            "edyn_solve_iteration": [P, P, P, P, P, I, I, P],
-            "edyn_restitution_iteration": [P, P, P, P, P, P, I, P],
-            "edyn_relvel": [P, P, P, I, P],
-            "edyn_ngs_iteration": [P, P, P, P, I, ctypes.c_float,
-                                   ctypes.c_float, P],
-        }
-        for name, args in sigs.items():
-            fn = getattr(lib, name)
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
-
-
-def _on_cpu(*ts) -> bool:
-    devs = {t.device.type for t in ts}
-    if devs == {"cpu"}:
-        return True
-    if devs != {"cuda"} or len({t.device for t in ts}) != 1:
-        raise ValueError(f"tensors on {sorted({str(t.device) for t in ts})}:"
-                         " all on the CPU or all on one CUDA device")
-    return False
-
-
-def _check(t, name, shape):
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: float32 expected, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(shape)} expected, "
-                         f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: contiguous tensor expected")
-
-
-def _stream(t):
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
-def _launched(name, rc):
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
-    LAUNCHES[name] += 1
+    return cuda_lib.load("solver_kernels", SIGNATURES)
 
 
 def _table_dims(tbl, with_sr):
@@ -425,64 +335,64 @@ def _table_dims(tbl, with_sr):
 
 def solve_iteration(tbl, imp_t, g, with_sr: bool):
     """K1: one velocity iteration (see ``solve_iteration_plain``)."""
-    if _on_cpu(tbl, imp_t, g):
+    if cuda_lib.on_cpu(tbl, imp_t, g):
         return solve_iteration_plain(tbl, imp_t, g, with_sr)
     C, Rp = _table_dims(tbl, with_sr)
-    _check(tbl, "tbl", (C, Rp))
-    _check(imp_t, "imp_t", (6, Rp))
-    _check(g, "g", (6, 2 * Rp))
+    cuda_lib.check(tbl, "tbl", (C, Rp))
+    cuda_lib.check(imp_t, "imp_t", (6, Rp))
+    cuda_lib.check(g, "g", (6, 2 * Rp))
     oimp = torch.empty((6, Rp), dtype=torch.float32, device=tbl.device)
     oupd = torch.empty((12, Rp), dtype=torch.float32, device=tbl.device)
     rc = _load().edyn_solve_iteration(
         tbl.data_ptr(), imp_t.data_ptr(), g.data_ptr(), oimp.data_ptr(),
-        oupd.data_ptr(), Rp, int(bool(with_sr)), _stream(tbl))
-    _launched("solve_iteration", rc)
+        oupd.data_ptr(), Rp, int(bool(with_sr)), cuda_lib.stream(tbl))
+    cuda_lib.launched(LAUNCHES, "solve_iteration", rc)
     return oimp, oupd
 
 
 def restitution_iteration(tbl, dyn, imp3_t, g):
     """K3a: one restitution inner iteration."""
-    if _on_cpu(tbl, dyn, imp3_t, g):
+    if cuda_lib.on_cpu(tbl, dyn, imp3_t, g):
         return restitution_iteration_plain(tbl, dyn, imp3_t, g)
     C, Rp = _table_dims(tbl, False)
-    _check(tbl, "tbl", (C, Rp))
-    _check(dyn, "dyn", (2, Rp))
-    _check(imp3_t, "imp3_t", (3, Rp))
-    _check(g, "g", (6, 2 * Rp))
+    cuda_lib.check(tbl, "tbl", (C, Rp))
+    cuda_lib.check(dyn, "dyn", (2, Rp))
+    cuda_lib.check(imp3_t, "imp3_t", (3, Rp))
+    cuda_lib.check(g, "g", (6, 2 * Rp))
     oimp = torch.empty((3, Rp), dtype=torch.float32, device=tbl.device)
     oupd = torch.empty((12, Rp), dtype=torch.float32, device=tbl.device)
     rc = _load().edyn_restitution_iteration(
         tbl.data_ptr(), dyn.data_ptr(), imp3_t.data_ptr(), g.data_ptr(),
-        oimp.data_ptr(), oupd.data_ptr(), Rp, _stream(tbl))
-    _launched("restitution_iteration", rc)
+        oimp.data_ptr(), oupd.data_ptr(), Rp, cuda_lib.stream(tbl))
+    cuda_lib.launched(LAUNCHES, "restitution_iteration", rc)
     return oimp, oupd
 
 
 def relvel(tbl, g):
     """K3b: normal relative velocity per row, [1,Rp]."""
-    if _on_cpu(tbl, g):
+    if cuda_lib.on_cpu(tbl, g):
         return relvel_plain(tbl, g)
     C, Rp = _table_dims(tbl, False)
-    _check(tbl, "tbl", (C, Rp))
-    _check(g, "g", (6, 2 * Rp))
+    cuda_lib.check(tbl, "tbl", (C, Rp))
+    cuda_lib.check(g, "g", (6, 2 * Rp))
     out = torch.empty((1, Rp), dtype=torch.float32, device=tbl.device)
     rc = _load().edyn_relvel(tbl.data_ptr(), g.data_ptr(), out.data_ptr(),
-                             Rp, _stream(tbl))
-    _launched("relvel", rc)
+                             Rp, cuda_lib.stream(tbl))
+    cuda_lib.launched(LAUNCHES, "relvel", rc)
     return out
 
 
 def ngs_iteration(tbl, g, rate: float, max_corr: float):
     """K2: one NGS position iteration; returns (upd [12,Rp], err [1,Rp])."""
-    if _on_cpu(tbl, g):
+    if cuda_lib.on_cpu(tbl, g):
         return ngs_iteration_plain(tbl, g, rate, max_corr)
     C, Rp = _table_dims(tbl, False)
-    _check(tbl, "tbl", (C, Rp))
-    _check(g, "g", (6, 2 * Rp))
+    cuda_lib.check(tbl, "tbl", (C, Rp))
+    cuda_lib.check(g, "g", (6, 2 * Rp))
     upd = torch.empty((12, Rp), dtype=torch.float32, device=tbl.device)
     err = torch.empty((1, Rp), dtype=torch.float32, device=tbl.device)
     rc = _load().edyn_ngs_iteration(
         tbl.data_ptr(), g.data_ptr(), upd.data_ptr(), err.data_ptr(), Rp,
-        float(rate), float(max_corr), _stream(tbl))
-    _launched("ngs_iteration", rc)
+        float(rate), float(max_corr), cuda_lib.stream(tbl))
+    cuda_lib.launched(LAUNCHES, "ngs_iteration", rc)
     return upd, err

@@ -85,6 +85,7 @@ def phase_times(world, steps: int) -> dict:
 def profile(world, steps: int) -> dict:
     """Device busy share and the top kernels by device time."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
     torch.cuda.synchronize()
@@ -101,8 +102,10 @@ def profile(world, steps: int) -> dict:
                 return getattr(e, attr)
         return 0.0
 
+    # device events only (kernels, copies, fills): an aten op's entry
+    # repeats the device time of the kernels it launched
     kernels = [(e.key, dev_us(e), e.count) for e in prof.key_averages()
-               if dev_us(e) > 0]
+               if e.device_type != DeviceType.CPU and dev_us(e) > 0]
     busy = sum(t for _, t, _ in kernels) * 1e-6
     kernels.sort(key=lambda x: -x[1])
     return dict(wall_ms_per_step=1e3 * wall / steps,

@@ -221,9 +221,14 @@ def test_narrowphase_bucket(pile, bucket):
 @pytest.mark.parametrize("chunk", [32768, 8])
 def test_update_contacts(pile, monkeypatch, chunk):
     """The whole narrowphase with the merge, in one chunk or in chunks of
-    8 pairs."""
+    8 pairs. On the CPU the UNIFIED bucket is ``support_sat``, as the JAX
+    package's CPU step runs its jnp path: K4's wrapper is never called."""
     tr, js, ts = pile
     monkeypatch.setattr(tnp_phase, "CHUNK", chunk)
+
+    def refuse(*a, **k):
+        raise AssertionError("K4 called on the CPU path")
+    monkeypatch.setattr(tnp_phase, "collide_support_unified", refuse)
     meta = tr.jw.meta
     with jax.disable_jit():
         want, wdrop = jnp_phase.update_contacts(
