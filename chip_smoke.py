@@ -13,10 +13,15 @@ prints no result):
 2. Kernels against their plain PyTorch versions on the card, on random
    inputs at the main path's full width: the solver kernels at C = 97
    table rows, Rp = 160,128; K4 on 190,000 random pairs of the 10k pile's
-   side table (C = 84), with and without rim axes; K5 on 65,573 random
-   AABBs. Max abs difference, the kernel's device time with its inputs read
-   from device memory and with them in L2 (CUDA-graph replays), the plain
-   version's, one call with its host work, and the bound.
+   side table (C = 84), with and without rim axes, equal to the plain
+   version on every pair; K4's pre-pass and pair order equal to theirs; K5
+   on 65,573 random AABBs and on its edge cases (N below one tile and not a
+   multiple of it, every box invalid, infinite and 1e30 extents, touching
+   faces), every count equal to the plain one. Max abs difference, the
+   kernel's device time with its inputs read from device memory and with
+   them in L2 (CUDA-graph replays), the plain version's, one call with its
+   host work, and the bound; each kernel's registers, stack and spills from
+   the build.
 3. The main path: ``mixed_pile(10_000)`` -> ``make_world`` (cuda) ->
    ``World.step_n(120)``, with every kernel's launch count set to 0 just
    before and read just after. Checks finite state, launch counts within
@@ -26,9 +31,17 @@ prints no result):
    count equal to the plain one); then that JAX test itself, a 60-body pile
    settled for 240 steps, on the card.
 4. The kernels again on a real step of that pile: the solver kernels on its
-   packed row table; K4 on its live UNIFIED pairs, against its plain
-   version and against the port's ``support_sat.collide_support`` under
-   the parity contract of ``tests/test_pallas_narrowphase.py``.
+   packed row table; K4 on its live UNIFIED pairs, equal to its plain
+   version on every pair and against the port's
+   ``support_sat.collide_support`` under the parity contract of
+   ``tests/test_pallas_narrowphase.py``, timed with all its launches
+   (pre-pass, pair order, per-pair kernel) and each step alone,
+   beside two bounds: the live work (the plain version's operations with
+   each side of a pair at its own real widths, the world rotations counted
+   once per body for the pre-pass) and the padded work (at the table's
+   widths, rotated per pair); also the per-pair kernel with the pairs in
+   table order, and a stable ``torch.sort`` of the class bins, to weigh
+   the pair order.
 5. Card against CPU: one step of a settled 1,000-body pile, on the card
    (K4 in the UNIFIED bucket) and from a copy on the CPU (``support_sat``
    there, plain solver versions), held per body at the whole-step
@@ -71,16 +84,25 @@ KERNELS = {
 }
 FLOPS_K1 = {False: 150, True: 250}  # without / with the spin-roll rows
 SOURCE = "edyn_tpu_torch/csrc/solver_kernels.cu"
+SOLVER_KERNELS = {"solve_iteration": "vel_kernel",
+                  "ngs_iteration": "ngs_kernel",
+                  "restitution_iteration": "rest_kernel",
+                  "relvel": "relvel_kernel"}
 SOURCES = ("solver_kernels", "unified_kernel", "overlap_count")
 K4 = dict(name="collide_support",
           source="edyn_tpu_torch/csrc/unified_kernel.cu",
           replaces="edyn_tpu/collision/kernels/pallas_unified.py:568")
+# K4's wrapper: three steps (each counted in unified_kernel.LAUNCHES), six
+# kernels of its source
+K4_STEPS = {"unified_features": ("features_kernel", "class_ids_kernel"),
+            "pair_order": ("pair_bins_kernel", "bin_offsets_kernel",
+                           "pair_place_kernel"),
+            "collide_support": ("unified_kernel",)}
 K5 = dict(name="count_overlaps",
           source="edyn_tpu_torch/csrc/overlap_count.cu",
           replaces="edyn_tpu/ops/overlap_count.py:85")
 K5_OPS_PER_PAIR = 8   # 6 interval compares, the validity test, the count
 TOL = 1e-5  # |kernel - plain| <= TOL * (1 + |plain|): same rounding, f32
-K4_WITHIN = 0.999  # share of K4's pairs that must be within TOL everywhere
 THRESHOLD = 0.01   # Settings.collision_threshold
 K4_PAIRS = 190_000  # random pairs: about the landing pile's live count
 # the main path: the bench's pile, stepped until most of it has landed
@@ -349,12 +371,116 @@ def parity_contract(got, pv_ref, d_ref, n_ref, label: str) -> dict:
     return out
 
 
+def build_info(source: str, kernel: str) -> dict:
+    """Registers, stack frame and spills of ``kernel`` in ``source``'s build,
+    from ``nvcc -Xptxas -v`` (empty when this process did not build it)."""
+    import re
+    from edyn_tpu_torch.utils import cuda_lib
+    info, cur = {}, None
+    for line in cuda_lib.BUILD_LOGS.get(source, "").splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = m.group(1)
+            continue
+        if cur is None or not re.search(f"{len(kernel)}{kernel}[EI]", cur):
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            info.update(stack_bytes=int(m[1]), spill_store_bytes=int(m[2]),
+                        spill_load_bytes=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            info["registers"] = int(m[1])
+    return info
+
+
+def kernel_times(fns, names) -> dict:
+    """Mean device time (us) per launch of each kernel in ``names`` while
+    ``fns`` run once each, from ``torch.profiler`` (device events only)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn in fns:
+            fn()
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        for attr in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(e, attr):
+                return getattr(e, attr)
+        return 0.0
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU or not dev_us(e):
+            continue
+        for n in names:
+            if f"{n}(" in e.key:
+                out[n] = dev_us(e) / e.count
+    return out
+
+
+def class_ops(tbl, ka, kb, dims, rim: bool, sample: int = 128):
+    """Operations of K4's plain version on these pairs, counted by
+    ``count_ops`` on a CPU copy of up to ``sample`` pairs of each class
+    (pairs of the same real widths and disc flags per side) and scaled to
+    the class's size: (live, padded, classes).
+
+    Live is the per-pair kernel's work: ``collide_sides_plain`` with each
+    side at its own real widths, without the world rotations (the
+    pre-pass's work, counted apart) and without the rim solve of a side
+    with no disc (the kernel skips it; its axis is masked). Padded is
+    ``collide_support_plain`` at the table's widths, rotations included."""
+    import torch
+    from edyn_tpu_torch.collision.kernels import unified_kernel as uk
+    tc, a, b = tbl.cpu(), ka.cpu(), kb.cpu()
+    feat, code, _ = uk.world_features_plain(tc, dims)
+    counts = uk.feature_counts(feat)
+    key = code[a].long() * uk.NCODES + code[b].long()
+    live = padded = 0.0
+    classes = torch.unique(key)
+    for k in classes:
+        idx = (key == k).nonzero()[:, 0]
+        sel = idx[:sample]
+        ca, cb = tc[:, a[sel]], tc[:, b[sel]]
+        sides = []
+        for cols, body in ((ca, a[sel[0]]), (cb, b[sel[0]])):
+            real = tuple(int(x) for x in counts[body])
+            sides.append(uk.world_side(uk.repack_columns(cols, dims, real),
+                                       real))
+        A, B = sides
+        n_live, _ = count_ops(lambda: uk.collide_sides_plain(
+            A, B, THRESHOLD, rim))
+        if rim:
+            ones = torch.ones_like(A["radius"])
+            seed = uk._normalize_or(uk._sub(A["pos"], B["pos"]),
+                                    (0 * ones, ones, 0 * ones))
+            for C_, D_ in ((A, B), (B, A)):
+                if not bool((C_["disc_r"] > 1e-9).any()):
+                    n_live -= count_ops(lambda: uk.rim_axis(C_, D_,
+                                                            seed))[0]
+        n_pad, _ = count_ops(lambda: uk.collide_support_plain(
+            ca, cb, dims, THRESHOLD, rim))
+        live += n_live * len(idx) / len(sel)
+        padded += n_pad * len(idx) / len(sel)
+    return live, padded, len(classes)
+
+
 def check_unified(tbl, ka, kb, dims, rim: bool, label: str,
                   timed: bool) -> dict:
-    """K4 against its plain version on the same pairs: every output element
-    within TOL x (1 + |plain|) on at least K4_WITHIN of the pairs, and the
-    parity contract on all of them. Timed like the solver kernels when
-    ``timed``."""
+    """K4 against its plain version on the same pairs: equal on every
+    output of every pair (as floats: a zero's sign may differ, see
+    csrc/unified_kernel.cu; the count of pairs equal bit for bit is
+    reported), the pre-pass's table, codes and class numbers bit-equal to
+    its plain version, the pair order equal to its plain version. Timed
+    when ``timed``: all of the wrapper's launches together, the pre-pass,
+    the pair order and the per-pair kernel each alone, and each kernel
+    under the profiler, with the live-work and padded bounds; beside them
+    the per-pair kernel with the pairs in table order (its output equal to
+    the class order's) and a stable ``torch.sort`` of the class bins, the
+    library call that would replace the counting sort."""
     import torch
     from edyn_tpu_torch.collision.kernels import unified_kernel as uk
 
@@ -369,52 +495,131 @@ def check_unified(tbl, ka, kb, dims, rim: bool, label: str,
     want = plain()
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"[{label}] K4 output not finite")
-    d = (got - want).abs().reshape(len(ka), -1)
-    within = (d <= TOL * (1 + want.abs().reshape(len(ka), -1))).all(-1)
-    share = float(within.float().mean())
-    bit_equal = int((d == 0).all(-1).sum())
-    if share < K4_WITHIN:
-        raise AssertionError(f"[{label}] K4 within {TOL} x (1+|plain|) on "
-                             f"only {share:.5f} of {len(ka)} pairs")
+    K = len(ka)
+    equal = (got == want).reshape(K, -1).all(-1)
+    bits = (got.view(torch.int32) == want.view(torch.int32)).reshape(
+        K, -1).all(-1)
+    d = (got - want).abs().reshape(K, -1)
+    share = float((d <= TOL * (1 + want.abs().reshape(K, -1))).all(-1)
+                  .float().mean())
+    if not bool(equal.all()):
+        bad = (~equal).nonzero()[:5, 0].tolist()
+        raise AssertionError(f"[{label}] K4 differs from its plain version on "
+                             f"{int((~equal).sum())} of {K} pairs (first "
+                             f"{bad}), max abs {float(d.max())}")
+    feat, code, ids = uk.world_features(tbl, dims)
+    feat_p, code_p, ids_p = uk.world_features_plain(tbl, dims)
+    if not (torch.equal(feat.view(torch.int32), feat_p.view(torch.int32))
+            and torch.equal(code, code_p) and torch.equal(ids, ids_p)):
+        raise AssertionError(f"[{label}] K4's pre-pass differs from its "
+                             "plain version")
+    perm = uk.pair_order(code, ids, ka, kb)
+    if not torch.equal(perm, uk.pair_order_plain(code_p, ids_p, ka, kb)):
+        raise AssertionError(f"[{label}] K4's pair order differs from its "
+                             "plain version")
     contract = parity_contract(got, want[..., 11] > 0.5, want[..., 10],
                                want[..., 6:9], label)
-    out = dict(pairs=len(ka), rim_axes=rim, max_abs_err=float(d.max()),
-               within_tol=share, bit_equal_pairs=bit_equal,
+    bins = uk.pair_bins_plain(code_p, ids_p, ka, kb)
+    out = dict(pairs=K, rim_axes=rim, max_abs_err=float(d.max()),
+               equal_pairs=int(equal.sum()), bit_equal_pairs=int(bits.sum()),
+               within_tol=share, classes=len(torch.unique(bins)),
                valid_points=int((want[..., 11] > 0.5).sum()),
                contract_vs_plain=contract)
-    msg = (f"[{label}] K4 rim_axes={rim}: {len(ka)} pairs, {bit_equal} "
-           f"bit-equal, {share:.6f} within {TOL} x (1+|plain|), max abs err "
-           f"{out['max_abs_err']:.3g}, {out['valid_points']} valid points")
+    msg = (f"[{label}] K4 rim_axes={rim}: {K} pairs in {out['classes']} "
+           f"classes, equal to plain on {out['equal_pairs']}, bit-equal on "
+           f"{out['bit_equal_pairs']}; pre-pass bit-equal, order equal; "
+           f"{out['valid_points']} valid points")
     if timed:
         C, N = tbl.shape
-        nbytes = 4 * C * N + 16 * len(ka) + 4 * 48 * len(ka)
-        # operations counted on a CPU copy of 4,096 of the pairs' columns:
-        # the count is the code's, not the device's dispatch
-        m = min(4096, len(ka))
-        ca, cb = tbl[:, ka[:m]].cpu(), tbl[:, kb[:m]].cpu()
-        total, by_op = count_ops(lambda: uk.collide_support_plain(
-            ca, cb, dims, THRESHOLD, rim))
-        per_pair = total / m
-        log(f"[{label}] K4 operations per pair by ATen op (torch "
-            f"{torch.__version__}): " + ", ".join(
-                f"{k} {v / m:.0f}" for k, v in sorted(
-                    by_op.items(), key=lambda kv: -kv[1])))
-        n_sets = max(2, -(-3 * L2_BYTES // nbytes))
-        sets = [calls(tbl.clone(), ka.clone(), kb.clone())
-                for _ in range(n_sets - 1)] + [(kern, plain)]
-        out.update(ms=device_ms([k for k, _ in sets]),
-                   plain_ms=device_ms([p for _, p in sets],
-                                      per_graph=n_sets),
-                   warm_ms=device_ms([kern]), call_ms=call_ms(kern, 20),
-                   ops_per_pair=per_pair, n_sets=n_sets,
-                   **bound(nbytes, per_pair * len(ka)))
+        RS = uk.feature_row(dims)
+        nbytes = 4 * C * N + 16 * K + 4 * 48 * K
+        live, padded, _ = class_ops(tbl, ka, kb, dims, rim)
+        tc = tbl.cpu()
+        f_ops, _ = count_ops(lambda: uk.world_features_plain(tc, dims))
+        o_ops = 4 * K   # two class lookups, a multiply and an add a pair
+        n_sets = max(2, -(-3 * L2_BYTES // (nbytes + 4 * RS * N)))
+        sets = []
+        for i in range(n_sets):
+            t, a, b = ((tbl, ka, kb) if i == 0 else
+                       (tbl.clone(), ka.clone(), kb.clone()))
+            f, c, n = uk.world_features(t, dims)
+            # the class bins as the smallest integers that hold them, for
+            # the library's stable sort
+            small = torch.uint8 if int(n[uk.NCODES]) <= 16 else torch.int16
+            sets.append(dict(t=t, a=a, b=b, f=f, c=c, i=n,
+                             p=uk.pair_order(c, n, a, b),
+                             table_order=torch.arange(K, device=a.device),
+                             key=uk.pair_bins_plain(c, n, a, b).to(small)))
+        # the per-pair kernel in table order: what the pair order saves
+        s0 = sets[0]
+        unsorted = uk.collide_ordered(s0["f"], ka, kb, s0["table_order"],
+                                      dims, THRESHOLD, rim)
+        if not torch.equal(unsorted, got):
+            raise AssertionError(f"[{label}] K4 in table order differs from "
+                                 "K4 in class order")
+        del unsorted
+
+        def cold(fn, per_graph=20):
+            return device_ms([lambda s=s: fn(s) for s in sets], per_graph)
+
+        def whole(s):
+            return uk.collide_support_unified(s["t"], s["a"], s["b"], dims,
+                                              THRESHOLD, rim)
+        out.update(
+            ms=cold(whole),
+            features_ms=cold(lambda s: uk.world_features(s["t"], dims)),
+            order_ms=cold(lambda s: uk.pair_order(s["c"], s["i"], s["a"],
+                                                  s["b"])),
+            order_library_ms=cold(lambda s: torch.sort(s["key"],
+                                                       stable=True)),
+            main_ms=cold(lambda s: uk.collide_ordered(
+                s["f"], s["a"], s["b"], s["p"], dims, THRESHOLD, rim)),
+            table_order_main_ms=cold(lambda s: uk.collide_ordered(
+                s["f"], s["a"], s["b"], s["table_order"], dims, THRESHOLD,
+                rim)),
+            plain_ms=cold(lambda s: calls(s["t"], s["a"], s["b"])[1](),
+                          n_sets),
+            features_plain_ms=cold(lambda s: uk.world_features_plain(
+                s["t"], dims), n_sets),
+            order_plain_ms=cold(lambda s: uk.pair_order_plain(
+                s["c"], s["i"], s["a"], s["b"]), n_sets),
+            warm_ms=device_ms([kern]), call_ms=call_ms(kern, 20),
+            kernel_us=kernel_times([lambda s=s: whole(s) for s in sets],
+                                   [k for ks in K4_STEPS.values()
+                                    for k in ks]),
+            n_sets=n_sets, live_ops=live, padded_ops=padded,
+            ops_per_pair=live / K, padded_ops_per_pair=padded / K,
+            **bound(nbytes, live + f_ops + o_ops))
+        out["padded_bound_ms"] = bound(nbytes, padded + f_ops + o_ops)[
+            "bound_ms"]
+        main_bytes = 4 * RS * N + 24 * K + 192 * K
+        out["steps"] = {
+            "unified_features": dict(ms=out["features_ms"],
+                                     plain_ms=out["features_plain_ms"],
+                                     **bound(4 * (C + RS + 1) * N, f_ops)),
+            "pair_order": dict(ms=out["order_ms"],
+                               plain_ms=out["order_plain_ms"],
+                               library_ms=out["order_library_ms"],
+                               **bound(4 * N + 24 * K, o_ops)),
+            "collide_support": dict(
+                ms=out["main_ms"], plain_ms=out["plain_ms"],
+                padded_bound_ms=bound(main_bytes, padded)["bound_ms"],
+                **bound(main_bytes, live))}
         del sets
-        msg += (f"; device {out['ms'] * 1e3:.2f} us L2-cold ({n_sets} input "
-                f"sets), {out['warm_ms'] * 1e3:.2f} us L2-warm; plain "
+        msg += (f"; all launches {out['ms'] * 1e3:.2f} us L2-cold ({n_sets} "
+                f"input sets: pre-pass {out['features_ms'] * 1e3:.2f}, pair "
+                f"order {out['order_ms'] * 1e3:.2f}, per-pair kernel "
+                f"{out['main_ms'] * 1e3:.2f}, in table order "
+                f"{out['table_order_main_ms'] * 1e3:.2f}; stable torch.sort "
+                f"of the class bins {out['order_library_ms'] * 1e3:.2f}; "
+                f"per kernel {out['kernel_us']} us under the profiler), "
+                f"{out['warm_ms'] * 1e3:.2f} us L2-warm; plain "
                 f"{out['plain_ms'] * 1e3:.2f} us; bound "
-                f"{out['bound_ms'] * 1e3:.2f} us ({out['bound_by']}: "
-                f"{nbytes / 1e6:.2f} MB, {per_pair:.0f} ops/pair); one call "
-                f"with its host work {out['call_ms'] * 1e3:.1f} us")
+                f"{out['bound_ms'] * 1e3:.2f} us live work ({out['bound_by']}:"
+                f" {live / K:.0f} ops/pair), "
+                f"{out['padded_bound_ms'] * 1e3:.2f} us padded "
+                f"({padded / K:.0f} ops/pair); one call with its host work "
+                f"{out['call_ms'] * 1e3:.1f} us")
     log(msg)
     return out
 
@@ -464,12 +669,12 @@ def versus_support_sat(st, ka, kb, rim: bool) -> dict:
     return out
 
 
-def random_aabbs(n: int, seed: int, dev):
-    """n boxes in a 30 m cube, half extents 0.1-0.8 m (about 14 overlaps a
-    box), 10% invalid."""
+def random_aabbs(n: int, seed: int, dev, side: float = 30.0):
+    """n boxes in a cube of ``side`` m, half extents 0.1-0.8 m (in the 30 m
+    cube about 14 overlaps a box at n = 65,573), 10% invalid."""
     import torch
     g = torch.Generator(device=dev).manual_seed(seed)
-    c = torch.rand((n, 3), generator=g, device=dev) * 30.0
+    c = torch.rand((n, 3), generator=g, device=dev) * side
     h = 0.1 + 0.7 * torch.rand((n, 3), generator=g, device=dev)
     v = torch.rand((n,), generator=g, device=dev) > 0.1
     return (c - h).contiguous(), (c + h).contiguous(), v
@@ -514,6 +719,38 @@ def check_overlaps(amin, amax, valid, label: str, timed: bool) -> dict:
     return out
 
 
+def k5_edge_cases(dev) -> dict:
+    """K5 on the inputs its exactness must survive, each count equal to the
+    plain one: N below one tile (300) and not a multiple of it (1,000),
+    every box invalid, infinite extents, 1e30 extents, and a row of boxes
+    whose faces touch exactly."""
+    import torch
+    inf = float("inf")
+    cases = {"300 boxes": random_aabbs(300, 11, dev, side=6.0),
+             "1,000 boxes": random_aabbs(1000, 12, dev, side=9.0)}
+    amin, amax, v = random_aabbs(2000, 13, dev, side=12.0)
+    cases["all invalid"] = (amin, amax, torch.zeros_like(v))
+    amin, amax, v = (x.clone() for x in random_aabbs(2000, 14, dev,
+                                                     side=12.0))
+    amin[::3, 1] = -inf
+    amax[::5, 0] = inf
+    amin[7::11] = -inf
+    amax[7::11] = inf
+    cases["infinite extents"] = (amin, amax, v)
+    amin, amax, v = (x.clone() for x in random_aabbs(2000, 15, dev,
+                                                     side=12.0))
+    amin[::4, 2] = -1e30
+    amax[1::4] = 1e30
+    cases["1e30 extents"] = (amin, amax, v)
+    lo = torch.arange(700, device=dev, dtype=torch.float32)[:, None] \
+        * torch.tensor([1.0, 0.0, 0.0], device=dev)
+    cases["touching faces"] = (lo, lo + 1.0,
+                               torch.ones(700, dtype=torch.bool, device=dev))
+    return {name: check_overlaps(a.contiguous(), b.contiguous(), v, name,
+                                 False)
+            for name, (a, b, v) in cases.items()}
+
+
 def main_path(n_bodies: int, steps: int, dev):
     """Phase 3: the port's main path through the user-facing entry points."""
     import torch
@@ -550,7 +787,7 @@ def main_path(n_bodies: int, steps: int, dev):
                 "restitution_iteration": s.num_restitution_iterations
                 * s.num_individual_restitution_iterations,
                 "relvel": s.num_restitution_iterations,
-                "collide_support": 1}
+                "unified_features": 1, "pair_order": 1, "collide_support": 1}
     awake = int((st.awake_dynamic).sum())
     rows_count = rows_in_use(world)
     log(f"[main] {steps} steps in {t2 - t0:.3f} s = "
@@ -878,6 +1115,7 @@ def run() -> int:
     del fresh, tbl, ka, kb
     k5_rand = check_overlaps(*random_aabbs(65_573, 3, dev), "random AABBs",
                              True)
+    k5_edges = k5_edge_cases(dev)
 
     # 3. the main path, the suggest_max_pairs entry point, and the JAX
     #    package's own pile test
@@ -910,6 +1148,7 @@ def run() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=SOURCE,
             replaces=KERNELS[name][0], launches=launches[name],
+            launches_per_step=launches[name] / STEPS,
             max_abs_err=max(r["max_abs_err"], real[name]["max_abs_err"]),
             tol=f"{TOL} x (1 + |plain|)", ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_us=r["bound_ms"] * 1e3,
@@ -918,32 +1157,68 @@ def run() -> int:
             real_Rp=real[name]["Rp"], real_ms=real[name]["ms"],
             real_warm_ms=real[name]["warm_ms"],
             real_call_ms=real[name]["call_ms"],
-            real_bound_ms=real[name]["bound_ms"]))
+            real_bound_ms=real[name]["bound_ms"],
+            **build_info("solver_kernels", SOLVER_KERNELS[name])))
     k4_all = k4_rand + [k4_real]
+    k4_err = max(r["max_abs_err"] for r in k4_all)
+    k4_tol = "equal to the plain version on every pair (signed zeros equal)"
+    # K4: all of its wrapper's launches together (the main path pays all of
+    # them), then each of its kernels alone
     kernels.append(dict(
         K4, route="cuda", launches=launches[K4["name"]],
-        max_abs_err=max(r["max_abs_err"] for r in k4_all),
-        tol=f"{TOL} x (1 + |plain|) on >= {K4_WITHIN} of pairs",
+        launches_per_step=launches[K4["name"]] / STEPS,
+        max_abs_err=k4_err, tol=k4_tol,
         within_tol=min(r["within_tol"] for r in k4_all),
+        equal_pairs=sum(r["equal_pairs"] for r in k4_all),
         bit_equal_pairs=sum(r["bit_equal_pairs"] for r in k4_all),
         pairs=sum(r["pairs"] for r in k4_all),
         ms=k4_real["ms"], plain_ms=k4_real["plain_ms"],
         bound_ms=k4_real["bound_ms"], bound_us=k4_real["bound_ms"] * 1e3,
-        bound_by=k4_real["bound_by"], library_ms=None,
+        bound_by=k4_real["bound_by"], bound_work="live",
+        padded_bound_ms=k4_real["padded_bound_ms"], library_ms=None,
         warm_ms=k4_real["warm_ms"], call_ms=k4_real["call_ms"],
-        real_pairs=k4_real["pairs"], ops_per_pair=k4_real["ops_per_pair"],
+        main_ms=k4_real["main_ms"], features_ms=k4_real["features_ms"],
+        order_ms=k4_real["order_ms"],
+        order_library_ms=k4_real["order_library_ms"],
+        table_order_main_ms=k4_real["table_order_main_ms"],
+        includes=[k for ks in K4_STEPS.values() for k in ks],
+        real_pairs=k4_real["pairs"], classes=k4_real["classes"],
+        ops_per_pair=k4_real["ops_per_pair"],
+        padded_ops_per_pair=k4_real["padded_ops_per_pair"],
         bytes=k4_real["bytes"], C=uk.table_rows(dims)))
+    for step, names in K4_STEPS.items():
+        r = k4_real["steps"][step]
+        for kname in names:
+            kernels.append(dict(
+                name=kname, route="cuda", source=K4["source"],
+                replaces=K4["replaces"], launches=launches[step],
+                launches_per_step=launches[step] / STEPS,
+                max_abs_err=k4_err if step == "collide_support" else 0.0,
+                tol=k4_tol if step == "collide_support"
+                else "bit-equal to the plain version",
+                ms=k4_real["kernel_us"][kname] * 1e-3,
+                timed_by="torch.profiler, L2-cold input sets",
+                step=step, step_ms=r["ms"], plain_ms=r["plain_ms"],
+                bound_ms=r["bound_ms"], bound_us=r["bound_ms"] * 1e3,
+                bound_by=r["bound_by"],
+                padded_bound_ms=r.get("padded_bound_ms", r["bound_ms"]),
+                library_ms=r.get("library_ms"),
+                **build_info("unified_kernel", kname)))
+    k5_all = [k5_rand, k5_real] + list(k5_edges.values())
     kernels.append(dict(
         K5, route="cuda", launches=suggest["launches"],
-        max_abs_err=max(k5_rand["max_abs_err"], k5_real["max_abs_err"]),
+        max_abs_err=max(r["max_abs_err"] for r in k5_all),
         tol="exact", ms=k5_rand["ms"], plain_ms=k5_rand["plain_ms"],
         bound_ms=k5_rand["bound_ms"], bound_us=k5_rand["bound_ms"] * 1e3,
         bound_by=k5_rand["bound_by"], library_ms=None,
         warm_ms=k5_rand["warm_ms"], call_ms=k5_rand["call_ms"],
-        n=k5_rand["n"], real_n=k5_real["n"], real_count=k5_real["count"]))
+        n=k5_rand["n"], real_n=k5_real["n"], real_count=k5_real["count"],
+        edge_cases={k: v["count"] for k, v in k5_edges.items()},
+        **build_info("overlap_count", "overlap_kernel")))
     log(json.dumps({"main_path": main, "suggest_max_pairs": suggest,
                     "k4": {"random": k4_rand, "real": k4_real},
-                    "k5": {"random": k5_rand, "real": k5_real},
+                    "k5": {"random": k5_rand, "real": k5_real,
+                           "edge_cases": k5_edges},
                     "card_vs_cpu": versus}))
     log(f"gpu: {line}")
     log(json.dumps({"kernels": kernels}))

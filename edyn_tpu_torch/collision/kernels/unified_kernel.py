@@ -15,14 +15,23 @@ where it differs from ``support_sat.collide_support``: masked values are
 takes the first index among equal maxima, three-component sums run as
 ``a0*b0 + a1*b1 + a2*b2`` (never ``torch.sum``, which rounds otherwise on the
 card), sums over vertices run in vertex order, and reduce-to-4 is the
-kernel's inline version. The CUDA kernel
+kernel's inline version. It runs as ``world_side`` on each side (the
+world rotations), then ``collide_sides_plain``, which also takes two
+sides of different widths, as the CUDA kernel runs them. The CUDA kernel
 (``edyn_tpu_torch/csrc/unified_kernel.cu``) evaluates the same operations in
 the same order per pair, built without FMA contraction.
 
-``collide_support_unified`` is the wrapper: the CUDA kernel for CUDA
-tensors (it gathers its two columns from the table itself), the plain
-version for CPU tensors, nothing else. ``LAUNCHES["collide_support"]``
-counts its kernel launches.
+``collide_support_unified`` is the wrapper: for CPU tensors the plain
+version, nothing else; for CUDA tensors the three entry points of
+``edyn_tpu_torch/csrc/unified_kernel.cu``: the per-body pre-pass
+(``world_features``: each body's features rotated into world space once,
+into a body-major table of 16-byte rows, its class code and the classes'
+numbers), the pair order (``pair_order``: a stable counting sort of the
+pairs by class), and the per-pair kernel (``collide_ordered``), which runs
+the pairs class by class at their real widths and writes each to its own
+row of a [K, 48] output. The pre-pass and the order have plain versions
+here too (``world_features_plain``, ``pair_order_plain``). ``LAUNCHES``
+counts each step's launches.
 """
 from __future__ import annotations
 
@@ -35,15 +44,17 @@ from ...utils import cuda_lib
 TILT = 0.02
 EPS = 1e-12
 BIG = 1e30
-# Compile-time caps (V, E) of the CUDA kernel's per-pair register arrays:
-# vertices and edge directions per shape (faces are streamed from the table
-# and need none). Every convex shape of the JAX package's scenes and tests
-# fits (mixed_pile: V 8, F 4, E 6; the octahedron of its tests V 6, E 6).
-CAPS = (8, 8)
+# Cap of the CUDA kernel's per-side vertex registers. Every convex shape of
+# the JAX package's scenes and tests fits (box V 8); faces and edges are
+# streamed from the feature rows and have no cap.
+VMAX = 8
 OUT_ROWS = 48  # 4 points x (pivot_a 3 | pivot_b 3 | normal 3 | attachment |
 #                           distance | point_valid)
 
-LAUNCHES = {"collide_support": 0}
+# launches of the wrapper's three steps: the pre-pass (features_kernel,
+# class_ids_kernel), the pair order (pair_bins_kernel, bin_offsets_kernel,
+# pair_place_kernel), the per-pair kernel (unified_kernel)
+LAUNCHES = {"unified_features": 0, "pair_order": 0, "collide_support": 0}
 
 
 def reset_launch_counts():
@@ -302,30 +313,34 @@ def _top2_verts(S, vw, d):
     return (x0, y0, z0), _where3(has2, (x, y, z), (x0, y0, z0))
 
 
-def _rim_axes(A, vwA, wA, B, vwB, wB, seed, iters=8):
-    def one(C_, vwC, wC, D_, vwD, wD):
-        cC = _deepest_vert(C_, vwC, _neg(seed))
-        rC = C_["disc_r"]
-        d_is_disc = D_["disc_r"] > 1e-9
-        cD = _deepest_vert(D_, vwD, seed)
-        q0, q1 = _top2_verts(D_, vwD, seed)
+def rim_axis(C_, D_, seed, iters=8):
+    """The rim candidate axis of side C against side D (sides from
+    ``world_side``) and its mask, which is False unless C has a disc."""
+    vwC, wC, vwD, wD = C_["vw"], C_["w"], D_["vw"], D_["w"]
+    cC = _deepest_vert(C_, vwC, _neg(seed))
+    rC = C_["disc_r"]
+    d_is_disc = D_["disc_r"] > 1e-9
+    cD = _deepest_vert(D_, vwD, seed)
+    q0, q1 = _top2_verts(D_, vwD, seed)
 
-        def closest_D(p):
-            oc = _closest_on_circle(cD, wD, D_["disc_r"], p)
-            os_ = _closest_on_segment(q0, q1, p)
-            return _where3(d_is_disc, oc, os_)
+    def closest_D(p):
+        oc = _closest_on_circle(cD, wD, D_["disc_r"], p)
+        os_ = _closest_on_segment(q0, q1, p)
+        return _where3(d_is_disc, oc, os_)
 
-        p = _closest_on_circle(cC, wC, rC, cD)
-        q = p
-        for _ in range(iters):
-            q = closest_D(p)
-            p = _closest_on_circle(cC, wC, rC, q)
-        ax = _sub(p, q)
-        ok = (C_["disc_r"] > 1e-9) & (_length(ax) > 1e-7)
-        return _normalize_or(ax, seed), ok
+    p = _closest_on_circle(cC, wC, rC, cD)
+    q = p
+    for _ in range(iters):
+        q = closest_D(p)
+        p = _closest_on_circle(cC, wC, rC, q)
+    ax = _sub(p, q)
+    ok = (C_["disc_r"] > 1e-9) & (_length(ax) > 1e-7)
+    return _normalize_or(ax, seed), ok
 
-    ax_a, ok_a = one(A, vwA, wA, B, vwB, wB)
-    ax_b, ok_b = one(B, vwB, wB, A, vwA, wA)
+
+def _rim_axes(A, B, seed):
+    ax_a, ok_a = rim_axis(A, B, seed)
+    ax_b, ok_b = rim_axis(B, A, seed)
     return (tuple(torch.cat([ax_a[c], ax_b[c]], 0) for c in range(3)),
             torch.cat([ok_a, ok_b], 0))
 
@@ -373,18 +388,31 @@ def _feature_slab(S, vw, w, d, t):
     return lo, hi
 
 
+def world_side(cols, dims):
+    """One side of each pair from its side-table columns [C, K] of widths
+    ``dims``: the unpacked fields and their world features (``_world``:
+    vertices ``vw``, disc axis ``w``, faces ``fw``, edges ``ew``)."""
+    S = _unpack(cols, dims)
+    S["vw"], S["w"], S["fw"], S["ew"] = _world(S)
+    return S
+
+
 def collide_support_plain(a_t, b_t, dims, threshold: float,
                           rim_axes: bool = True):
     """K4's plain version on gathered columns: a_t, b_t [C, K] side-table
     columns of each pair's sides. Returns [K, 4, 12] points (pivot_a 0:3 |
     pivot_b 3:6 | normal 6:9 | attachment 9 | distance 10 |
     point_valid 11)."""
-    V, F, E = dims
-    K = a_t.shape[1]
-    A = _unpack(a_t, dims)
-    B = _unpack(b_t, dims)
-    vwA, wA, fwA, ewA = _world(A)
-    vwB, wB, fwB, ewB = _world(B)
+    return collide_sides_plain(world_side(a_t, dims), world_side(b_t, dims),
+                               threshold, rim_axes)
+
+
+def collide_sides_plain(A, B, threshold: float, rim_axes: bool = True):
+    """``collide_support_plain`` after the world rotations: on two sides
+    from ``world_side``, each at its own widths (V, F, E)."""
+    K = A["radius"].shape[1]
+    vwA, wA, fwA, ewA = A["vw"], A["w"], A["fw"], A["ew"]
+    vwB, wB, fwB, ewB = B["vw"], B["w"], B["fw"], B["ew"]
     one = torch.ones_like(A["radius"])
     zero = torch.zeros_like(one)
     true = one > 0.5
@@ -413,20 +441,21 @@ def collide_support_plain(a_t, b_t, dims, threshold: float,
     side_axes(A, fwA, wA, B["pos"])
     side_axes(B, fwB, wB, A["pos"])
 
-    # edge crosses, A edge major: row i * E + j is (A edge i) x (B edge j)
-    eax = tuple(ewA[c][:, None, :].expand(E, E, K).reshape(E * E, K)
+    # edge crosses, A edge major: row i * EB + j is (A edge i) x (B edge j)
+    EA, EB = ewA[0].shape[0], ewB[0].shape[0]
+    eax = tuple(ewA[c][:, None, :].expand(EA, EB, K).reshape(EA * EB, K)
                 for c in range(3))
-    ebx = tuple(ewB[c][None, :, :].expand(E, E, K).reshape(E * E, K)
+    ebx = tuple(ewB[c][None, :, :].expand(EA, EB, K).reshape(EA * EB, K)
                 for c in range(3))
     crm = (A["edge_mask"][:, None, :] & B["edge_mask"][None, :, :]) \
-        .reshape(E * E, K)
+        .reshape(EA * EB, K)
     cr = _cross(eax, ebx)
     crl = _length(cr)
     cr = _scale(cr, 1.0 / torch.clamp(crl, min=EPS))
     add_axes(cr, crm & (crl > 1e-6))
 
     if rim_axes:
-        ra, ram = _rim_axes(A, vwA, wA, B, vwB, wB, seed)
+        ra, ram = _rim_axes(A, B, seed)
         add_axes(ra, ram)
 
     axes = tuple(torch.cat(ax_list[c], 0) for c in range(3))
@@ -554,47 +583,223 @@ def collide_support_plain(a_t, b_t, dims, threshold: float,
 
 
 # ---------------------------------------------------------------------------
-# the wrapper
+# the kernel's per-body pre-pass and pair order, in plain PyTorch
+# ---------------------------------------------------------------------------
+
+HDR = 16  # floats of a feature row's header
+NCODES = 1 << 13  # class codes of a body
+MAX_SIDE = 32  # side classes the pair order tells apart
+CHUNK = 1024  # pairs of one block of the CUDA counting sort
+
+
+def feature_row(dims) -> int:
+    """Floats in a row of the body-major feature table: a 16-float header,
+    then 4 per vertex, face and edge (16-byte aligned)."""
+    V, F, E = dims
+    return HDR + 4 * (V + F + E)
+
+
+def _real_count(mask, least: int = 0):
+    """[N] index of the last True row of mask [G, N], plus one (every row
+    beyond it is masked); at least ``least``."""
+    G, N = mask.shape
+    rank = torch.arange(1, G + 1, device=mask.device)[:, None] * mask
+    n = rank.amax(0) if G else torch.zeros(N, dtype=torch.int64,
+                                          device=mask.device)
+    return torch.clamp(n, min=least)
+
+
+def class_ids_plain(code):
+    """[NCODES + 1] int32: for each class code, the number of codes present
+    in ``code`` [N] before it (clamped at MAX_SIDE - 1), then how many are
+    present (at most MAX_SIDE)."""
+    present = torch.zeros(NCODES, dtype=torch.int32, device=code.device)
+    present.index_fill_(0, code.long(), 1)
+    incl = torch.cumsum(present, 0)
+    return torch.cat([torch.clamp(incl - present, max=MAX_SIDE - 1),
+                      torch.clamp(incl[-1:], max=MAX_SIDE)]).to(torch.int32)
+
+
+def world_features_plain(table_t, dims):
+    """The pre-pass's plain version: the body-major world-feature table
+    [N, feature_row(dims)] float32, the class codes [N] int32 of the side
+    table ``table_t`` [C, N], and the class numbers ``class_ids_plain``.
+
+    Row: pos xyz | radius, orn xyzw, world disc axis xyz | disc_r, the real
+    counts V F E and the class code (int32 bits), then (x, y, z, mask) per
+    world vertex, world face normal and world edge direction, computed by
+    ``_world`` as ``collide_support_plain`` computes them per pair. A real
+    count is the index of the last unmasked feature + 1 (vertices at least
+    1). The code packs min(count, 15) of V, F and E in 4 bits each and the
+    disc flag (disc_r > 1e-9) in bit 12."""
+    S = _unpack(table_t, dims)
+    vw, w, fw, ew = _world(S)
+    nv = _real_count(S["vert_mask"], 1)
+    nf = _real_count(S["face_mask"])
+    ne = _real_count(S["edge_mask"])
+    disc = (S["disc_r"][0] > 1e-9).to(torch.int64)
+    code = (torch.clamp(nv, max=15) | torch.clamp(nf, max=15) << 4
+            | torch.clamp(ne, max=15) << 8 | disc << 12)
+    ints = torch.stack([nv, nf, ne, code], 1).to(torch.int32)
+
+    def rows(xyz, mask):  # [G, N] x 3 and [G, N] -> [N, 4G]
+        q = torch.stack([xyz[0], xyz[1], xyz[2], mask.to(torch.float32)], -1)
+        return q.permute(1, 0, 2).reshape(q.shape[1], -1)
+
+    hdr = torch.cat([c.T for c in (*S["pos"], S["radius"], *S["orn"], *w,
+                                   S["disc_r"])], 1)
+    feat = torch.cat([hdr, ints.view(torch.float32),
+                      rows(vw, S["vert_mask"]), rows(fw, S["face_mask"]),
+                      rows(ew, S["edge_mask"])], 1)
+    code = code.to(torch.int32)
+    return feat.contiguous(), code, class_ids_plain(code)
+
+
+def pair_bins_plain(code, ids, ka, kb):
+    """[K] int32 class bin of each pair: A's class number x the number of
+    classes + B's."""
+    c = ids.long()
+    return (c[code[ka].long()] * c[NCODES] + c[code[kb].long()]).to(
+        torch.int32)
+
+
+def pair_order_plain(code, ids, ka, kb):
+    """The pair order's plain version: [K] int64 permutation that lists the
+    pairs bin by bin, each bin in table order (a stable sort)."""
+    return torch.sort(pair_bins_plain(code, ids, ka, kb), stable=True).indices
+
+
+def feature_counts(feat):
+    """[N, 3] int64 real counts (V, F, E) of a feature table's rows."""
+    return feat[:, 12:15].contiguous().view(torch.int32).to(torch.int64)
+
+
+def class_widths(feat, ka, kb):
+    """[K, 3] the widths (V, F, E) at which each pair's class runs: for
+    each, the larger of its two sides' real counts."""
+    n = feature_counts(feat)
+    return torch.maximum(n[ka], n[kb])
+
+
+def repack_columns(cols, dims, widths):
+    """Side-table columns [C, K] of widths ``dims`` repacked at the smaller
+    ``widths`` (V, F, E): the first ``widths`` entries of each vertex, face
+    and edge row group."""
+    parts = [cols[:12]]
+    o = 12
+    for G, g in zip(dims, widths):
+        for c in range(4):
+            parts.append(cols[o + c * G:o + c * G + g])
+        o += 4 * G
+    return torch.cat(parts, 0)
+
+
+# ---------------------------------------------------------------------------
+# the wrappers
 # ---------------------------------------------------------------------------
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-SIGNATURES = {"edyn_collide_support": [_P, _I, _P, _P, _I, _I, _I, _I, _F,
-                                       _I, _P, _P]}
+SIGNATURES = {
+    "edyn_unified_features": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "edyn_unified_pair_order": [_P, _P, _P, _P, _I, _P, _P, _P, _P],
+    "edyn_collide_support": [_P, _I, _I, _I, _P, _P, _P, _I, _F, _I, _P,
+                             _P],
+}
+
+
+def _lib():
+    return cuda_lib.load("unified_kernel", SIGNATURES)
 
 
 def check_caps(dims):
     """Raise for convex widths ``dims`` = (V, F, E) beyond the CUDA
     kernel's caps."""
-    V, _, E = dims
-    if V > CAPS[0] or E > CAPS[1]:
+    if dims[0] > VMAX:
         raise NotImplementedError(
-            f"convex widths V = {V}, E = {E} exceed the CUDA kernel's caps "
-            f"(V, E) = {CAPS}")
+            f"convex width V = {dims[0]} exceeds the CUDA kernel's caps "
+            f"(V <= {VMAX})")
+
+
+def world_features(table_t, dims):
+    """K4's per-body pre-pass: (body-major world-feature table, class codes,
+    class numbers) of the side table ``table_t`` [C, N] (see
+    ``world_features_plain``)."""
+    if cuda_lib.on_cpu(table_t):
+        return world_features_plain(table_t, dims)
+    C, N = table_t.shape
+    if C != table_rows(dims):
+        raise ValueError(f"table has {C} rows, {table_rows(dims)} expected "
+                         f"for widths {tuple(dims)}")
+    check_caps(dims)
+    cuda_lib.check(table_t, "table_t", (C, N))
+    dev = table_t.device
+    feat = torch.empty((N, feature_row(dims)), dtype=torch.float32,
+                       device=dev)
+    code = torch.empty((N,), dtype=torch.int32, device=dev)
+    present = torch.empty((NCODES,), dtype=torch.int32, device=dev)
+    ids = torch.empty((NCODES + 1,), dtype=torch.int32, device=dev)
+    rc = _lib().edyn_unified_features(
+        table_t.data_ptr(), N, *dims, feat.data_ptr(), code.data_ptr(),
+        present.data_ptr(), ids.data_ptr(), cuda_lib.stream(table_t))
+    cuda_lib.launched(LAUNCHES, "unified_features", rc)
+    return feat, code, ids
+
+
+def pair_order(code, ids, ka, kb):
+    """[K] int64 permutation that lists the pairs class by class, each
+    class in table order (see ``pair_order_plain``); on CUDA a counting
+    sort."""
+    if cuda_lib.on_cpu(code, ids, ka, kb):
+        return pair_order_plain(code, ids, ka, kb)
+    K = ka.shape[0]
+    cuda_lib.check(code, "code", code.shape, torch.int32)
+    cuda_lib.check(ids, "ids", (NCODES + 1,), torch.int32)
+    cuda_lib.check(ka, "ka", (K,), torch.int64)
+    cuda_lib.check(kb, "kb", (K,), torch.int64)
+    dev = code.device
+    perm = torch.empty((K,), dtype=torch.int64, device=dev)
+    if K:
+        bins = torch.empty((K,), dtype=torch.int32, device=dev)
+        counts = torch.empty((MAX_SIDE * MAX_SIDE * -(-K // CHUNK),),
+                             dtype=torch.int32, device=dev)
+        rc = _lib().edyn_unified_pair_order(
+            code.data_ptr(), ids.data_ptr(), ka.data_ptr(), kb.data_ptr(), K,
+            bins.data_ptr(), counts.data_ptr(), perm.data_ptr(),
+            cuda_lib.stream(code))
+        cuda_lib.launched(LAUNCHES, "pair_order", rc)
+    return perm
+
+
+def collide_ordered(feat, ka, kb, perm, dims, threshold: float,
+                    rim_axes: bool = True):
+    """K4's per-pair kernel on CUDA tensors: the pairs in the order
+    ``perm``, each written to its own row of the [K, 48] output."""
+    K = ka.shape[0]
+    cuda_lib.check(feat, "feat", (feat.shape[0], feature_row(dims)))
+    for name, t in (("ka", ka), ("kb", kb), ("perm", perm)):
+        cuda_lib.check(t, name, (K,), torch.int64)
+    out = torch.empty((K, OUT_ROWS), dtype=torch.float32, device=feat.device)
+    if K:
+        rc = _lib().edyn_collide_support(
+            feat.data_ptr(), *dims, ka.data_ptr(), kb.data_ptr(),
+            perm.data_ptr(), K, float(threshold), int(bool(rim_axes)),
+            out.data_ptr(), cuda_lib.stream(feat))
+        cuda_lib.launched(LAUNCHES, "collide_support", rc)
+    return out.reshape(K, 4, 12)
 
 
 def collide_support_unified(table_t, ka, kb, dims, threshold: float,
                             rim_axes: bool = True):
     """K4: the UNIFIED bucket's contacts for pairs (ka[k], kb[k]) of the
     side table ``table_t`` [C, N] (``pack_side_table_t``). Returns
-    [K, 4, 12] (see ``collide_support_plain``)."""
+    [K, 4, 12] (see ``collide_support_plain``). On CUDA: the pre-pass, the
+    pair order, then the per-pair kernel."""
     if cuda_lib.on_cpu(table_t, ka, kb):
         return collide_support_plain(table_t[:, ka], table_t[:, kb], dims,
                                      threshold, rim_axes)
-    C, N = table_t.shape
     K = ka.shape[0]
-    if C != table_rows(dims):
-        raise ValueError(f"table has {C} rows, {table_rows(dims)} expected "
-                         f"for widths {tuple(dims)}")
-    check_caps(dims)
-    cuda_lib.check(table_t, "table_t", (C, N))
     cuda_lib.check(ka, "ka", (K,), torch.int64)
     cuda_lib.check(kb, "kb", (K,), torch.int64)
-    out = torch.empty((OUT_ROWS, K), dtype=torch.float32,
-                      device=table_t.device)
-    if K:
-        rc = cuda_lib.load("unified_kernel", SIGNATURES).edyn_collide_support(
-            table_t.data_ptr(), N, ka.data_ptr(), kb.data_ptr(), K,
-            *dims, float(threshold), int(bool(rim_axes)), out.data_ptr(),
-            cuda_lib.stream(table_t))
-        cuda_lib.launched(LAUNCHES, "collide_support", rc)
-    return out.T.reshape(K, 4, 12)
+    feat, code, ids = world_features(table_t, dims)
+    perm = pair_order(code, ids, ka, kb)
+    return collide_ordered(feat, ka, kb, perm, dims, threshold, rim_axes)

@@ -10,9 +10,10 @@ world whose shape types would need them.
 The UNIFIED bucket runs by the device, as in the JAX package, whose
 ``_use_pallas(None)`` runs its Pallas kernel on a TPU and its jnp path
 elsewhere:
-- on CUDA it is ONE launch of K4 (``unified_kernel.collide_support_unified``,
+- on CUDA it is ONE call of K4 (``unified_kernel.collide_support_unified``,
   the counterpart of ``collide_support_pallas``) over the live prefix of the
-  compacted selection, reading the transposed side table;
+  compacted selection, reading the transposed side table: a per-body
+  pre-pass, a counting sort of the pairs by class and the per-pair kernel;
 - on the CPU it is ``support_sat.collide_support`` (the port of the jnp
   path), in ``CHUNK``-pair chunks that bound its temporaries, so a CPU step
   computes what the JAX package's CPU step computes.

@@ -18,6 +18,7 @@ from ..shapes.params import (
     PolyhedronShape, ShapeType, pack_polyhedra, shape_roll_direction,
 )
 from ..shapes.inertia import moment_of_inertia, polyhedron_inertia
+from .device import resolve_device
 from .state import (
     KIND_DYNAMIC, KIND_STATIC, MAX_EXCLUSIONS, ContactTable, JointTable,
     MixTable, PolyTable, WorldState,
@@ -97,10 +98,13 @@ class WorldBuilder:
 
     def finalize(self, capacity: Optional[int] = None,
                  max_manifolds: Optional[int] = None,
-                 device="cpu") -> WorldState:
+                 device=None) -> WorldState:
+        """The WorldState of the bodies added so far, on ``device``
+        (default ``cuda``; raises without a GPU, see ``resolve_device``)."""
         from ..shapes.aabb import compute_aabbs
         from ..shapes.convex import build_convex_table
 
+        device = resolve_device(device)
         n = len(self.defs)
         N = capacity or max(n, 1)
         if N < n:

@@ -13,6 +13,7 @@ import torch
 from ..config import Settings
 from ..simulation.stepper import SceneMeta, physics_step
 from .builder import WorldBuilder
+from .device import resolve_device
 from .state import WorldState, grow_contact_table
 
 
@@ -172,17 +173,6 @@ class World:
                 "contact_rows": int(ovf[2]),
                 "broadphase_window_alarms": int(ovf[3]),
                 "manifold_slots": int(ovf[4])}
-
-
-def resolve_device(device=None) -> torch.device:
-    """``cuda`` unless the caller names a device. Without a GPU, asking for
-    the default raises: the port never falls back to the CPU on its own."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: pass device='cpu' to run on "
-                               "the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 def make_world(builder: WorldBuilder, settings: Settings = Settings(),

@@ -1,70 +1,120 @@
-// Dense AABB-overlap pair count for Hopper (sm_90a), with a plain C
+// Dense AABB-overlap pair count (K5) for Hopper (sm_90a), with a plain C
 // interface for ctypes (edyn_tpu_torch/ops/overlap_count.py).
 //
 // Replaces the Pallas TPU kernel count_overlaps
 // (edyn_tpu/ops/overlap_count.py, body _kernel): the number of pairs i < j
-// of valid AABBs that overlap on all three axes, without materialising the
-// [N, N] mask. The TPU kernel walks its (i, j) tile grid in order and keeps
-// the count in SMEM across grid steps; here the blocks of the upper-triangle
-// tiles run in parallel, each reduces its own count and adds it once to a
-// 64-bit total with an atomic.
+// of valid AABBs that overlap on all three axes (touching counts), without
+// materialising the [N, N] mask. The TPU kernel walks its (i, j) tile grid
+// in order and keeps the count in SMEM across grid steps; here each block
+// takes one tile pair of the upper triangle, reduces its own count and adds
+// it once to a 64-bit total with an atomic.
 //
-// Input: aabb_min, aabb_max [N, 3] float32 and valid [N] bool, as the
-// state holds them (the TPU kernel packed them into [N, 8] rows first).
-// Block (i, j) with j >= i: 256 threads, thread t holds box i*256 + t in
-// registers, the j-tile's 256 boxes are staged in shared memory, and each
-// thread tests its box against all 256. Tiles below the diagonal return at
-// once.
+// Input: aabb_min, aabb_max [N, 3] float32 and valid [N] bool, as the state
+// holds them.
 //
-// Bound: operations. Each candidate pair costs ~8 compares and logic ops,
-// N(N-1)/2 pairs, against 25 bytes read per box (each box is read by
-// ~N/256 blocks, from L2 after the first).
+// Bound: operations (6 compares, the validity test and the count per
+// candidate pair, N(N-1)/2 pairs, against 25 bytes a box). The first version
+// read 7 shared-memory scalars per test, which capped it at one test per
+// shared-memory load. The design:
+// - register tiling: a thread holds R = 4 i-boxes, and reads each j-box of
+//   the shared tile once for its R tests, as two 16-byte loads (min xyz
+//   with the validity flag, max xyz): 0.5 loads a test;
+// - a branch-free inner loop (predicates combined with &): the j-box's
+//   validity is tested once for the R tests, an i-box's once at the end
+//   (its count is kept only if it is valid), i < j only on diagonal tiles,
+//   and the ragged last tile once, at staging (its missing boxes are
+//   flagged invalid);
+// - a 1-D grid over the nb(nb + 1)/2 upper tiles only.
+// Validity stays a flag: every extent, also +-inf and +-1e30, is compared
+// as the plain version compares it.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int TILE = 256;
+constexpr int THREADS = 128;
+constexpr int R = 4;                 // i-boxes per thread
+constexpr int TILE = THREADS * R;    // boxes per i-tile and per j-tile
 
-__global__ void __launch_bounds__(TILE)
+// i-box q of a thread is box t + q * THREADS of the i-tile
+template <bool DIAG>
+__device__ __forceinline__ void count_tile(const float4* jmin,
+                                           const float4* jmax,
+                                           const float (&lo)[R][3],
+                                           const float (&hi)[R][3], int t,
+                                           unsigned (&cnt)[R]) {
+#pragma unroll 4
+  for (int u = 0; u < TILE; ++u) {
+    const float4 bl = jmin[u];
+    const float4 bh = jmax[u];
+    const bool vj = bl.w != 0.0f;
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      bool o = vj & (lo[q][0] <= bh.x) & (hi[q][0] >= bl.x) &
+               (lo[q][1] <= bh.y) & (hi[q][1] >= bl.y) &
+               (lo[q][2] <= bh.z) & (hi[q][2] >= bl.z);
+      if (DIAG) o = o & (t + q * THREADS < u);
+      cnt[q] += o ? 1u : 0u;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
     overlap_kernel(const float* __restrict__ amin,
                    const float* __restrict__ amax,
                    const bool* __restrict__ valid, int n,
                    unsigned long long* __restrict__ total) {
-  const int ti = blockIdx.y, tj = blockIdx.x;
-  if (tj < ti) return;
-  __shared__ float bj[7][TILE];
-  __shared__ unsigned int warp_sum[TILE / 32];
-  const int t = threadIdx.x;
-  const int gi = ti * TILE + t;
-  const int gjt = tj * TILE + t;
-  // stage the j-tile (component-major: conflict-free reads below)
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    bj[c][t] = gjt < n ? amin[(long long)gjt * 3 + c] : 0.0f;
-    bj[3 + c][t] = gjt < n ? amax[(long long)gjt * 3 + c] : 0.0f;
-  }
-  bj[6][t] = gjt < n && valid[gjt] ? 1.0f : 0.0f;
-  float a[6];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    a[c] = gi < n ? amin[(long long)gi * 3 + c] : 0.0f;
-    a[3 + c] = gi < n ? amax[(long long)gi * 3 + c] : 0.0f;
-  }
-  const bool ok_i = gi < n && valid[gi];
-  __syncthreads();
+  // block b -> tile pair (ti, tj), ti <= tj, rows of the triangle tj:
+  // b = tj (tj + 1) / 2 + ti
+  const long long b = blockIdx.x;
+  long long r = (long long)((sqrt(8.0 * (double)b + 1.0) - 1.0) * 0.5);
+  while (r * (r + 1) / 2 > b) --r;
+  while ((r + 1) * (r + 2) / 2 <= b) ++r;
+  const int tj = (int)r;
+  const int ti = (int)(b - r * (r + 1) / 2);
 
-  unsigned int count = 0;
-  if (ok_i) {
-    for (int u = 0; u < TILE; ++u) {
-      const int gj = tj * TILE + u;
-      const bool o = gi < gj && gj < n && bj[6][u] > 0.5f &&
-                     a[0] <= bj[3][u] && a[3] >= bj[0][u] &&
-                     a[1] <= bj[4][u] && a[4] >= bj[1][u] &&
-                     a[2] <= bj[5][u] && a[5] >= bj[2][u];
-      count += o ? 1u : 0u;
+  __shared__ float4 jmin[TILE], jmax[TILE];
+  __shared__ unsigned int warp_sum[THREADS / 32];
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const int u = t + q * THREADS;
+    const int g = tj * TILE + u;
+    if (g < n) {
+      const float* a = amin + (long long)g * 3;
+      const float* c = amax + (long long)g * 3;
+      jmin[u] = make_float4(a[0], a[1], a[2], valid[g] ? 1.0f : 0.0f);
+      jmax[u] = make_float4(c[0], c[1], c[2], 0.0f);
+    } else {
+      jmin[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      jmax[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
   }
+  float lo[R][3], hi[R][3];
+  bool vi[R];
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const int g = ti * TILE + t + q * THREADS;
+    vi[q] = g < n && valid[g];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      lo[q][c] = g < n ? amin[(long long)g * 3 + c] : 0.0f;
+      hi[q][c] = g < n ? amax[(long long)g * 3 + c] : 0.0f;
+    }
+  }
+  __syncthreads();
+
+  unsigned cnt[R];
+#pragma unroll
+  for (int q = 0; q < R; ++q) cnt[q] = 0u;
+  if (ti == tj)
+    count_tile<true>(jmin, jmax, lo, hi, t, cnt);
+  else
+    count_tile<false>(jmin, jmax, lo, hi, t, cnt);
+  unsigned count = 0u;
+#pragma unroll
+  for (int q = 0; q < R; ++q) count += vi[q] ? cnt[q] : 0u;
+
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     count += __shfl_down_sync(0xffffffffu, count, off);
@@ -73,7 +123,7 @@ __global__ void __launch_bounds__(TILE)
   if (t == 0) {
     unsigned long long s = 0;
 #pragma unroll
-    for (int w = 0; w < TILE / 32; ++w) s += warp_sum[w];
+    for (int w = 0; w < THREADS / 32; ++w) s += warp_sum[w];
     if (s) atomicAdd(total, s);
   }
 }
@@ -88,9 +138,9 @@ extern "C" int edyn_count_overlaps(const float* amin, const float* amax,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(total, 0, sizeof(*total), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int nb = (n + TILE - 1) / TILE;
+  const long long nb = (n + TILE - 1) / TILE;
   if (nb == 0) return 0;
-  dim3 grid(nb, nb);
-  overlap_kernel<<<grid, TILE, 0, s>>>(amin, amax, valid, n, total);
+  overlap_kernel<<<(unsigned)(nb * (nb + 1) / 2), THREADS, 0, s>>>(
+      amin, amax, valid, n, total);
   return static_cast<int>(cudaGetLastError());
 }

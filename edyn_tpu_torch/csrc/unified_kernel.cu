@@ -1,213 +1,470 @@
-// The UNIFIED convex-convex narrowphase bucket as one kernel for Hopper
-// (sm_90a), with a plain C interface for ctypes
-// (edyn_tpu_torch/collision/kernels/unified_kernel.py).
+// The UNIFIED convex-convex narrowphase bucket (K4) for Hopper (sm_90a), with
+// a plain C interface for ctypes (edyn_tpu_torch/collision/kernels/
+// unified_kernel.py).
 //
 // Replaces the Pallas TPU kernel collide_support_pallas
 // (edyn_tpu/collision/kernels/pallas_unified.py, body _make_kernel). Per
 // pair: SAT over the face, centre-delta and cylinder-side axes of both
-// sides, the E x E edge crosses and the 2 rim axes, with disc-swept
-// supports; a tangent basis aligned to line features; 5 tilted support
-// samples per side; the feature-slab reject/clamp; reduce to <= 4 points.
+// sides, the edge crosses and the 2 rim axes, with disc-swept supports; a
+// tangent basis aligned to line features; 5 tilted support samples per
+// side; the feature-slab reject/clamp; reduce to <= 4 points.
 //
-// Layout: the side table is the component-major [C, N] table of
-// pack_side_table_t (C = 12 + 4V + 4F + 4E rows). The Pallas kernel could
-// not gather, so XLA gathered [C, K] columns for it; here each thread reads
-// its two bodies' columns from the table itself (the table, ~3.4 MB at 10k
-// bodies, stays in L2), which saves writing and reading the two gathered
-// [C, K] copies. Output [48, K]: row 12p + f is field f of point p, so the
-// stores of a warp are coalesced and the wrapper's [K, 4, 12] is a view.
+// Three entry points, six kernels (the wrapper calls them in turn):
+// 1. edyn_unified_features. features_kernel, one thread per body: rotates
+//    the body's vertices, face normals, edge directions and disc axis into
+//    world space ONCE, and writes them to a body-major table with 16-byte
+//    rows (header: pos | radius, orn, world disc axis | disc_r, real counts
+//    V F E | class code; then one float4 (x, y, z, mask) per vertex, face
+//    and edge), the body's class code, and a flag for each code present. A
+//    real count is the index of the last unmasked feature + 1, so every
+//    feature beyond it is masked. class_ids_kernel (one block) numbers the
+//    codes present in code order (the first MAX_SIDE - 1 apart, the rest
+//    share the last number).
+// 2. edyn_unified_pair_order, a stable counting sort of the pairs by class
+//    (class number of A, then of B), so the pairs of one class (the same
+//    real widths and disc flags on each side) share warps: pair_bins_kernel
+//    (each pair's bin, and each warp chunk's count per bin),
+//    bin_offsets_kernel (one block: the counts' exclusive scan, bin-major)
+//    and pair_place_kernel (each chunk places its pairs in order).
+// 3. edyn_collide_support. unified_kernel, one thread per pair, in class
+//    order: it reads pair perm[k], loads the two rows as float4s, loops
+//    over vertices, faces and edges only up to each side's real count,
+//    solves a rim axis only for a side with a disc, and writes its 48
+//    outputs to row perm[k] of [K, 48], which is then in table order.
 //
-// Bound: operations. Per pair the SAT projects up to 50 axes on 2 x 8
-// vertices, and the tilt, line-feature and slab passes project the
-// vertices again (~6,000 float operations for a box pair of mixed_pile),
-// against ~400 bytes of table, indices and output. Design: one thread per
-// pair; the axes are streamed through a running first-index argmax, never
-// materialised; world vertices, B's world edges, the 10 tilt candidates
-// and reduce-to-4 stay in registers (arrays bounded by the compile-time
-// caps VM, EM and fully unrolled; faces are read as they are streamed). No
-// shared memory: nothing is shared between pairs.
+// Bound: operations (~5,700 a pair of the landed mixed_pile, counted on
+// the plain version with each side at its own real widths and without the
+// world rotations; ~17,000 at the table's padded widths, rotations
+// included) against ~240 bytes a pair of rows, indices and output. What
+// the design does about it: no work on masked lanes (the
+// first version ran every pair at the padded widths), no per-pair rotation
+// of features, warps of one class (uniform loop bounds), and a register
+// budget for 4 blocks of 128 threads per SM: the world vertices of both
+// sides are held in registers during the SAT only; the later passes reload
+// one side at a time from its row (in L1).
 //
-// Parity: the arithmetic follows collide_support_plain operation by
-// operation (three-component sums as (a0*b0 + a1*b1) + a2*b2, vertex sums in
-// vertex order, first index among equal maxima), and the library is built
-// with -fmad=false and without fast math, so both round alike.
+// Exactness: skipping a masked candidate changes no result. A masked axis
+// has separation -BIG, and the running first-index argmax takes a later
+// axis only when it is strictly larger; the centre-delta axis of A, never
+// masked, comes before every skipped axis except A's masked faces, whose
+// -BIG it beats. A masked vertex projects to -BIG and is never the first
+// maximum; it adds 0 to the feature sums and BIG/-BIG to the slab min/max,
+// which leave them as they are (the sums up to the sign of a zero, which no
+// later division or comparison sees). The arithmetic otherwise follows
+// collide_support_plain operation by operation (unified_math.cuh), built
+// with -fmad=false and without fast math.
 
 #include <cuda_runtime.h>
+
+#include "unified_math.cuh"
+
+using namespace unified;
 
 namespace {
 
 constexpr int THREADS = 128;
-// caps of the per-pair register arrays: vertices and edge directions per
-// shape (unified_kernel.CAPS); every convex shape of the JAX package's
-// scenes and tests fits (box V 8, tetrahedron E 6, octahedron E 6)
-constexpr int VMAX = 8, EMAX = 8;
-constexpr float BIG = 1e30f;
-constexpr float EPS = 1e-12f;
-constexpr float TILT = 0.02f;
+// cap of the per-side vertex registers (unified_kernel.VMAX): every convex
+// shape of the JAX package's scenes and tests fits (box V 8)
+constexpr int VMAX = 8;
+constexpr int HDR = 4;  // float4s of a row's header
+constexpr int NCODES = 1 << 13;  // class codes of a body
+constexpr int MAX_SIDE = 32;     // side classes told apart
+constexpr int MAX_BINS = MAX_SIDE * MAX_SIDE;
+constexpr int SORT_WARPS = 8;    // warps per block of the counting sort
+constexpr int WARP_PAIRS = 128;  // pairs of one warp in the counting sort
+constexpr int CHUNK = SORT_WARPS * WARP_PAIRS;  // pairs of one block
+constexpr int PRE_WARPS = 4;     // warps per block of the pre-pass
 
-struct F3 {
-  float x, y, z;
-};
-
-__device__ __forceinline__ F3 mk(float x, float y, float z) {
-  F3 r;
-  r.x = x;
-  r.y = y;
-  r.z = z;
+// non-caching, non-mergeable load of a row float4: the post-SAT passes
+// reload a side's vertices instead of keeping both sides' in registers
+__device__ __forceinline__ float4 ld_row(const float4* p) {
+  float4 r;
+  asm volatile("ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(r.x), "=f"(r.y), "=f"(r.z), "=f"(r.w)
+               : "l"(p));
   return r;
 }
-__device__ __forceinline__ float dot(F3 a, F3 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z;
-}
-__device__ __forceinline__ F3 cross(F3 a, F3 b) {
-  return mk(a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z,
-            a.x * b.y - a.y * b.x);
-}
-__device__ __forceinline__ F3 scale(F3 a, float s) {
-  return mk(a.x * s, a.y * s, a.z * s);
-}
-__device__ __forceinline__ F3 add(F3 a, F3 b) {
-  return mk(a.x + b.x, a.y + b.y, a.z + b.z);
-}
-__device__ __forceinline__ F3 sub(F3 a, F3 b) {
-  return mk(a.x - b.x, a.y - b.y, a.z - b.z);
-}
-__device__ __forceinline__ F3 neg(F3 a) { return mk(-a.x, -a.y, -a.z); }
-__device__ __forceinline__ F3 sel(bool c, F3 a, F3 b) { return c ? a : b; }
-__device__ __forceinline__ float sq(float x) { return x * x; }
-__device__ __forceinline__ float maxf(float a, float b) {
-  return a > b ? a : b;
-}
-__device__ __forceinline__ float minf(float a, float b) {
-  return a < b ? a : b;
-}
-__device__ __forceinline__ float length(F3 a) {
-  return sqrtf(maxf(dot(a, a), 0.0f));
-}
-__device__ __forceinline__ F3 normalize_or(F3 a, F3 fb) {
-  const float l2 = dot(a, a);
-  const float inv = 1.0f / sqrtf(maxf(l2, 1e-9f));
-  return l2 > 1e-9f ? scale(a, inv) : fb;
-}
-__device__ __forceinline__ F3 normalize(F3 a) {
-  const float l2 = dot(a, a);
-  const float inv = l2 > 1e-9f ? 1.0f / sqrtf(maxf(l2, 1e-9f)) : 0.0f;
-  return scale(a, inv);
-}
-// q = (x, y, z, w): v + 2w (qv x v) + qv x (2 qv x v)
-__device__ __forceinline__ F3 qrotate(const float q[4], F3 v) {
-  const F3 qv = mk(q[0], q[1], q[2]);
-  const F3 t = scale(cross(qv, v), 2.0f);
-  return add(add(v, scale(t, q[3])), cross(qv, t));
-}
-__device__ __forceinline__ F3 qrotate_inv(const float q[4], F3 v) {
-  const float qc[4] = {-q[0], -q[1], -q[2], q[3]};
-  return qrotate(qc, v);
-}
-__device__ __forceinline__ void ortho_basis(F3 n, F3& t1, F3& t2) {
-  const float sign = n.z >= 0.0f ? 1.0f : -1.0f;
-  const float a = -1.0f / (sign + n.z);
-  const float b = n.x * n.y * a;
-  t1 = mk(1.0f + sign * n.x * n.x * a, sign * b, -sign * n.x);
-  t2 = mk(b, sign + n.y * n.y * a, -n.y);
+
+// ---------------------------------------------------------------------------
+// 1. per-body pre-pass
+// ---------------------------------------------------------------------------
+
+// A block takes 32 bodies: it stages their [C, 32] columns in shared memory
+// (coalesced 128-byte row reads; a row pitch of 33 floats keeps the later
+// column reads free of bank conflicts), then each warp writes the rows of
+// 8 bodies, lane l rotating feature l (vertices, then faces, then edges)
+// and storing its float4, so a row is written by contiguous 16-byte
+// stores. The real counts are warp maxima of the unmasked indices.
+__global__ void __launch_bounds__(32 * PRE_WARPS)
+    features_kernel(const float* __restrict__ tbl, int N, int V, int F,
+                    int E, float4* __restrict__ feat,
+                    int* __restrict__ code, int* __restrict__ present) {
+  extern __shared__ float tile[];  // [C][33]
+  __shared__ int codes[32];
+  const int C = 12 + 4 * (V + F + E);
+  const int j0 = blockIdx.x * 32;
+#pragma unroll 8
+  for (int i = threadIdx.x; i < C * 32; i += 32 * PRE_WARPS) {
+    const int r = i >> 5, b = i & 31;
+    tile[r * 33 + b] = j0 + b < N ? __ldg(tbl + (long long)r * N + j0 + b)
+                                  : 0.0f;
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  for (int b = threadIdx.x >> 5; b < 32; b += PRE_WARPS) {
+    const int j = j0 + b;
+    if (j >= N) break;  // the whole warp
+    const auto c = [&](int r) { return tile[r * 33 + b]; };
+    const F3 pos = mk(c(0), c(1), c(2));
+    const float q[4] = {c(3), c(4), c(5), c(6)};
+    const float disc_r = c(8);
+    float4* row = feat + (long long)j * (HDR + V + F + E);
+    const int ov = 12, of = ov + 4 * V, oe = of + 4 * F;
+    int lv = -1, lf = -1, le = -1;  // last unmasked index seen by this lane
+    for (int f = lane; f < V + F + E; f += 32) {
+      F3 x;
+      bool m;
+      if (f < V) {
+        x = world_point(q, pos, mk(c(ov + f), c(ov + V + f),
+                                   c(ov + 2 * V + f)));
+        m = c(ov + 3 * V + f) > 0.5f;
+        if (m) lv = f;
+      } else if (f < V + F) {
+        const int i = f - V;
+        x = world_dir(q, mk(c(of + i), c(of + F + i), c(of + 2 * F + i)));
+        m = c(of + 3 * F + i) > 0.5f;
+        if (m) lf = i;
+      } else {
+        const int i = f - V - F;
+        x = world_dir(q, mk(c(oe + i), c(oe + E + i), c(oe + 2 * E + i)));
+        m = c(oe + 3 * E + i) > 0.5f;
+        if (m) le = i;
+      }
+      row[HDR + f] = make_float4(x.x, x.y, x.z, m ? 1.0f : 0.0f);
+    }
+    const int nv = max(__reduce_max_sync(0xffffffffu, lv) + 1, 1);
+    const int nf = __reduce_max_sync(0xffffffffu, lf) + 1;
+    const int ne = __reduce_max_sync(0xffffffffu, le) + 1;
+    if (lane == 0) {
+      const F3 w = world_dir(q, mk(c(9), c(10), c(11)));
+      const int cd = min(nv, 15) | (min(nf, 15) << 4) | (min(ne, 15) << 8) |
+                     ((disc_r > 1e-9f ? 1 : 0) << 12);
+      row[0] = make_float4(pos.x, pos.y, pos.z, c(7));
+      row[1] = make_float4(q[0], q[1], q[2], q[3]);
+      row[2] = make_float4(w.x, w.y, w.z, disc_r);
+      row[3] = make_float4(__int_as_float(nv), __int_as_float(nf),
+                           __int_as_float(ne), __int_as_float(cd));
+      code[j] = cd;
+      codes[b] = cd;
+    }
+  }
+  // one flag store per distinct code of the block, none once it is set
+  // (stores to one address from every block would serialise in L2)
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const int cd = j0 + lane < N ? codes[lane] : -1;
+    const unsigned peers = __match_any_sync(0xffffffffu, cd);
+    if (cd >= 0 && lane == __ffs(peers) - 1 && __ldcg(present + cd) == 0)
+      present[cd] = 1;
+  }
 }
 
-// One side of a pair: transform, radius, disc, world vertices.
-template <int VM>
+// the class number of each code present (the count of codes present before
+// it, clamped at MAX_SIDE - 1), and how many there are (at most MAX_SIDE)
+// in ids[NCODES]; warp w numbers codes [256 w, 256 w + 256) by ballots
+__global__ void __launch_bounds__(1024)
+    class_ids_kernel(const int* __restrict__ present, int* __restrict__ ids) {
+  constexpr int PER = NCODES / 1024;  // ballots per warp
+  __shared__ int wsum[32];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  int before[PER];
+  int run = 0;
+#pragma unroll
+  for (int r = 0; r < PER; ++r) {
+    const unsigned bal =
+        __ballot_sync(0xffffffffu, present[(w * PER + r) * 32 + lane] != 0);
+    before[r] = run + __popc(bal & below);
+    run += __popc(bal);
+  }
+  if (lane == 0) wsum[w] = run;
+  __syncthreads();
+  if (w == 0) {  // exclusive scan of the 32 warp totals
+    const int v = wsum[lane];
+    int incl = v;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += u;
+    }
+    wsum[lane] = incl - v;
+    if (lane == 31) ids[NCODES] = min(incl, MAX_SIDE);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < PER; ++r)
+    ids[(w * PER + r) * 32 + lane] = min(wsum[w] + before[r], MAX_SIDE - 1);
+}
+
+// ---------------------------------------------------------------------------
+// 2. stable counting sort of the pairs by class
+// ---------------------------------------------------------------------------
+
+// count of each bin in a warp's WARP_PAIRS pairs, pair k0 + 32 step + lane
+// holding bin b[step] (-1 past K): hist[bin] += its count
+__device__ __forceinline__ void warp_hist(const int (&b)[WARP_PAIRS / 32],
+                                          int lane, int* hist) {
+#pragma unroll
+  for (int step = 0; step < WARP_PAIRS / 32; ++step) {
+    const unsigned peers = __match_any_sync(0xffffffffu, b[step]);
+    if (b[step] >= 0 && lane == __ffs(peers) - 1)
+      hist[b[step]] += __popc(peers);
+    __syncwarp();
+  }
+}
+
+// bin of each pair (class number of A x classes + that of B), and the
+// count per bin of each chunk of CHUNK pairs (one block a chunk), bin-major
+__global__ void __launch_bounds__(32 * SORT_WARPS)
+    pair_bins_kernel(const int* __restrict__ code,
+                     const int* __restrict__ ids,
+                     const long long* __restrict__ ka,
+                     const long long* __restrict__ kb, int K, int nchunks,
+                     int* __restrict__ bins, int* __restrict__ counts) {
+  __shared__ int hist[SORT_WARPS][MAX_BINS];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int D = ids[NCODES], nb = D * D;
+  for (int b = lane; b < nb; b += 32) hist[w][b] = 0;
+  const int k0 = blockIdx.x * CHUNK + w * WARP_PAIRS;
+  int bin[WARP_PAIRS / 32];
+#pragma unroll
+  for (int step = 0; step < WARP_PAIRS / 32; ++step) {
+    const int k = k0 + step * 32 + lane;
+    bin[step] = -1;
+    if (k < K) {
+      bin[step] = ids[code[ka[k]]] * D + ids[code[kb[k]]];
+      bins[k] = bin[step];
+    }
+  }
+  __syncwarp();
+  warp_hist(bin, lane, hist[w]);
+  __syncthreads();
+  for (int b = threadIdx.x; b < nb; b += 32 * SORT_WARPS) {
+    int n = 0;
+#pragma unroll
+    for (int v = 0; v < SORT_WARPS; ++v) n += hist[v][b];
+    counts[(long long)b * nchunks + blockIdx.x] = n;
+  }
+}
+
+// exclusive scan of the counts, in place (one block): the first position
+// of each (bin, chunk)
+__global__ void __launch_bounds__(1024)
+    bin_offsets_kernel(const int* __restrict__ ids, int nchunks,
+                       int* __restrict__ counts) {
+  __shared__ int wsum[32];
+  __shared__ int carry;
+  const int D = ids[NCODES];
+  const int L = D * D * nchunks;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) carry = 0;
+  for (int base = 0; base < L; base += 1024) {
+    const int i = base + threadIdx.x;
+    const int v = i < L ? counts[i] : 0;
+    int incl = v;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += u;
+    }
+    if (lane == 31) wsum[w] = incl;
+    __syncthreads();
+    if (w == 0) {
+      const int s = wsum[lane];
+      int si = s;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int u = __shfl_up_sync(0xffffffffu, si, off);
+        if (lane >= off) si += u;
+      }
+      wsum[lane] = si - s;
+    }
+    __syncthreads();
+    if (i < L) counts[i] = carry + wsum[w] + incl - v;
+    __syncthreads();
+    if (threadIdx.x == 1023) carry += wsum[w] + incl;
+    __syncthreads();
+  }
+}
+
+// each chunk writes its pairs' indices at their bins' positions, in order:
+// warp w of the block starts after the block's earlier warps
+__global__ void __launch_bounds__(32 * SORT_WARPS)
+    pair_place_kernel(const int* __restrict__ ids,
+                      const int* __restrict__ bins,
+                      const int* __restrict__ offsets, int K, int nchunks,
+                      long long* __restrict__ perm) {
+  __shared__ int hist[SORT_WARPS][MAX_BINS];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int D = ids[NCODES], nb = D * D;
+  for (int b = lane; b < nb; b += 32) hist[w][b] = 0;
+  const int k0 = blockIdx.x * CHUNK + w * WARP_PAIRS;
+  int bin[WARP_PAIRS / 32];
+#pragma unroll
+  for (int step = 0; step < WARP_PAIRS / 32; ++step) {
+    const int k = k0 + step * 32 + lane;
+    bin[step] = k < K ? bins[k] : -1;
+  }
+  __syncwarp();
+  warp_hist(bin, lane, hist[w]);
+  __syncthreads();
+  // each warp's first position per bin, in place of the counts: the
+  // chunk's offset plus the counts of the block's earlier warps
+  for (int b = threadIdx.x; b < nb; b += 32 * SORT_WARPS) {
+    int run = offsets[(long long)b * nchunks + blockIdx.x];
+#pragma unroll
+    for (int v = 0; v < SORT_WARPS; ++v) {
+      const int n = hist[v][b];
+      hist[v][b] = run;
+      run += n;
+    }
+  }
+  __syncthreads();
+  int* base = hist[w];
+#pragma unroll
+  for (int step = 0; step < WARP_PAIRS / 32; ++step) {
+    const int b = bin[step];
+    const unsigned peers = __match_any_sync(0xffffffffu, b);
+    if (b >= 0) perm[base[b] + __popc(peers & ((1u << lane) - 1u))] =
+        k0 + step * 32 + lane;
+    __syncwarp();
+    if (b >= 0 && lane == __ffs(peers) - 1) base[b] += __popc(peers);
+    __syncwarp();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 3. per-pair kernel
+// ---------------------------------------------------------------------------
+
+// One side of a pair: its row and header.
 struct Side {
+  const float4* row;
   F3 pos;
   float orn[4];
   float radius, disc_r;
-  F3 w;          // world disc axis
-  F3 vw[VM];     // world vertices
-  bool vm[VM];   // vertex mask
+  F3 w;            // world disc axis
+  int nv, nf, ne;  // real counts
+  unsigned vm;     // mask bits of vertices 0..nv-1
 };
 
-// Column j of the [C, N] table.
-struct Col {
-  const float* __restrict__ t;
-  long long n, j;
-  __device__ __forceinline__ float operator()(int r) const {
-    return __ldg(t + r * n + j);
-  }
+// World vertices of a side, in registers (indexed by unrolled loops only).
+struct Verts {
+  F3 v[VMAX];
 };
 
-template <int VM>
-__device__ __forceinline__ void load_side(const Col& c, int V, Side<VM>& S) {
-  S.pos = mk(c(0), c(1), c(2));
+__device__ __forceinline__ Side load_side(const float4* feat, long long body,
+                                          int rs4) {
+  Side S;
+  S.row = feat + body * rs4;
+  const float4 h0 = __ldg(S.row), h1 = __ldg(S.row + 1),
+               h2 = __ldg(S.row + 2), h3 = __ldg(S.row + 3);
+  S.pos = mk(h0.x, h0.y, h0.z);
+  S.radius = h0.w;
+  S.orn[0] = h1.x;
+  S.orn[1] = h1.y;
+  S.orn[2] = h1.z;
+  S.orn[3] = h1.w;
+  S.w = mk(h2.x, h2.y, h2.z);
+  S.disc_r = h2.w;
+  S.nv = __float_as_int(h3.x);
+  S.nf = __float_as_int(h3.y);
+  S.ne = __float_as_int(h3.z);
+  S.vm = 0u;
+  return S;
+}
+
+// the side's vertices from its row into registers, and their mask bits
+template <bool RELOAD>
+__device__ __forceinline__ void load_verts(Side& S, Verts& X) {
+  unsigned vm = 0u;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) S.orn[i] = c(3 + i);
-  S.radius = c(7);
-  S.disc_r = c(8);
-  S.w = qrotate(S.orn, mk(c(9), c(10), c(11)));
-  const int o = 12;
-#pragma unroll
-  for (int v = 0; v < VM; ++v) {
-    if (v < V) {
-      const F3 ov = mk(c(o + v), c(o + V + v), c(o + 2 * V + v));
-      S.vw[v] = add(qrotate(S.orn, ov), S.pos);
-      S.vm[v] = c(o + 3 * V + v) > 0.5f;
+  for (int v = 0; v < VMAX; ++v) {
+    if (v < S.nv) {
+      const float4 q =
+          RELOAD ? ld_row(S.row + HDR + v) : __ldg(S.row + HDR + v);
+      X.v[v] = mk(q.x, q.y, q.z);
+      if (q.w > 0.5f) vm |= 1u << v;
     } else {
-      S.vw[v] = mk(0.0f, 0.0f, 0.0f);
-      S.vm[v] = false;
+      X.v[v] = mk(0.0f, 0.0f, 0.0f);
     }
   }
+  S.vm = vm;
+}
+
+// a side's header and vertices loaded again from its row, for one of the
+// passes after the SAT (nothing of a side stays live between passes)
+__device__ __forceinline__ void reload_side(const float4* row, Side& S,
+                                            Verts& X) {
+  S.row = row;
+  const float4 h0 = ld_row(row), h2 = ld_row(row + 2), h3 = ld_row(row + 3);
+  S.pos = mk(h0.x, h0.y, h0.z);
+  S.radius = h0.w;
+  S.w = mk(h2.x, h2.y, h2.z);
+  S.disc_r = h2.w;
+  S.nv = __float_as_int(h3.x);
+  load_verts<true>(S, X);
 }
 
 // masked projection of vertex v on d
-template <int VM>
-__device__ __forceinline__ float vproj(const Side<VM>& S, int v, F3 d) {
-  return S.vm[v] ? dot(d, S.vw[v]) : -BIG;
+__device__ __forceinline__ float vproj(const Side& S, const Verts& X, int v,
+                                       F3 d) {
+  return ((S.vm >> v) & 1u) ? dot(d, X.v[v]) : -BIG;
 }
 
-template <int VM>
-__device__ __forceinline__ float max_proj(const Side<VM>& S, int V, F3 d) {
-  float m = vproj(S, 0, d);
+__device__ __forceinline__ float max_proj(const Side& S, const Verts& X,
+                                          F3 d) {
+  float m = vproj(S, X, 0, d);
 #pragma unroll
-  for (int v = 1; v < VM; ++v)
-    if (v < V) m = maxf(m, vproj(S, v, d));
+  for (int v = 1; v < VMAX; ++v)
+    if (v < S.nv) m = maxf(m, vproj(S, X, v, d));
   return m;
 }
 
-// first vertex of largest masked projection
-template <int VM>
-__device__ __forceinline__ int argmax_vert(const Side<VM>& S, int V, F3 d) {
-  float m = vproj(S, 0, d);
+// first vertex of largest masked projection: its index, and the vertex,
+// carried through the scan (an index-equality select over the array would
+// let the compiler turn the register array into an indexed local array)
+__device__ __forceinline__ F3 deepest(const Side& S, const Verts& X, F3 d,
+                                      int* index = nullptr) {
+  float m = vproj(S, X, 0, d);
+  F3 r = X.v[0];
   int best = 0;
 #pragma unroll
-  for (int v = 1; v < VM; ++v) {
-    if (v < V) {
-      const float p = vproj(S, v, d);
+  for (int v = 1; v < VMAX; ++v) {
+    if (v < S.nv) {
+      const float p = vproj(S, X, v, d);
       if (p > m) {
         m = p;
         best = v;
+        r = X.v[v];
       }
     }
   }
-  return best;
-}
-
-template <int VM>
-__device__ __forceinline__ F3 vert(const Side<VM>& S, int i) {
-  F3 r = S.vw[0];
-#pragma unroll
-  for (int v = 1; v < VM; ++v)
-    if (v == i) r = S.vw[v];
+  if (index) *index = best;
   return r;
 }
 
-template <int VM>
-__device__ __forceinline__ float support_projection(const Side<VM>& S, int V,
-                                                    F3 d) {
-  const float base = max_proj(S, V, d);
+__device__ __forceinline__ float support_projection(const Side& S,
+                                                    const Verts& X, F3 d) {
+  const float base = max_proj(S, X, d);
   const float dw = dot(d, S.w);
   const float perp2 = maxf(dot(d, d) - dw * dw, 0.0f);
   return base + S.radius + S.disc_r * sqrtf(perp2);
 }
 
-template <int VM>
-__device__ __forceinline__ F3 support_point(const Side<VM>& S, int V, F3 d) {
-  const F3 base = vert(S, argmax_vert(S, V, d));
+__device__ __forceinline__ F3 support_point(const Side& S, const Verts& X,
+                                            F3 d) {
+  const F3 base = deepest(S, X, d);
   const float dw = dot(d, S.w);
   const F3 perp = sub(d, scale(S.w, dw));
   const float plen = length(perp);
@@ -231,30 +488,31 @@ __device__ __forceinline__ F3 closest_on_segment(F3 q0, F3 q1, F3 x) {
   return add(q0, scale(d, t));
 }
 
-// rim candidate axis of side C against side D (pallas_unified._rim_axes)
-template <int VM>
-__device__ __forceinline__ F3 rim_axis(const Side<VM>& C, const Side<VM>& D, int V, F3 seed,
-                       bool& ok) {
-  const F3 cC = vert(C, argmax_vert(C, V, neg(seed)));
+// rim candidate axis of side C (which has a disc) against side D
+// (pallas_unified._rim_axes)
+__device__ __forceinline__ F3 rim_axis(const Side& C, const Verts& XC,
+                                       const Side& D, const Verts& XD,
+                                       F3 seed, bool& ok) {
+  const F3 cC = deepest(C, XC, neg(seed));
   const float rC = C.disc_r;
   const bool d_is_disc = D.disc_r > 1e-9f;
-  const F3 cD = vert(D, argmax_vert(D, V, seed));
+  int i0;
+  const F3 cD = deepest(D, XD, seed, &i0);
   // the two highest-projection vertices of D along seed
-  const int i0 = argmax_vert(D, V, seed);
-  float m2 = i0 == 0 ? -BIG : vproj(D, 0, seed);
-  int i1 = 0;
+  float m2 = i0 == 0 ? -BIG : vproj(D, XD, 0, seed);
+  F3 q1 = XD.v[0];
 #pragma unroll
-  for (int v = 1; v < VM; ++v) {
-    if (v < V) {
-      const float p = v == i0 ? -BIG : vproj(D, v, seed);
+  for (int v = 1; v < VMAX; ++v) {
+    if (v < D.nv) {
+      const float p = v == i0 ? -BIG : vproj(D, XD, v, seed);
       if (p > m2) {
         m2 = p;
-        i1 = v;
+        q1 = XD.v[v];
       }
     }
   }
-  const F3 q0 = vert(D, i0);
-  const F3 q1 = m2 > -1e29f ? vert(D, i1) : q0;
+  const F3 q0 = cD;
+  if (!(m2 > -1e29f)) q1 = q0;
 
   F3 p = closest_on_circle(cC, C.w, rC, cD);
   F3 q = p;
@@ -264,37 +522,36 @@ __device__ __forceinline__ F3 rim_axis(const Side<VM>& C, const Side<VM>& D, int
     p = closest_on_circle(cC, C.w, rC, q);
   }
   const F3 ax = sub(p, q);
-  ok = (C.disc_r > 1e-9f) && (length(ax) > 1e-7f);
+  ok = length(ax) > 1e-7f;
   return normalize_or(ax, seed);
 }
 
 // direction of the supporting feature along d when it is a line (2 verts)
-template <int VM>
-__device__ __forceinline__ F3 line_feature_dir(const Side<VM>& S, int V, F3 d,
-                                               bool& line) {
-  const float thr = max_proj(S, V, d) - 1e-3f;
-  bool feat[VM];
+__device__ __forceinline__ F3 line_feature_dir(const Side& S, const Verts& X,
+                                               F3 d, bool& line) {
+  const float thr = max_proj(S, X, d) - 1e-3f;
+  bool feat[VMAX];
 #pragma unroll
-  for (int v = 0; v < VM; ++v)
-    feat[v] = v < V && vproj(S, v, d) >= thr && S.vm[v];
+  for (int v = 0; v < VMAX; ++v)
+    feat[v] = v < S.nv && ((S.vm >> v) & 1u) && vproj(S, X, v, d) >= thr;
   float cnt = feat[0] ? 1.0f : 0.0f;
-  F3 acc = scale(S.vw[0], cnt);
+  F3 acc = scale(X.v[0], cnt);
 #pragma unroll
-  for (int v = 1; v < VM; ++v) {
-    if (v < V) {
+  for (int v = 1; v < VMAX; ++v) {
+    if (v < S.nv) {
       const float f = feat[v] ? 1.0f : 0.0f;
       cnt = cnt + f;
-      acc = add(acc, scale(S.vw[v], f));
+      acc = add(acc, scale(X.v[v], f));
     }
   }
   const float div = maxf(cnt, 1.0f);
   const F3 cen = mk(acc.x / div, acc.y / div, acc.z / div);
-  F3 best = feat[0] ? sub(S.vw[0], cen) : mk(0.0f, 0.0f, 0.0f);
+  F3 best = feat[0] ? sub(X.v[0], cen) : mk(0.0f, 0.0f, 0.0f);
   float bd = dot(best, best);
 #pragma unroll
-  for (int v = 1; v < VM; ++v) {
-    if (v < V) {
-      const F3 df = feat[v] ? sub(S.vw[v], cen) : mk(0.0f, 0.0f, 0.0f);
+  for (int v = 1; v < VMAX; ++v) {
+    if (v < S.nv) {
+      const F3 df = feat[v] ? sub(X.v[v], cen) : mk(0.0f, 0.0f, 0.0f);
       const float d2 = dot(df, df);
       if (d2 > bd) {
         bd = d2;
@@ -306,29 +563,29 @@ __device__ __forceinline__ F3 line_feature_dir(const Side<VM>& S, int V, F3 d,
   return best;
 }
 
-template <int VM>
-__device__ __forceinline__ bool flat_feature(const Side<VM>& S, int V, F3 d) {
-  const float thr = max_proj(S, V, d) - 1e-3f;
-  float cnt = vproj(S, 0, d) >= thr ? 1.0f : 0.0f;
+__device__ __forceinline__ bool flat_feature(const Side& S, const Verts& X,
+                                             F3 d) {
+  const float thr = max_proj(S, X, d) - 1e-3f;
+  float cnt = vproj(S, X, 0, d) >= thr ? 1.0f : 0.0f;
 #pragma unroll
-  for (int v = 1; v < VM; ++v)
-    if (v < V) cnt = cnt + (vproj(S, v, d) >= thr ? 1.0f : 0.0f);
+  for (int v = 1; v < VMAX; ++v)
+    if (v < S.nv) cnt = cnt + (vproj(S, X, v, d) >= thr ? 1.0f : 0.0f);
   const bool cap = (S.disc_r > 1e-9f) && (fabsf(dot(d, S.w)) > 0.99f);
   return (S.radius < 1e-9f) && ((cnt >= 2.0f) || cap);
 }
 
 // extent [lo, hi] along t of the supporting feature along d
-template <int VM>
-__device__ __forceinline__ void feature_slab(const Side<VM>& S, int V, F3 d,
-                                             F3 t, float& lo, float& hi) {
-  const float thr = max_proj(S, V, d) - 1e-3f;
+__device__ __forceinline__ void feature_slab(const Side& S, const Verts& X,
+                                             F3 d, F3 t, float& lo,
+                                             float& hi) {
+  const float thr = max_proj(S, X, d) - 1e-3f;
   lo = BIG;
   hi = -BIG;
 #pragma unroll
-  for (int v = 0; v < VM; ++v) {
-    if (v < V) {
-      const bool feat = vproj(S, v, d) >= thr;
-      const float vt = dot(t, S.vw[v]);
+  for (int v = 0; v < VMAX; ++v) {
+    if (v < S.nv) {
+      const bool feat = vproj(S, X, v, d) >= thr;
+      const float vt = dot(t, X.v[v]);
       lo = minf(lo, feat ? vt : BIG);
       hi = maxf(hi, feat ? vt : -BIG);
     }
@@ -345,22 +602,21 @@ __device__ __forceinline__ void feature_slab(const Side<VM>& S, int V, F3 d,
   hi = hi + off + (cap ? disc_span : rim_off);
 }
 
-// Running first-index argmax over the candidate axes.
+// Running first-index argmax over the unmasked candidate axes.
 struct Best {
   bool any;
   float sep, plane_a, plane_b;
   F3 n;
 };
 
-template <int VM>
-__device__ __forceinline__ void consider(const Side<VM>& A,
-                                         const Side<VM>& B, int V, F3 delta,
-                                         F3 axis, bool mask, Best& b) {
+__device__ __forceinline__ void consider(const Side& A, const Verts& XA,
+                                         const Side& B, const Verts& XB,
+                                         F3 delta, F3 axis, Best& b) {
   const float sgn = dot(axis, delta) >= 0.0f ? 1.0f : -1.0f;
   axis = scale(axis, sgn);
-  const float pa = -support_projection(A, V, neg(axis));
-  const float pb = support_projection(B, V, axis);
-  const float sep = mask ? pa - pb : -BIG;
+  const float pa = -support_projection(A, XA, neg(axis));
+  const float pb = support_projection(B, XB, axis);
+  const float sep = pa - pb;
   if (!b.any || sep > b.sep) {
     b.any = true;
     b.sep = sep;
@@ -370,91 +626,139 @@ __device__ __forceinline__ void consider(const Side<VM>& A,
   }
 }
 
-template <int VM, int EM>
-__global__ void __launch_bounds__(THREADS)
-    unified_kernel(const float* __restrict__ tbl, long long N,
-                   const long long* __restrict__ ka,
-                   const long long* __restrict__ kb, int K, int V, int F,
-                   int E, float threshold, int rim, float* __restrict__ out) {
-  const int k = blockIdx.x * THREADS + threadIdx.x;
-  if (k >= K) return;
-  const Col ca{tbl, N, ka[k]};
-  const Col cb{tbl, N, kb[k]};
-  Side<VM> A, B;
-  load_side(ca, V, A);
-  load_side(cb, V, B);
-  const int of = 12 + 4 * V;          // face rows
-  const int oe = of + 4 * F;          // edge rows
+__device__ __forceinline__ F3 xyz(float4 q) { return mk(q.x, q.y, q.z); }
 
-  const F3 delta = sub(A.pos, B.pos);
+// the face, centre-delta and cylinder-side axes of side S (A or B)
+__device__ __forceinline__ void side_axes(const Side& A, const Verts& XA,
+                                          const Side& B, const Verts& XB,
+                                          const Side& S, F3 other, F3 delta,
+                                          int of, Best& best) {
   const F3 ydef = mk(0.0f, 1.0f, 0.0f);
-  const F3 seed = normalize_or(delta, ydef);
-
-  // --- SAT over the streamed candidate axes, in the TPU kernel's order ---
-  Best best;
-  best.any = false;
-#pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    const Side<VM>& S = s == 0 ? A : B;
-    const Col& c = s == 0 ? ca : cb;
-    const F3 other = s == 0 ? B.pos : A.pos;
-    for (int f = 0; f < F; ++f) {
-      const F3 fw = qrotate(S.orn, mk(c(of + f), c(of + F + f),
-                                      c(of + 2 * F + f)));
-      consider(A, B, V, delta, fw, c(of + 3 * F + f) > 0.5f, best);
-    }
-    const F3 d = sub(other, S.pos);
-    consider(A, B, V, delta, normalize_or(d, ydef), true, best);
+  for (int f = 0; f < S.nf; ++f) {
+    const float4 fq = __ldg(S.row + of + f);
+    if (fq.w > 0.5f) consider(A, XA, B, XB, delta, xyz(fq), best);
+  }
+  const F3 d = sub(other, S.pos);
+  consider(A, XA, B, XB, delta, normalize_or(d, ydef), best);
+  if (S.disc_r > 1e-9f) {
     const F3 perp = sub(d, scale(S.w, dot(d, S.w)));
     const float plen = length(perp);
-    const F3 side_n = scale(perp, 1.0f / maxf(plen, EPS));
-    consider(A, B, V, delta, side_n, (S.disc_r > 1e-9f) && (plen > 1e-9f),
-             best);
+    if (plen > 1e-9f)
+      consider(A, XA, B, XB, delta, scale(perp, 1.0f / maxf(plen, EPS)),
+               best);
   }
-  F3 ewB[EM];
-  bool emB[EM];
+}
+
+// the 5 tilted support samples of side A (candidates 0-4) or B (5-9): the
+// support point pt and its depth against the other side's plane (the
+// images on the other side follow from these two, see on_sides)
+template <bool IS_A>
+__device__ __forceinline__ void side_samples(const Side& S, const Verts& X,
+                                             F3 base, F3 n, F3 t1, F3 t2,
+                                             float plane, F3 (&pt)[10],
+                                             float (&depth)[10]) {
+  constexpr int o = IS_A ? 0 : 5;
 #pragma unroll
-  for (int j = 0; j < EM; ++j) {
-    if (j < E) {
-      ewB[j] = qrotate(B.orn, mk(cb(oe + j), cb(oe + E + j),
-                                 cb(oe + 2 * E + j)));
-      emB[j] = cb(oe + 3 * E + j) > 0.5f;
-    } else {
-      ewB[j] = mk(0.0f, 0.0f, 0.0f);
-      emB[j] = false;
+  for (int i = 0; i < 5; ++i) {
+    F3 tilt = mk(0.0f, 0.0f, 0.0f);
+    if (i == 1 || i == 2) tilt = t1;
+    if (i == 3 || i == 4) tilt = t2;
+    const float sg = (i == 1 || i == 3) ? 1.0f : -1.0f;
+    F3 d = base;
+    if (i > 0) {
+      const F3 tt = scale(tilt, TILT);
+      d = sg > 0.0f ? add(base, tt) : sub(base, tt);
     }
+    const F3 p = support_point(S, X, normalize(d));
+    pt[o + i] = p;
+    depth[o + i] = IS_A ? dot(p, n) - plane : plane - dot(p, n);
   }
-  for (int i = 0; i < E; ++i) {
-    const F3 ea = qrotate(A.orn, mk(ca(oe + i), ca(oe + E + i),
-                                    ca(oe + 2 * E + i)));
-    const bool ema = ca(oe + 3 * E + i) > 0.5f;
-#pragma unroll
-    for (int j = 0; j < EM; ++j) {
-      if (j < E) {
-        F3 cr = cross(ea, ewB[j]);
+}
+
+// candidate i's point on A and on B before the slab shift: a sample of A
+// and its image on B's plane, or the image on A's plane of a sample of B
+__device__ __forceinline__ void on_sides(int i, F3 p, float dep, F3 n,
+                                         F3& on_a, F3& on_b) {
+  if (i < 5) {
+    on_a = p;
+    on_b = sub(p, scale(n, dep));
+  } else {
+    on_a = add(p, scale(n, dep));
+    on_b = p;
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 4)
+    unified_kernel(const float4* __restrict__ feat, int V, int F, int E,
+                   const long long* __restrict__ ka,
+                   const long long* __restrict__ kb,
+                   const long long* __restrict__ perm, int K,
+                   float threshold, int rim, float4* __restrict__ out) {
+  const int k = blockIdx.x * THREADS + threadIdx.x;
+  if (k >= K) return;
+  const long long pi = perm[k];
+  const int rs4 = HDR + V + F + E;
+  const int of = HDR + V, oe = HDR + V + F;  // face, edge float4s
+  const float4* rowA = feat + ka[pi] * rs4;
+  const float4* rowB = feat + kb[pi] * rs4;
+
+  // --- SAT over the unmasked candidate axes, in the TPU kernel's order ---
+  Best best;
+  {
+    Side A = load_side(feat, ka[pi], rs4);
+    Side B = load_side(feat, kb[pi], rs4);
+    const F3 delta = sub(A.pos, B.pos);
+    const F3 seed = normalize_or(delta, mk(0.0f, 1.0f, 0.0f));
+    Verts XA, XB;
+    load_verts<false>(A, XA);
+    load_verts<false>(B, XB);
+    best.any = false;
+    side_axes(A, XA, B, XB, A, B.pos, delta, of, best);
+    side_axes(A, XA, B, XB, B, A.pos, delta, of, best);
+    for (int i = 0; i < A.ne; ++i) {
+      const float4 qa = __ldg(A.row + oe + i);
+      if (!(qa.w > 0.5f)) continue;
+      const F3 ea = xyz(qa);
+      for (int j = 0; j < B.ne; ++j) {
+        const float4 qb = __ldg(B.row + oe + j);
+        F3 cr = cross(ea, xyz(qb));
         const float crl = length(cr);
         cr = scale(cr, 1.0f / maxf(crl, EPS));
-        consider(A, B, V, delta, cr, ema && emB[j] && (crl > 1e-6f), best);
+        if ((qb.w > 0.5f) && (crl > 1e-6f))
+          consider(A, XA, B, XB, delta, cr, best);
+      }
+    }
+    if (rim) {
+      bool ok;
+      if (A.disc_r > 1e-9f) {
+        const F3 ra = rim_axis(A, XA, B, XB, seed, ok);
+        if (ok) consider(A, XA, B, XB, delta, ra, best);
+      }
+      if (B.disc_r > 1e-9f) {
+        const F3 rb = rim_axis(B, XB, A, XA, seed, ok);
+        if (ok) consider(A, XA, B, XB, delta, rb, best);
       }
     }
   }
-  if (rim) {
-    bool ok_a, ok_b;
-    const F3 ra = rim_axis(A, B, V, seed, ok_a);
-    const F3 rb = rim_axis(B, A, V, seed, ok_b);
-    consider(A, B, V, delta, ra, ok_a, best);
-    consider(A, B, V, delta, rb, ok_b, best);
-  }
   const F3 n = best.n;
   const float best_sep = best.sep;
-  const float plane_a = best.plane_a;
-  const float plane_b = best.plane_b;
+  const F3 nn = neg(n);
 
   // --- tangent basis aligned to line features ---
-  const F3 nn = neg(n);
   bool lineA, lineB;
-  const F3 eA = line_feature_dir(A, V, nn, lineA);
-  const F3 eB = line_feature_dir(B, V, n, lineB);
+  F3 eA, eB;
+  {
+    Side S;
+    Verts X;
+    reload_side(rowA, S, X);
+    eA = line_feature_dir(S, X, nn, lineA);
+  }
+  {
+    Side S;
+    Verts X;
+    reload_side(rowB, S, X);
+    eB = line_feature_dir(S, X, n, lineB);
+  }
   const F3 e = sel(lineB, eB, eA);
   const F3 e_t = sub(e, scale(n, dot(e, n)));
   const bool use_line = (lineA || lineB) && (length(e_t) > 1e-6f);
@@ -464,86 +768,84 @@ __global__ void __launch_bounds__(THREADS)
   const F3 t1 = sel(use_line, e_tn, t1d);
   const F3 t2 = sel(use_line, cross(n, t1), t2d);
 
-  // --- patch sampling: 5 tilted directions per side -> 10 candidates ---
-  F3 on_a[10], on_b[10];
+  // --- patch sampling (5 tilted directions per side -> 10 candidates),
+  //     flat features and feature slabs, one side at a time ---
+  F3 pt[10];
   float depth[10];
-  bool valid[10];
-#pragma unroll
-  for (int i = 0; i < 5; ++i) {
-    F3 tilt = mk(0.0f, 0.0f, 0.0f);
-    float sg = 0.0f;
-    if (i == 1 || i == 2) tilt = t1;
-    if (i == 3 || i == 4) tilt = t2;
-    sg = (i == 1 || i == 3) ? 1.0f : -1.0f;
-    F3 da = nn, db = n;
-    if (i > 0) {
-      const F3 tt = scale(tilt, TILT);
-      da = sg > 0.0f ? add(nn, tt) : sub(nn, tt);
-      db = sg > 0.0f ? add(n, tt) : sub(n, tt);
-    }
-    const F3 pa = support_point(A, V, normalize(da));
-    const F3 pb = support_point(B, V, normalize(db));
-    const float dep_a = dot(pa, n) - plane_b;
-    const float dep_b = plane_a - dot(pb, n);
-    on_a[i] = pa;
-    on_b[i] = sub(pa, scale(n, dep_a));
-    depth[i] = dep_a;
-    on_a[5 + i] = add(pb, scale(n, dep_b));
-    on_b[5 + i] = pb;
-    depth[5 + i] = dep_b;
+  bool flat_a, flat_b;
+  float lo_a[2], hi_a[2], lo_b[2], hi_b[2];
+  {
+    Side S;
+    Verts X;
+    reload_side(rowA, S, X);
+    side_samples<true>(S, X, nn, n, t1, t2, best.plane_b, pt, depth);
+    flat_a = flat_feature(S, X, nn);
+    feature_slab(S, X, nn, t1, lo_a[0], hi_a[0]);
+    feature_slab(S, X, nn, t2, lo_a[1], hi_a[1]);
   }
-#pragma unroll
-  for (int i = 0; i < 10; ++i)
-    valid[i] = (depth[i] < threshold) && (best_sep < threshold);
+  {
+    Side S;
+    Verts X;
+    reload_side(rowB, S, X);
+    side_samples<false>(S, X, n, n, t1, t2, best.plane_a, pt, depth);
+    flat_b = flat_feature(S, X, n);
+    feature_slab(S, X, n, t1, lo_b[0], hi_b[0]);
+    feature_slab(S, X, n, t2, lo_b[1], hi_b[1]);
+  }
+  const bool both_flat = flat_a && flat_b;
 
   // --- feature-slab containment / clamp ---
-  const bool both_flat = flat_feature(A, V, nn) && flat_feature(B, V, n);
-  F3 shift[10];
-#pragma unroll
-  for (int i = 0; i < 10; ++i) shift[i] = mk(0.0f, 0.0f, 0.0f);
+  float lo[2], hi[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const F3 t = r == 0 ? t1 : t2;
-    float lo_a, hi_a, lo_b, hi_b;
-    feature_slab(A, V, nn, t, lo_a, hi_a);
-    feature_slab(B, V, n, t, lo_b, hi_b);
-    const float lo = maxf(lo_a, lo_b);
-    const float hi = maxf(minf(hi_a, hi_b), lo);
-#pragma unroll
-    for (int i = 0; i < 10; ++i) {
-      const float proj = dot(on_a[i], t);
-      const bool inside = (proj >= lo - 5e-3f) && (proj <= hi + 5e-3f);
-      valid[i] = valid[i] && (inside || both_flat);
-      const float clipped = minf(maxf(proj, lo), hi);
-      const float dmove = both_flat ? clipped - proj : 0.0f;
-      shift[i] = add(shift[i], scale(t, dmove));
-    }
+    lo[r] = maxf(lo_a[r], lo_b[r]);
+    hi[r] = maxf(minf(hi_a[r], hi_b[r]), lo[r]);
   }
-  float sel_depth[10];
+  F3 on_a[10], on_b[10];
+  unsigned valid = 0u, shifted = 0u;
 #pragma unroll
   for (int i = 0; i < 10; ++i) {
-    on_a[i] = add(on_a[i], shift[i]);
-    on_b[i] = add(on_b[i], shift[i]);
-    const F3 s = shift[i];
-    const bool shifted = (s.x * s.x + s.y * s.y + s.z * s.z) > EPS;
-    sel_depth[i] = depth[i] + (shifted ? 1e-5f : 0.0f);
+    on_sides(i, pt[i], depth[i], n, on_a[i], on_b[i]);
+    bool ok = (depth[i] < threshold) && (best_sep < threshold);
+    F3 shift = mk(0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const F3 t = r == 0 ? t1 : t2;
+      const float proj = dot(on_a[i], t);
+      const bool inside = (proj >= lo[r] - 5e-3f) && (proj <= hi[r] + 5e-3f);
+      ok = ok && (inside || both_flat);
+      const float clipped = minf(maxf(proj, lo[r]), hi[r]);
+      const float dmove = both_flat ? clipped - proj : 0.0f;
+      shift = add(shift, scale(t, dmove));
+    }
+    if (ok) valid |= 1u << i;
+    on_a[i] = add(on_a[i], shift);
+    on_b[i] = add(on_b[i], shift);
+    if ((shift.x * shift.x + shift.y * shift.y + shift.z * shift.z) > EPS)
+      shifted |= 1u << i;
   }
+  // selection depth: shifted candidates rank 1e-5 deeper
+  const auto sel_depth = [&](int i) {
+    return depth[i] + (((shifted >> i) & 1u) ? 1e-5f : 0.0f);
+  };
 
-  // --- reduce to <= 4 (insertion heuristic) ---
+  // --- reduce to <= 4 (insertion heuristic); each scan carries its
+  //     pick's point on A, point on B and depth ---
   int i0 = 0;
-  float m0 = valid[0] ? sel_depth[0] : BIG;
+  float m0 = (valid & 1u) ? sel_depth(0) : BIG;
+  F3 p0 = on_a[0], b0 = on_b[0];
+  float dd0 = depth[0];
 #pragma unroll
   for (int i = 1; i < 10; ++i) {
-    const float d0 = valid[i] ? sel_depth[i] : BIG;
+    const float d0 = ((valid >> i) & 1u) ? sel_depth(i) : BIG;
     if (d0 < m0) {
       m0 = d0;
       i0 = i;
+      p0 = on_a[i];
+      b0 = on_b[i];
+      dd0 = depth[i];
     }
   }
-  F3 p0 = on_a[0];
-#pragma unroll
-  for (int i = 1; i < 10; ++i)
-    if (i == i0) p0 = on_a[i];
   const bool v0 = m0 < BIG * 0.5f;
   unsigned taken = 1u << i0;
 
@@ -554,98 +856,136 @@ __global__ void __launch_bounds__(THREADS)
                sq(on_a[i].z - p0.z);
   int i1 = 0;
   float m1 = -BIG;
+  F3 p1 = on_a[0], b1 = on_b[0];
+  float dd1 = depth[0];
 #pragma unroll
   for (int i = 0; i < 10; ++i) {
-    const float c1 = (valid[i] && !((taken >> i) & 1u)) ? dist0[i] : -BIG;
+    const float c1 = (((valid & ~taken) >> i) & 1u) ? dist0[i] : -BIG;
     if (i == 0 || c1 > m1) {
       m1 = c1;
       i1 = i;
+      p1 = on_a[i];
+      b1 = on_b[i];
+      dd1 = depth[i];
     }
   }
-  F3 p1 = on_a[0];
-#pragma unroll
-  for (int i = 1; i < 10; ++i)
-    if (i == i1) p1 = on_a[i];
   const bool v1 = v0 && (m1 > 0.0f);
   taken |= 1u << i1;
 
   const F3 e01 = sub(p1, p0);
   int i2 = 0;
   float m2 = -BIG;
+  F3 p2 = on_a[0], b2 = on_b[0];
+  float dd2 = depth[0];
 #pragma unroll
   for (int i = 0; i < 10; ++i) {
     const F3 crs = cross(sub(on_a[i], p0), e01);
     const float area = dot(crs, crs);
-    const float c2 = (valid[i] && !((taken >> i) & 1u)) ? area : -BIG;
+    const float c2 = (((valid & ~taken) >> i) & 1u) ? area : -BIG;
     if (i == 0 || c2 > m2) {
       m2 = c2;
       i2 = i;
+      p2 = on_a[i];
+      b2 = on_b[i];
+      dd2 = depth[i];
     }
   }
-  F3 p2 = on_a[0];
-#pragma unroll
-  for (int i = 1; i < 10; ++i)
-    if (i == i2) p2 = on_a[i];
   const bool v2 = v1 && (m2 > EPS);
   taken |= 1u << i2;
 
-  int i3 = 0;
   float m3 = -BIG;
+  F3 p3 = on_a[0], b3 = on_b[0];
+  float dd3 = depth[0];
 #pragma unroll
   for (int i = 0; i < 10; ++i) {
     const F3 a = on_a[i];
     const float d_all = dist0[i] + sq(a.x - p1.x) + sq(a.y - p1.y) +
                         sq(a.z - p1.z) + sq(a.x - p2.x) + sq(a.y - p2.y) +
                         sq(a.z - p2.z);
-    const float c3 = (valid[i] && !((taken >> i) & 1u)) ? d_all : -BIG;
+    const float c3 = (((valid & ~taken) >> i) & 1u) ? d_all : -BIG;
     if (i == 0 || c3 > m3) {
       m3 = c3;
-      i3 = i;
+      p3 = on_a[i];
+      b3 = on_b[i];
+      dd3 = depth[i];
     }
   }
   const bool v3 = v2 && (m3 > 0.0f);
 
-  // --- output: per point 12 rows of [48, K] ---
-  const int pick[4] = {i0, i1, i2, i3};
-  const bool pv[4] = {v0, v1, v2, v3};
-#pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    F3 pa_w = on_a[0], pb_w = on_b[0];
-    float dd = depth[0];
-#pragma unroll
-    for (int i = 1; i < 10; ++i) {
-      if (i == pick[p]) {
-        pa_w = on_a[i];
-        pb_w = on_b[i];
-        dd = depth[i];
-      }
-    }
-    const bool vv = pv[p] && (dd < threshold);
-    const F3 piv_a = qrotate_inv(A.orn, sub(pa_w, A.pos));
-    const F3 piv_b = qrotate_inv(B.orn, sub(pb_w, B.pos));
-    const float row[12] = {piv_a.x, piv_a.y, piv_a.z, piv_b.x, piv_b.y,
-                           piv_b.z, n.x,     n.y,     n.z,     0.0f,
-                           dd,      vv ? 1.0f : 0.0f};
-#pragma unroll
-    for (int f = 0; f < 12; ++f)
-      out[(long long)(12 * p + f) * K + k] = row[f];
-  }
+  // --- output: row pi of [K, 48], 12 floats (3 float4s) per point ---
+  const float4 pa4 = ld_row(rowA), qa4 = ld_row(rowA + 1);
+  const float4 pb4 = ld_row(rowB), qb4 = ld_row(rowB + 1);
+  const F3 posA = xyz(pa4), posB = xyz(pb4);
+  const float ornA[4] = {qa4.x, qa4.y, qa4.z, qa4.w};
+  const float ornB[4] = {qb4.x, qb4.y, qb4.z, qb4.w};
+  float4* o = out + pi * 12;
+  const auto write = [&](int p, F3 pa_w, F3 pb_w, float dd, bool pv) {
+    const bool vv = pv && (dd < threshold);
+    const F3 piv_a = qrotate_inv(ornA, sub(pa_w, posA));
+    const F3 piv_b = qrotate_inv(ornB, sub(pb_w, posB));
+    o[3 * p] = make_float4(piv_a.x, piv_a.y, piv_a.z, piv_b.x);
+    o[3 * p + 1] = make_float4(piv_b.y, piv_b.z, n.x, n.y);
+    o[3 * p + 2] = make_float4(n.z, 0.0f, dd, vv ? 1.0f : 0.0f);
+  };
+  write(0, p0, b0, dd0, v0);
+  write(1, p1, b1, dd1, v1);
+  write(2, p2, b2, dd2, v2);
+  write(3, p3, b3, dd3, v3);
 }
 
 }  // namespace
 
-// tbl [C, N] float32 side table; ka, kb [K] int64 body indices; out [48, K].
-// V <= VMAX and E <= EMAX (the caller checks); faces are streamed from the
-// table and need no cap.
-extern "C" int edyn_collide_support(const float* tbl, int N,
+// tbl [C, N] float32 side table of widths (V, F, E); feat [N, 4 (4 + V + F
+// + E)] float32 body-major world features; code [N] int32 class codes;
+// present [NCODES] int32 scratch; ids [NCODES + 1] int32 class numbers.
+extern "C" int edyn_unified_features(const float* tbl, int N, int V, int F,
+                                     int E, float* feat, int* code,
+                                     int* present, int* ids, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (V > VMAX) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaMemsetAsync(present, 0, NCODES * sizeof(int), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t tile = sizeof(float) * 33 * (12 + 4 * (V + F + E));
+  if (tile > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  if (N > 0)
+    features_kernel<<<(N + 31) / 32, 32 * PRE_WARPS, tile, s>>>(
+        tbl, N, V, F, E, reinterpret_cast<float4*>(feat), code, present);
+  class_ids_kernel<<<1, 1024, 0, s>>>(present, ids);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// code, ids from edyn_unified_features; ka, kb [K] int64 body indices;
+// bins [K] int32 and counts [MAX_BINS * ceil(K / CHUNK)] int32 scratch
+// (CHUNK = 1,024);
+// perm [K] int64: the pairs stably sorted by class.
+extern "C" int edyn_unified_pair_order(const int* code, const int* ids,
+                                       const long long* ka,
+                                       const long long* kb, int K, int* bins,
+                                       int* counts, long long* perm,
+                                       void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (K == 0) return 0;
+  const int nchunks = (K + CHUNK - 1) / CHUNK;
+  pair_bins_kernel<<<nchunks, 32 * SORT_WARPS, 0, s>>>(code, ids, ka, kb, K,
+                                                       nchunks, bins, counts);
+  bin_offsets_kernel<<<1, 1024, 0, s>>>(ids, nchunks, counts);
+  pair_place_kernel<<<nchunks, 32 * SORT_WARPS, 0, s>>>(ids, bins, counts,
+                                                        K, nchunks, perm);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// feat from edyn_unified_features; ka, kb [K] int64; perm [K] int64 (pairs
+// in class order); out [K, 48] float32.
+extern "C" int edyn_collide_support(const float* feat, int V, int F, int E,
                                     const long long* ka, const long long* kb,
-                                    int K, int V, int F, int E,
+                                    const long long* perm, int K,
                                     float threshold, int rim, float* out,
                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (V > VMAX || E > EMAX) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (K + THREADS - 1) / THREADS;
-  unified_kernel<VMAX, EMAX><<<blocks, THREADS, 0, s>>>(
-      tbl, N, ka, kb, K, V, F, E, threshold, rim, out);
+  if (V > VMAX) return static_cast<int>(cudaErrorInvalidValue);
+  if (K == 0) return 0;
+  unified_kernel<<<(K + THREADS - 1) / THREADS, THREADS, 0, s>>>(
+      reinterpret_cast<const float4*>(feat), V, F, E, ka, kb, perm, K,
+      threshold, rim, reinterpret_cast<float4*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,6 +11,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
 from .params import ShapeType
 
 
@@ -73,8 +74,10 @@ def shape_convex_data(stype: int, params, poly_np=None, poly_index: int = 0):
 
 
 def build_convex_table(shape_types, shape_params, shape_index, poly_np=None,
-                       device="cpu") -> ConvexTable:
-    """Bake the per-body table host-side and place it on ``device``."""
+                       device=None) -> ConvexTable:
+    """Bake the per-body table host-side and place it on ``device``
+    (default ``cuda``; raises without a GPU, see ``resolve_device``)."""
+    device = resolve_device(device)
     N = len(shape_types)
     data = [shape_convex_data(int(shape_types[i]), shape_params[i], poly_np,
                               int(shape_index[i])) for i in range(N)]

@@ -34,6 +34,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               # plain version does (parity first)
               "-fmad=false"]
 _libs: dict = {}
+# compiler output of each source built by this process ({name: log})
+BUILD_LOGS: dict = {}
 
 
 def _nvcc() -> str:
@@ -49,19 +51,24 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
-def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` is built to."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}_{tag}.so"
+def library_path(name: str, src_dir: Path = CSRC) -> Path:
+    """Where ``<src_dir>/<name>.cu`` is built to: named by a hash of the
+    source, the headers beside it and the flags."""
+    src_dir = Path(src_dir)
+    h = hashlib.sha256((src_dir / f"{name}.cu").read_bytes())
+    for hdr in sorted(src_dir.glob("*.cuh")):
+        h.update(hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
 
 
-def build_libraries(names, verbose: bool = False) -> dict:
-    """Compile the sources that are not built yet, one ``nvcc`` process per
-    source, all started together. Returns {name: library path}; with
-    ``verbose`` the compiler's output (``-Xptxas -v``: registers, spills)
-    is printed."""
-    out = {n: library_path(n) for n in names}
+def build_libraries(names, verbose: bool = False,
+                    src_dir: Path = CSRC) -> dict:
+    """Compile the sources ``<src_dir>/<name>.cu`` that are not built yet,
+    one ``nvcc`` process per source, all started together. Returns
+    {name: library path}; with ``verbose`` the compiler's output
+    (``-Xptxas -v``: registers, stack, spills) is printed."""
+    out = {n: library_path(n, src_dir) for n in names}
     todo = [n for n, p in out.items() if not p.exists()]
     if not todo:
         return out
@@ -70,7 +77,8 @@ def build_libraries(names, verbose: bool = False) -> dict:
     for n in todo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{n}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+               str(Path(src_dir) / f"{n}.cu")]
         if verbose:
             cmd.insert(1, "-Xptxas=-v")
         procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -83,6 +91,7 @@ def build_libraries(names, verbose: bool = False) -> dict:
             os.unlink(tmp)
             failed.append(f"nvcc {n}.cu failed ({proc.returncode}):\n{log}")
             continue
+        BUILD_LOGS[n] = log
         if verbose:
             print(f"[nvcc {n}.cu]\n{log}", flush=True)
         os.replace(tmp, out[n])

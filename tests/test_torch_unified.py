@@ -11,6 +11,13 @@ box, cylinder cap on cap, capsule parallel to a box edge, sphere on a box
 face) with all its ordered pairs: one block of columns per ``rim_axes``
 value, so the TPU kernel compiles once for each.
 
+The CUDA kernel's redesign (a per-body pre-pass, the pairs run class by
+class at their real widths) rests on three CPU facts held here bit for bit:
+the plain version at a class's real widths equals it at the padded widths
+(a fourth world with every kind of mixed_pile, tetrahedra included, gives
+every class); the plain pre-pass's world features are the ones the plain
+version derives per pair; the pair order is a stable grouping by class.
+
 Tolerances:
 - Against the TPU kernel's body evaluated op by op (``_make_kernel`` under
   ``jax.disable_jit``): every output element within atol 1e-5 on pairs
@@ -214,3 +221,197 @@ def test_wrapper_on_cpu_is_plain(cases):
     uk.check_caps(dims)
     with pytest.raises(NotImplementedError, match="caps"):
         uk.check_caps((9, 4, 6))
+
+
+# ---------------------------------------------------------------------------
+# the redesign's exactness: real widths, world features, pair order
+# ---------------------------------------------------------------------------
+
+KINDS = {"sphere": 1, "box": 2, "capsule": 3, "cylinder": 4,
+         "tetrahedron": 6}   # ShapeType of each convex kind
+
+
+def _tet_world():
+    """Every convex kind of mixed_pile, its tetrahedron included (own
+    copy), 15 bodies in a loose cluster."""
+    rng = np.random.RandomState(7)
+    tet = ej.PolyhedronShape(np.array(
+        [[0.15, 0.15, 0.15], [0.15, -0.15, -0.15],
+         [-0.15, 0.15, -0.15], [-0.15, -0.15, 0.15]], np.float32))
+    shapes = [ej.SphereShape(0.12), ej.BoxShape((0.12, 0.1, 0.14)),
+              ej.CapsuleShape(0.08, 0.12), ej.CylinderShape(0.1, 0.12), tet]
+    b = ej.WorldBuilder()
+    for i in range(15):
+        q = rng.randn(4)
+        q /= np.linalg.norm(q)
+        b.make_rigidbody(ej.RigidBodyDef(
+            mass=1.0, shape=shapes[i % 5],
+            position=tuple(rng.randn(3) * 0.2), orientation=tuple(q)))
+    return ej.make_world(b, ej.Settings())
+
+
+@pytest.fixture(scope="module")
+def class_cases(cases):
+    """Per world (the three above and the tetrahedron world): the port's
+    side table, its widths, every ordered pair of distinct bodies, the
+    pairs' shape kinds, the plain pre-pass, and the plain version at the
+    padded widths per rim_axes."""
+    ports = list(cases["ports"]) + [
+        state_from_numpy(jtree(_tet_world().state), "cpu")]
+    out = []
+    for st in ports:
+        tbl, dims = uk.pack_side_table_t(st)
+        N = st.capacity
+        ka = torch.arange(N).repeat_interleave(N)
+        kb = torch.arange(N).repeat(N)
+        keep = ka != kb
+        ka, kb = ka[keep], kb[keep]
+        feat, code, ids = uk.world_features_plain(tbl, dims)
+        padded = {rim: uk.collide_support_plain(tbl[:, ka], tbl[:, kb], dims,
+                                                THRESH, rim)
+                  for rim in (True, False)}
+        out.append(dict(tbl=tbl, dims=dims, ka=ka, kb=kb,
+                        types=st.shape_type, feat=feat, code=code, ids=ids,
+                        padded=padded))
+    return out
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("rim", [True, False])
+@pytest.mark.parametrize("kind_b", list(KINDS))
+@pytest.mark.parametrize("kind_a", list(KINDS))
+def test_plain_at_real_widths_is_bit_equal(class_cases, kind_a, kind_b,
+                                           rim):
+    """A class's columns repacked at the class's real widths (for each of
+    V, F, E the larger of its sides' real counts) give the padded widths'
+    outputs bit for bit, and so does each side repacked at its own real
+    counts (a sphere side at V 1 against a tetrahedron's V 4, edge crosses
+    cut to A's E x B's E): skipping masked lanes per side, as the CUDA
+    kernel does, changes nothing."""
+    n_pairs = 0
+    for w in class_cases:
+        sel = ((w["types"][w["ka"]] == KINDS[kind_a])
+               & (w["types"][w["kb"]] == KINDS[kind_b])).nonzero()[:, 0]
+        if not len(sel):
+            continue
+        ka, kb = w["ka"][sel], w["kb"][sel]
+        cols_a, cols_b = w["tbl"][:, ka], w["tbl"][:, kb]
+        want = _bits(w["padded"][rim][sel])
+        widths = uk.class_widths(w["feat"], ka, kb)
+        assert bool((widths == widths[0]).all())
+        real = tuple(int(x) for x in widths[0])
+        assert all(r <= d for r, d in zip(real, w["dims"]))
+        got = uk.collide_support_plain(
+            uk.repack_columns(cols_a, w["dims"], real),
+            uk.repack_columns(cols_b, w["dims"], real), real, THRESH, rim)
+        assert torch.equal(_bits(got), want)
+        counts = uk.feature_counts(w["feat"])
+        sides = []
+        for cols, body in ((cols_a, ka), (cols_b, kb)):
+            assert bool((counts[body] == counts[body][0]).all())
+            own = tuple(int(x) for x in counts[body][0])
+            sides.append(uk.world_side(
+                uk.repack_columns(cols, w["dims"], own), own))
+        got = uk.collide_sides_plain(*sides, THRESH, rim)
+        assert torch.equal(_bits(got), want)
+        n_pairs += len(sel)
+    assert n_pairs > 0
+
+
+@pytest.mark.parametrize("world", [0, 1, 2, 3])
+def test_world_features_are_plain_versions_world(class_cases, world):
+    """The pre-pass's plain version: each body's row holds, bit for bit, the
+    world vertices, faces, edges and disc axis that collide_support_plain
+    derives from that body's column per pair, with the masks, the real
+    counts and the class code."""
+    w = class_cases[world]
+    tbl, dims = w["tbl"], w["dims"]
+    V, F, E = dims
+    feat, code, ids = uk.world_features(tbl, dims)  # CPU: the plain version
+    assert torch.equal(_bits(feat), _bits(w["feat"]))
+    assert torch.equal(ids, w["ids"])
+    assert feat.shape == (tbl.shape[1], uk.feature_row(dims))
+    assert uk.feature_row(dims) % 4 == 0
+    ka = w["ka"]
+    S = uk._unpack(tbl[:, ka], dims)
+    vw, wax, fw, ew = uk._world(S)
+    rows = feat[ka]
+
+    def block(o, G):   # [K, 4G] -> (x, y, z) [G, K] and mask [G, K]
+        q = rows[:, o:o + 4 * G].reshape(-1, G, 4)
+        return tuple(q[..., c].T for c in range(3)), q[..., 3].T > 0.5
+
+    for got, want in [((rows[:, c] for c in range(3)), S["pos"]),
+                      ((rows[:, c] for c in (4, 5, 6, 7)), S["orn"]),
+                      ((rows[:, c] for c in (8, 9, 10)), wax),
+                      ((rows[:, c] for c in (3, 11)),
+                       (S["radius"], S["disc_r"]))]:
+        for g, x in zip(got, want):
+            assert torch.equal(_bits(g), _bits(x[0]))
+    o = uk.HDR
+    for G, xyz, mask in ((V, vw, S["vert_mask"]), (F, fw, S["face_mask"]),
+                         (E, ew, S["edge_mask"])):
+        got, m = block(o, G)
+        for g, x in zip(got, xyz):
+            assert torch.equal(_bits(g), _bits(x))
+        assert torch.equal(m, mask)
+        o += 4 * G
+    counts = uk.feature_counts(feat)
+    for c, mask in enumerate((S["vert_mask"], S["face_mask"],
+                              S["edge_mask"])):
+        n = counts[ka, c]
+        idx = torch.arange(mask.shape[0])[:, None]
+        assert bool((~mask | (idx < n[None])).all())     # all True before
+        if c:
+            assert bool(((n == 0) | mask[(n - 1).clamp(min=0),
+                                         torch.arange(len(n))]).all())
+    assert bool((counts[:, 0] >= 1).all())
+    want_code = (counts.clamp(max=15) * torch.tensor([1, 16, 256])).sum(1) \
+        | ((tbl[8] > 1e-9).to(torch.int64) << 12)
+    assert torch.equal(code.to(torch.int64), want_code)
+    assert torch.equal(feat[:, 15].contiguous().view(torch.int32), code)
+
+
+@pytest.mark.parametrize("world", [0, 3])
+def test_pair_order_groups_classes_stably(class_cases, world):
+    """The pair order is a permutation that lists the pairs class by class
+    (ascending class numbers of A, then B), each class in table order; its
+    inverse restores the table order; one class shares its real widths and
+    disc flags on each side; the wrapper on the CPU launches nothing."""
+    w = class_cases[world]
+    ka, kb, code, ids = w["ka"], w["kb"], w["code"], w["ids"]
+    # a shuffled pair list, so that table order is not already sorted
+    g = torch.Generator().manual_seed(world)
+    shuf = torch.randperm(len(ka), generator=g)
+    ka, kb = ka[shuf], kb[shuf]
+    uk.reset_launch_counts()
+    perm = uk.pair_order(code, ids, ka, kb)
+    assert not any(uk.LAUNCHES.values())
+    K = len(ka)
+    assert torch.equal(torch.sort(perm).values, torch.arange(K))
+    # class numbers: the codes present, numbered in code order
+    present = torch.unique(code)
+    n = int(ids[uk.NCODES])
+    assert n == min(len(present), uk.MAX_SIDE) and n > 1
+    assert torch.equal(ids[present.long()].long(),
+                       torch.arange(len(present)).clamp(max=uk.MAX_SIDE - 1))
+    bins = uk.pair_bins_plain(code, ids, ka, kb)
+    assert torch.equal(bins.long(), ids[code[ka].long()].long() * n
+                       + ids[code[kb].long()].long())
+    bs = bins[perm]
+    assert bool((bs[1:] >= bs[:-1]).all())               # grouped, ascending
+    same = bs[1:] == bs[:-1]
+    assert bool((perm[1:][same] > perm[:-1][same]).all())  # stable
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(K)
+    assert torch.equal(ka[perm][inv], ka) and torch.equal(kb[perm][inv], kb)
+    counts = uk.feature_counts(w["feat"])
+    disc = w["tbl"][8] > 1e-9
+    for b in torch.unique(bins):
+        s = bins == b
+        for side in (ka[s], kb[s]):
+            assert bool((counts[side] == counts[side][0]).all())
+            assert bool((disc[side] == disc[side][0]).all())
