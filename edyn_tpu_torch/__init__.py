@@ -12,6 +12,12 @@ from .shapes.params import (
     BoxShape, CapsuleShape, CylinderShape, PlaneShape, PolyhedronShape,
     SphereShape,
 )
+from .constraints.api import (
+    dof, make_cone_constraint, make_cvjoint_constraint, make_distance_constraint,
+    make_generic_constraint, make_gravity_constraint, make_hinge_constraint,
+    make_null_constraint, make_point_constraint, make_soft_distance_constraint,
+)
+from .constraints.joints import JointType
 from .simulation.stepper import SceneMeta, physics_step
 
 __all__ = [
@@ -20,4 +26,8 @@ __all__ = [
     "KIND_DYNAMIC", "KIND_KINEMATIC", "KIND_STATIC",
     "SphereShape", "BoxShape", "CapsuleShape", "CylinderShape", "PlaneShape",
     "PolyhedronShape",
+    "make_distance_constraint", "make_soft_distance_constraint",
+    "make_point_constraint", "make_hinge_constraint", "make_cone_constraint",
+    "make_generic_constraint", "make_cvjoint_constraint", "dof",
+    "make_gravity_constraint", "make_null_constraint", "JointType",
 ]

@@ -41,7 +41,8 @@ DTYPE = torch.float32
 @dataclasses.dataclass(frozen=True)
 class Settings:
     """Runtime settings (reference: include/edyn/context/settings.hpp:21-58).
-    Field for field the same as ``edyn_tpu.Settings``."""
+    Field for field the same as ``edyn_tpu.Settings``, plus
+    ``cone_max_violation``."""
     fixed_dt: float = 1.0 / 60.0
     gravity: tuple = GRAVITY_EARTH
     max_steps_per_update: int = 10
@@ -56,6 +57,13 @@ class Settings:
     enable_sleeping: bool = True
     # speculative contact distance (reference: collision_threshold)
     collision_threshold: float = COLLISION_THRESHOLD
+    # The cone row's violation (ey^2 + ez^2 - 1, from the tangents of B's
+    # axis in A's frame) grows without bound as B's axis nears 90 degrees
+    # from A's, and the row then asks for ~1e7 rad/s (ROADMAP R8). None
+    # keeps that row, the JAX package's. A number caps the violation there:
+    # a departure from the reference, whose results are not the JAX
+    # package's once a cone row reaches the cap.
+    cone_max_violation: float | None = None
 
     def replace(self, **kw) -> "Settings":
         return dataclasses.replace(self, **kw)

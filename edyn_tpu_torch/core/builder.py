@@ -4,7 +4,8 @@ Counterpart of ``edyn_tpu/core/builder.py`` (reference:
 include/edyn/util/rigidbody.hpp rigidbody_def, make_rigidbody): bodies are
 staged host-side in float32 numpy, as the JAX builder stages them, and
 ``finalize`` builds the tensors on the target device. Supports the convex
-and plane shapes; compounds, meshes and joints come with later slices.
+and plane shapes and every joint type (``constraints.api``); compounds and
+meshes come with later slices.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from ..shapes.params import (
 from ..shapes.inertia import moment_of_inertia, polyhedron_inertia
 from .device import resolve_device
 from .state import (
-    KIND_DYNAMIC, KIND_STATIC, MAX_EXCLUSIONS, ContactTable, JointTable,
+    KIND_DYNAMIC, KIND_STATIC, MAX_EXCLUSIONS, ContactTable,
     MixTable, PolyTable, WorldState,
 )
 
@@ -67,7 +68,8 @@ def _qrot(q, v):
 
 
 class WorldBuilder:
-    """Accumulates bodies host-side; ``finalize()`` builds the WorldState."""
+    """Accumulates bodies and joints host-side; ``finalize()`` builds the
+    WorldState."""
 
     def __init__(self, gravity=None):
         self.default_gravity = (None if gravity is None
@@ -76,6 +78,7 @@ class WorldBuilder:
         self._polyhedra: list[PolyhedronShape] = []
         self._poly_index: dict[int, int] = {}
         self.exclusions: list[tuple[int, int]] = []
+        self.joints: list[dict] = []
         self.material_mixes: list[tuple[int, int, Material]] = []
 
     def make_rigidbody(self, def_: RigidBodyDef) -> int:
@@ -96,11 +99,20 @@ class WorldBuilder:
                                material: Material):
         self.material_mixes.append((id_a, id_b, material))
 
+    def _add_joint(self, **kw) -> int:
+        """Stage one joint (called by the ``constraints.api`` factories)."""
+        self.joints.append(kw)
+        return len(self.joints) - 1
+
     def finalize(self, capacity: Optional[int] = None,
                  max_manifolds: Optional[int] = None,
+                 max_joints: Optional[int] = None,
                  device=None) -> WorldState:
-        """The WorldState of the bodies added so far, on ``device``
-        (default ``cuda``; raises without a GPU, see ``resolve_device``)."""
+        """The WorldState of the bodies and joints added so far, on
+        ``device`` (default ``cuda``; raises without a GPU, see
+        ``resolve_device``). The joint table holds ``max_joints`` slots
+        (default: the joints added, at least 1)."""
+        from ..constraints.joints import pack_joints
         from ..shapes.aabb import compute_aabbs
         from ..shapes.convex import build_convex_table
 
@@ -110,6 +122,9 @@ class WorldBuilder:
         if N < n:
             raise ValueError(f"capacity {N} < {n} bodies")
         M = max_manifolds if max_manifolds is not None else max(64, 8 * N)
+        J = max_joints if max_joints is not None else max(len(self.joints), 1)
+        if J < len(self.joints):
+            raise ValueError(f"max_joints {J} < {len(self.joints)} joints")
 
         poly_np = pack_polyhedra(self._polyhedra)
         f = np.float32  # staged in float32 exactly as the JAX builder does
@@ -264,7 +279,7 @@ class WorldBuilder:
             island_stable_steps=scalar(0, torch.int32),
             bp_carry_ok=scalar(False, torch.bool),
             contacts=ContactTable.zeros(M, device),
-            joints=JointTable.zeros(1, device),
+            joints=pack_joints(self.joints, J, device),
             poly=poly, convex=convex, mix_table=mix,
             step_count=scalar(0, torch.int32),
             sim_time=scalar(0.0, torch.float32),

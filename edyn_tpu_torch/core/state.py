@@ -108,9 +108,9 @@ def grow_contact_table(tab: ContactTable, newM: int) -> ContactTable:
 
 @dataclasses.dataclass
 class JointTable:
-    """Non-contact constraints. The port has no joint solver yet: the table
-    exists so states carry across, and ``make_world`` refuses valid
-    joints."""
+    """Non-contact constraints (joints), one slot per joint; the rows are
+    built from it each step (``constraints.joints``). Free slots are
+    invalid and take runtime joints (``World._add_joint``)."""
     jtype: torch.Tensor     # [J] int32
     body_a: torch.Tensor    # [J] int32
     body_b: torch.Tensor    # [J] int32

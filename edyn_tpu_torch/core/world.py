@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from ..config import Settings
+from ..constraints.joints import JointType, types_present
 from ..simulation.stepper import SceneMeta, physics_step
 from .builder import WorldBuilder
 from .device import resolve_device
@@ -38,8 +39,8 @@ def derive_meta(state: WorldState, max_pairs: Optional[int] = None,
                   or (state.roll_friction.cpu().numpy()[valid] > 0).any()
                   or (state.mix_table.vals.cpu().numpy()[:, 2:4] > 0).any())
     kw.setdefault("has_spin_roll", has_sr)
-    if bool(state.joints.valid.any()):
-        raise NotImplementedError("joints are not ported yet")
+    kw.setdefault("has_joints", bool(state.joints.valid.any()))
+    kw.setdefault("joint_types", types_present(state.joints))
     return SceneMeta(types_present=present, max_pairs=max_pairs, **kw)
 
 
@@ -157,6 +158,95 @@ class World:
     def angvel(self, i):
         return self.state.angvel[i].cpu().numpy()
 
+    # -- runtime constraints (reference: make_constraint on a live registry,
+    # util/constraint_util.hpp; constraints are destroyable entities) -------
+    def _add_joint(self, **kw) -> int:
+        """Write a joint into a free slot of the joint table. Ducks as
+        ``WorldBuilder._add_joint``, so every ``constraints.api`` factory
+        works on a live world: ``et.make_hinge_constraint(world, a, b,
+        ...)``. The world needs spare slots
+        (``make_world(max_joints=...)``)."""
+        jt = self.state.joints
+        free = torch.nonzero(~jt.valid).flatten()
+        if free.numel() == 0:
+            raise ValueError("joint table full: build the world with a "
+                             "larger max_joints")
+        i = int(free[0])
+        params = np.zeros((jt.params.shape[1],), np.float64)
+        p = np.asarray(kw.get("params", ()), np.float64)
+        params[:len(p)] = p
+
+        def f32(x):
+            return torch.as_tensor(np.asarray(x, np.float64).astype(
+                np.float32), device=self.device)
+
+        # a new table: earlier states keep theirs
+        jt = dataclasses.replace(jt, **{f.name: getattr(jt, f.name).clone()
+                                        for f in dataclasses.fields(jt)})
+        jt.jtype[i] = int(kw["jtype"])
+        jt.body_a[i] = int(kw["body_a"])
+        jt.body_b[i] = int(kw["body_b"])
+        jt.valid[i] = True
+        jt.pivot_a[i] = f32(kw.get("pivot_a", (0, 0, 0)))
+        jt.pivot_b[i] = f32(kw.get("pivot_b", (0, 0, 0)))
+        jt.frame_a[i] = f32(kw.get("frame_a", (0, 0, 0, 1)))
+        jt.frame_b[i] = f32(kw.get("frame_b", (0, 0, 0, 1)))
+        jt.params[i] = f32(params)
+        jt.impulses[i] = 0.0
+        jt.angle[i] = 0.0
+        self.state = dataclasses.replace(self.state, joints=jt)
+        # (destroy_joint keeps the type: a superset skips nothing it needs)
+        self.meta = dataclasses.replace(
+            self.meta, has_joints=True,
+            joint_types=self.meta.joint_types | {JointType(int(kw["jtype"]))})
+        # a new graph edge wakes both islands (island_manager on_construct)
+        self.wake_up(int(kw["body_a"]))
+        self.wake_up(int(kw["body_b"]))
+        self._reset_island_stability()
+        return i
+
+    def destroy_joint(self, j: int):
+        """Invalidate a joint and wake its islands (reference: destroying a
+        constraint entity wakes the island, island_manager.cpp:74-98)."""
+        jt = self.state.joints
+        self.wake_up(int(jt.body_a[j]))
+        self.wake_up(int(jt.body_b[j]))
+        valid, jtype, imp = (jt.valid.clone(), jt.jtype.clone(),
+                             jt.impulses.clone())
+        valid[j] = False
+        jtype[j] = 0
+        imp[j] = 0.0
+        self.state = dataclasses.replace(
+            self.state, joints=dataclasses.replace(
+                jt, valid=valid, jtype=jtype, impulses=imp))
+        self._reset_island_stability()
+        return self
+
+    def _reset_island_stability(self):
+        """Island-graph edges or pair eligibility changed outside the step:
+        the next steps recompute the island labels (the steady-state label
+        skip restarts) and re-enumerate the pairs (no pair-list carry)."""
+        st = self.state
+        self.state = dataclasses.replace(
+            st,
+            island_stable_steps=torch.zeros_like(st.island_stable_steps),
+            labels_stable=torch.zeros_like(st.labels_stable),
+            bp_carry_ok=torch.zeros_like(st.bp_carry_ok))
+
+    def wake_up(self, i):
+        """Wake the body's whole island (reference: wake_up_island), with
+        membership from an exact host-side union-find over the live contact
+        and joint edges, not the on-device labels (those fragment for 1-2
+        steps after each re-seed)."""
+        from ..dynamics.islands import exact_island_mask
+        st = self.state
+        members = exact_island_mask(st, [int(i)])
+        self.state = dataclasses.replace(
+            st,
+            asleep=torch.where(members, False, st.asleep),
+            sleep_timer=torch.where(members, 0.0, st.sleep_timer))
+        return self
+
     def is_asleep(self, i) -> bool:
         return bool(self.state.asleep[i])
 
@@ -177,14 +267,17 @@ class World:
 
 def make_world(builder: WorldBuilder, settings: Settings = Settings(),
                capacity: Optional[int] = None,
-               max_pairs: Optional[int] = None, device=None) -> World:
+               max_pairs: Optional[int] = None,
+               max_joints: Optional[int] = None, device=None) -> World:
     """Finalize a builder into a stepping world on ``device`` (default
-    ``cuda``). The manifold table is sized to max_pairs."""
+    ``cuda``). The manifold table is sized to max_pairs; the joint table to
+    max_joints (default: the builder's joints), so spare slots take
+    runtime joints."""
     dev = resolve_device(device)
     if max_pairs is None:
         max_pairs = _pairs_for(len(builder.defs))
     if builder.default_gravity is None:
         builder.default_gravity = np.asarray(settings.gravity, np.float64)
     state = builder.finalize(capacity=capacity, max_manifolds=max_pairs,
-                             device=dev)
+                             max_joints=max_joints, device=dev)
     return World(state, settings, derive_meta(state, max_pairs))

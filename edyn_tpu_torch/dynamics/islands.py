@@ -116,3 +116,39 @@ def update_sleep(state, man, dt: float, enable: bool, num_iters: int = 4,
                                labels_stable=converged_t,
                                sleep_timer=timer, asleep=asleep,
                                linvel=linvel, angvel=angvel)
+
+
+def exact_island_mask(state, seeds) -> torch.Tensor:
+    """Exact island membership of the seed bodies, on the host: a bool [N]
+    mask of every body connected to a seed through dynamic-dynamic contact
+    or joint edges (union-find over the live edge list). The on-device
+    labels are re-seeded every RESET_PERIOD steps and take 1-2 steps to
+    re-converge, so API calls that need whole islands (``World.wake_up``)
+    use this instead."""
+    import numpy as np
+    N = state.capacity
+    dyn = state.is_dynamic.cpu().numpy()
+    parent = np.arange(N, dtype=np.int64)
+
+    def find(x):
+        root = x
+        while parent[root] != root:
+            root = parent[root]
+        while parent[x] != root:
+            parent[x], x = root, parent[x]
+        return root
+
+    man, jt = state.contacts, state.joints
+    host = lambda t: t.cpu().numpy()
+    ea = np.concatenate([host(man.body_a), host(jt.body_a)])
+    eb = np.concatenate([host(man.body_b), host(jt.body_b)])
+    pointed = host(man.valid) & host(man.point_valid).any(-1)
+    ev = np.concatenate([pointed, host(jt.valid)])
+    live = ev & dyn[ea] & dyn[eb]
+    for a, b in zip(ea[live].tolist(), eb[live].tolist()):
+        ra, rb = find(a), find(b)
+        if ra != rb:
+            parent[ra] = rb
+    roots = {find(int(s)) for s in np.atleast_1d(np.asarray(seeds))}
+    mask = np.fromiter((find(i) in roots for i in range(N)), bool, N)
+    return torch.as_tensor(mask, device=state.device)

@@ -387,6 +387,30 @@ def warm_start_contacts(rows: ContactRows, imp6, dvw):
     return dvw.index_add(0, rows.ab, upd)
 
 
+def gather_ab(dvw, ab):
+    """One gather of both endpoints' packed [lin, ang] deltas for every row
+    of an [N,6] table. Returns (lin_a, ang_a, lin_b, ang_b), each [R,3]."""
+    g = dvw[ab]
+    R = ab.shape[0] // 2
+    return g[:R, 0:3], g[:R, 3:6], g[R:, 0:3], g[R:, 3:6]
+
+
+def scatter_add_ab(dvw, ab, lin_a, ang_a, lin_b, ang_b):
+    """One scatter-add applying every row's packed impulse to both bodies
+    of an [N,6] table."""
+    ua = torch.cat([lin_a, ang_a], dim=1)
+    ub = torch.cat([lin_b, ang_b], dim=1)
+    return dvw.index_add(0, ab, torch.cat([ua, ub]))
+
+
+def degree_counts(N: int, idx_list, valid_list):
+    """Constraint degree per body (for mass splitting), >= 1."""
+    deg = torch.zeros((N,), dtype=torch.float32, device=idx_list[0].device)
+    for idx, valid in zip(idx_list, valid_list):
+        deg = deg.index_add(0, idx.long(), valid.to(torch.float32))
+    return torch.clamp(deg, min=1.0)
+
+
 def scatter_upd_t(x_t, ab_p, upd):
     """Scatter-add a kernel's [12,Rp] endpoint update into transposed
     [6,N] body deltas (a-half to rows a, b-half to rows b)."""

@@ -66,3 +66,17 @@ def to_matrix(q):
         torch.stack([2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx)], dim=-1),
         torch.stack([2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy)], dim=-1),
     ], dim=-2)
+
+
+def shortest_arc(v0, v1):
+    """Quaternion rotating unit vector v0 onto v1 (reference:
+    include/edyn/math/quaternion.hpp shortest_arc). Batched [...,3]."""
+    c = vec.cross(v0, v1)
+    d = torch.sum(v0 * v1, dim=-1, keepdim=True)
+    w = 1.0 + d
+    # antiparallel fallback: rotate pi about any orthogonal axis
+    t1, _ = vec.orthonormal_basis(v0)
+    anti = w < 1e-6
+    xyz = torch.where(anti, t1, c)
+    q = torch.cat([xyz, torch.where(anti, torch.zeros_like(w), w)], dim=-1)
+    return normalize(q)

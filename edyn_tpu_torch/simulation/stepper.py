@@ -4,8 +4,9 @@ stepper_sequential.cpp:28-152, solver.cpp:387-468). Phase order:
 
   AABBs -> broadphase (or the pair-list carry) -> manifold slots ->
   narrowphase -> islands & sleep -> contact rows -> solve phase
-  (restitution -> gravity -> rhs refresh -> warm start -> velocity
-  iterations -> impulse writeback -> integrate -> position iterations)
+  (restitution -> gravity -> rhs refresh -> joint rows -> warm start ->
+  velocity iterations, each followed by the joint solve -> impulse
+  writeback -> integrate -> position iterations -> joint positions)
 
 PyTorch runs eagerly, so each device-side branch of the JAX step
 (``lax.cond`` / ``while_loop``) is a host-synced Python branch here; each
@@ -21,6 +22,7 @@ from ..collision.broadphase import decode_keys, find_pairs
 from ..collision.manifold import set_drop, update_slots
 from ..collision.narrowphase import update_contacts
 from ..config import PAIR_SEPARATION_MARGIN, Settings
+from ..constraints import joints as joints_mod
 from ..dynamics import islands as islands_mod
 from ..dynamics import solver as solver_mod
 from ..dynamics import solver_kernels as sk
@@ -43,6 +45,8 @@ class SceneMeta:
     max_rows: int | None = None
     has_spin_roll: bool = True
     has_joints: bool = False
+    # a superset of the valid joints' types (the joint passes skip the rest)
+    joint_types: frozenset = frozenset()
     sleep_gating: bool = True
 
 
@@ -68,9 +72,11 @@ def integrate_velocities(state, dv, dw, dt: float):
                                orn=orn)
 
 
-def _solve_phase(state, man, rows, settings: Settings, use_rest: bool):
+def _solve_phase(state, man, rows, settings: Settings, meta: SceneMeta,
+                 use_rest: bool):
     """Everything row-dependent between narrowphase and the step epilogue,
-    on a (possibly prefix-sliced) row table."""
+    on a (possibly prefix-sliced) contact row table. The joint rows always
+    run at their full width."""
     dt = settings.fixed_dt
     tbl, a_p, b_p, Rp = sk.pack_rows_t(rows)
     ab_p = torch.cat([a_p, b_p])
@@ -96,6 +102,12 @@ def _solve_phase(state, man, rows, settings: Settings, use_rest: bool):
     if with_sr:
         tbl[sk.C_BASE + 27:sk.C_BASE + 30] = prhs(
             rows.rhs_spin, rows.rhs_roll1, rows.rhs_roll2)
+    if meta.has_joints:
+        jrows, new_jangle = joints_mod.build_joint_rows(
+            state, dt, settings.mass_splitting, types=meta.joint_types,
+            cone_cap=settings.cone_max_violation)
+    else:
+        jrows, new_jangle = None, state.joints.angle
 
     # warm start + velocity iterations; deltas travel transposed [6, N]
     N = state.capacity
@@ -107,11 +119,19 @@ def _solve_phase(state, man, rows, settings: Settings, use_rest: bool):
     imp6 = imp_packed.reshape(M * P, 6)[slot]
     dvw = solver_mod.warm_start_contacts(
         rows, imp6, torch.zeros((N, 6), device=state.device))
+    j_imp = state.joints.impulses
+    if meta.has_joints:
+        dvw = joints_mod.warm_start_joints(jrows, j_imp, dvw)
     imp_t = torch.nn.functional.pad(imp6, (0, 0, 0, pad)).T.contiguous()
     dvw_t = dvw.T.contiguous()
     for _ in range(settings.num_solver_velocity_iterations):
         imp_t, dvw_t = solver_mod.solve_contacts_once(tbl, imp_t, dvw_t,
                                                       ab_p, with_sr)
+        if meta.has_joints:
+            # the joint solve works on [N,6] deltas, after each contact
+            # iteration's scatter-add
+            j_imp, dvw = joints_mod.solve_joints_once(jrows, j_imp, dvw_t.T)
+            dvw_t = dvw.T.contiguous()
     dvw = dvw_t.T
     imp6 = imp_t.T[:rows.valid.shape[0]]
 
@@ -126,11 +146,18 @@ def _solve_phase(state, man, rows, settings: Settings, use_rest: bool):
         friction_impulse=flat[..., 1:3].contiguous(),
         spin_impulse=flat[..., 3].contiguous(),
         roll_impulse=flat[..., 4:6].contiguous())
-    state = dataclasses.replace(state, contacts=man)
+    joints = dataclasses.replace(state.joints, impulses=j_imp,
+                                 angle=new_jangle)
+    state = dataclasses.replace(state, contacts=man, joints=joints)
 
     state = integrate_velocities(state, dvw[:, 0:3], dvw[:, 3:6], dt)
-    return solve_positions(state, tbl, ab_p,
-                           settings.num_solver_position_iterations)
+    state = solve_positions(state, tbl, ab_p,
+                            settings.num_solver_position_iterations)
+    if meta.has_joints:
+        state = joints_mod.solve_joint_positions(
+            state, settings.num_solver_position_iterations,
+            types=meta.joint_types)
+    return state
 
 
 def prepare_rows(state, settings: Settings, meta: SceneMeta):
@@ -233,7 +260,7 @@ def physics_step(state, settings: Settings, meta: SceneMeta):
         rows_w = solver_mod.rows_prefix(rows, width)
     else:
         rows_w = rows
-    state = _solve_phase(state, man, rows_w, settings,
+    state = _solve_phase(state, man, rows_w, settings, meta,
                          settings.num_restitution_iterations > 0)
     return dataclasses.replace(
         state,

@@ -1,9 +1,11 @@
 """Benchmark scenes. ``mixed_pile`` draws the same bodies, from the same
-seed, as ``edyn_tpu.utils.scenes.mixed_pile``."""
+seed, as ``edyn_tpu.utils.scenes.mixed_pile``; ``joint_chain`` builds the
+same chain as ``edyn_tpu.utils.scenes.joint_chain``."""
 from __future__ import annotations
 
 import numpy as np
 
+from ..constraints.api import make_hinge_constraint
 from ..core.builder import Material, RigidBodyDef, WorldBuilder
 from ..core.state import KIND_STATIC
 from ..shapes.params import (
@@ -62,6 +64,28 @@ def mixed_pile(n_bodies: int = 10_000, seed: int = 0, bin_half: float = None,
                     material=Material(friction=0.5, restitution=0.2,
                                       roll_friction=0.005))))
                 i += 1
+    return b, ids
+
+
+def joint_chain(n_links: int = 8):
+    """Hinge chain hanging from a static anchor (BASELINE config 4)."""
+    b = WorldBuilder()
+    anchor = b.make_rigidbody(RigidBodyDef(
+        kind=KIND_STATIC, position=(0, 5, 0), shape=None, material=None))
+    prev = anchor
+    ids = []
+    for i in range(n_links):
+        link = b.make_rigidbody(RigidBodyDef(
+            mass=1.0, shape=CapsuleShape(0.05, 0.2),
+            position=(0.5 + i * 0.5, 5.0, 0.0),
+            material=Material(friction=0.5)))
+        make_hinge_constraint(
+            b, prev, link,
+            pivot_a=(0.25, 0, 0) if i > 0 else (0, 0, 0),
+            pivot_b=(-0.25, 0, 0),
+            axis_a=(0, 0, 1), axis_b=(0, 0, 1))
+        ids.append(link)
+        prev = link
     return b, ids
 
 

@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""How deep the bodies of a falling ``mixed_pile`` sink into the floor, in
-either package, step by step.
+"""How deep the bodies of a falling ``mixed_pile`` or ragdoll pile sink
+into the floor, in either package, step by step.
 
     JAX_PLATFORMS=cpu python3 scripts/pile_floor_depth.py --package jax \\
         --bodies 2000 --steps 120
     python3 scripts/pile_floor_depth.py --package torch --device cpu \\
         --bodies 2000 --steps 120
+    JAX_PLATFORMS=cpu python3 scripts/pile_floor_depth.py --package jax \\
+        --ragdolls 48 --steps 120
 
-Builds ``mixed_pile(--bodies, seed=--seed)`` with the Settings defaults and
-steps it one step at a time, growing the world after any step that dropped
-pairs (the port's policy; the JAX package's own ``step`` checks every 16th
-step only). After each step it prints the lowest body centre, the lowest
+Builds ``mixed_pile(--bodies, seed=--seed)`` with the Settings defaults
+(or, with ``--ragdolls``, ``chip_smoke.ragdoll_pile`` of that many
+ragdolls, with ``chip_smoke.ragdoll_settings`` in the port and the
+defaults in the JAX package) and steps it one step at a time, growing the
+world after any step that dropped pairs (the port's policy; the JAX
+package's own ``step`` checks every 16th step only). After each step it prints the lowest body centre, the lowest
 body top (AABB) and the median centre of the dynamic bodies; the last line
 is one JSON object with the per-step lowest centres. Only the chosen
 package is imported, so the two runs are separate processes.
@@ -27,7 +31,17 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 
-def _world(package: str, n_bodies: int, seed: int, device: str):
+def _world(package: str, n_bodies: int, seed: int, device: str,
+           ragdolls: int = 0):
+    if ragdolls:
+        from chip_smoke import ragdoll_pile
+        if package == "jax":
+            import edyn_tpu as et
+            return et.make_world(ragdoll_pile(et, ragdolls, seed)[0])
+        import edyn_tpu_torch as et
+        from chip_smoke import ragdoll_settings
+        return et.make_world(ragdoll_pile(et, ragdolls, seed)[0],
+                             ragdoll_settings(), device=device)
     if package == "jax":
         import edyn_tpu as et
         from edyn_tpu.utils.scenes import mixed_pile
@@ -50,12 +64,14 @@ def main() -> int:
     ap.add_argument("--bodies", type=int, default=2000)
     ap.add_argument("--steps", type=int, default=120)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ragdolls", type=int, default=0,
+                    help="a ragdoll pile of this many ragdolls instead")
     ap.add_argument("--device", default="cuda",
                     help="the port's device (torch only)")
     a = ap.parse_args()
     import numpy as np
 
-    w = _world(a.package, a.bodies, a.seed, a.device)
+    w = _world(a.package, a.bodies, a.seed, a.device, a.ragdolls)
     t0 = time.perf_counter()
     lowest = []
     for i in range(a.steps):
@@ -71,6 +87,7 @@ def main() -> int:
               f"centres below 0: {int((y < 0).sum())}, max_pairs "
               f"{w.meta.max_pairs}", flush=True)
     print(json.dumps({"package": a.package, "bodies": a.bodies,
+                      "ragdolls": a.ragdolls,
                       "seed": a.seed, "steps": a.steps,
                       "seconds": time.perf_counter() - t0,
                       "lowest_centre": min(lowest),

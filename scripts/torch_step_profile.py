@@ -3,9 +3,11 @@
 
     python3 scripts/torch_step_profile.py [--bodies 10000] [--settle 120]
                                           [--steps 10]
+    python3 scripts/torch_step_profile.py --scene ragdolls [--ragdolls 768]
 
-Steps ``mixed_pile(--bodies)`` for ``--settle`` steps, then times
-``--steps`` steps twice:
+Steps ``mixed_pile(--bodies)`` (or, with ``--scene ragdolls``,
+``chip_smoke.ragdoll_pile(--ragdolls)`` with ``chip_smoke.ragdoll_settings``,
+whose joint phases are timed on their own) for ``--settle`` steps, then times ``--steps`` steps twice:
 
 1. with each phase function of the stepper wrapped in a timer that
    synchronises the device before and after it, giving milliseconds per
@@ -45,6 +47,7 @@ def phase_times(world, steps: int) -> dict:
     """ms per step of each phase, with synchronising timers installed on the
     stepper's phase functions for the duration of the run."""
     import torch
+    from edyn_tpu_torch.constraints import joints
     from edyn_tpu_torch.dynamics import islands, solver
     from edyn_tpu_torch.dynamics import solver_kernels as sk
     from edyn_tpu_torch.simulation import stepper
@@ -63,6 +66,10 @@ def phase_times(world, steps: int) -> dict:
         (solver, "warm_start_contacts", "warm start"),
         (solver, "solve_contacts_once", "velocity iterations (K1)"),
         (stepper, "solve_positions", "position iterations (K2)"),
+        (joints, "build_joint_rows", "joint rows"),
+        (joints, "warm_start_joints", "joint warm start"),
+        (joints, "solve_joints_once", "joint velocity solve"),
+        (joints, "solve_joint_positions", "joint positions"),
     ]
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
     for mod, attr, name in patches:
@@ -122,6 +129,8 @@ def main() -> int:
     ap.add_argument("--bodies", type=int, default=10_000)
     ap.add_argument("--settle", type=int, default=120)
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--scene", choices=("pile", "ragdolls"), default="pile")
+    ap.add_argument("--ragdolls", type=int, default=768)
     a = ap.parse_args()
 
     import subprocess
@@ -135,8 +144,14 @@ def main() -> int:
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    builder, _ = mixed_pile(n_bodies=a.bodies, seed=0)
-    world = et.make_world(builder, et.Settings())
+    if a.scene == "ragdolls":
+        from chip_smoke import ragdoll_pile, ragdoll_settings
+        builder, _ = ragdoll_pile(et, a.ragdolls)
+        settings = ragdoll_settings()
+    else:
+        builder, _ = mixed_pile(n_bodies=a.bodies, seed=0)
+        settings = et.Settings()
+    world = et.make_world(builder, settings)
     world.step_n(a.settle)
     phases = phase_times(world, a.steps)
     for k, v in sorted(phases.items(), key=lambda kv: -kv[1]):
@@ -149,7 +164,10 @@ def main() -> int:
     for k in prof["top"]:
         print(f"  {k['ms_per_step']:8.3f} ms/step {k['calls_per_step']:7.1f} "
               f"calls/step  {k['name']}")
-    print(json.dumps({"gpu": gpu, "bodies": a.bodies, "settle": a.settle,
+    print(json.dumps({"gpu": gpu, "scene": a.scene,
+                      "bodies": world.state.capacity,
+                      "joints": int(world.state.joints.valid.sum()),
+                      "settle": a.settle,
                       "steps": a.steps, "phases_ms_per_step": phases,
                       "profile": prof}))
     return 0

@@ -19,6 +19,7 @@ can differ from the op-by-op step too (step 42: a sphere-cylinder pivot);
 each, so the test workers share the cost).
 """
 import dataclasses
+import importlib
 
 import jax
 import numpy as np
@@ -26,7 +27,6 @@ import pytest
 
 import edyn_tpu as ej
 from edyn_tpu.simulation.stepper import physics_step_impl
-from edyn_tpu.utils.scenes import mixed_pile as j_mixed_pile
 
 import edyn_tpu_torch as et
 from edyn_tpu_torch.core.convert import state_from_numpy
@@ -36,6 +36,8 @@ from edyn_tpu_torch.utils.scenes import mixed_pile as t_mixed_pile
 
 # tests/test_pallas_solver.py:157-161 (orn held at the pos tolerance)
 TOL = {"pos": (1e-3, 2e-3), "orn": (1e-3, 2e-3), "linvel": (1e-3, 5e-3)}
+# a joint's tracked angle at the pos tolerance, its impulses at linvel's
+JOINT_TOL = {"angle": (1e-3, 2e-3), "impulses": (1e-3, 5e-3)}
 PORT_FIELDS = [f.name for f in dataclasses.fields(WorldState)]
 
 
@@ -51,18 +53,24 @@ def jtree(state) -> dict:
     return out
 
 
-class Trajectory:
-    """The JAX package's 64-body pile, stepped with its jitted step, and the
-    port's world of the same scene (for its settings and meta)."""
+def pile64(pkg):
+    """The 64-body ``mixed_pile`` builder of a package (``ej`` or ``et``)."""
+    scenes = importlib.import_module(pkg.__name__ + ".utils.scenes")
+    return scenes.mixed_pile(n_bodies=64, seed=0)[0]
 
-    def __init__(self, n_steps: int):
-        bj, _ = j_mixed_pile(n_bodies=64, seed=0)
-        self.jw = ej.make_world(bj)
-        bt, _ = t_mixed_pile(n_bodies=64, seed=0)
-        self.tw = et.make_world(bt, device="cpu")
+
+class Trajectory:
+    """A scene in the JAX package, stepped with its jitted step, and the
+    port's world of the same scene (for its settings and meta). ``scene``
+    builds the scene's builder through a package's public names; the
+    worlds are made with ``world_kw``."""
+
+    def __init__(self, n_steps: int, scene=pile64, **world_kw):
+        self.jw = ej.make_world(scene(ej), **world_kw)
+        self.tw = et.make_world(scene(et), device="cpu", **world_kw)
         jm, tm = self.jw.meta, self.tw.meta
         for f in ("types_present", "max_pairs", "bucket_cap", "max_rows",
-                  "has_spin_roll", "island_iters", "wide_cap",
+                  "has_spin_roll", "has_joints", "island_iters", "wide_cap",
                   "sleep_gating"):
             assert getattr(jm, f) == getattr(tm, f), f
         self.states = [self.jw.state]
@@ -74,15 +82,18 @@ class Trajectory:
         with jax.disable_jit():
             return physics_step_impl(start, self.jw.settings, self.jw.meta)
 
-    def check_step(self, i: int):
+    def check_step(self, i: int, ulp_rule: bool = True):
         """One step from the JAX state at step i in both packages.
 
         A body outside the tolerances passes only if the reference itself
-        is that sensitive there: nudging the positions of the bodies
-        outside the tolerances by one ulp, either way, must move the JAX
-        step's result by at least half the port's difference, in every
-        component that is outside the tolerances."""
-        start = self.states[i]
+        is that sensitive there (and ``ulp_rule`` allows it): nudging the
+        positions of the bodies outside the tolerances by one ulp, either
+        way, must move the JAX step's result by at least half the port's
+        difference, in every component that is outside the tolerances."""
+        return self.check_from(self.states[i], i, ulp_rule)
+
+    def check_from(self, start, i: int, ulp_rule: bool = True):
+        """``check_step`` from any JAX state ``start`` (``i`` labels it)."""
         want = self.jax_step(start)
         got = physics_step(state_from_numpy(jtree(start), "cpu"),
                            self.tw.settings, self.tw.meta)
@@ -95,6 +106,14 @@ class Trajectory:
             w = np.asarray(getattr(want, f))
             diff[f] = np.abs(getattr(got, f).numpy() - w)
             bad |= (diff[f] > atol + rtol * np.abs(w)).any(-1)
+        assert ulp_rule or not bad.any(), (
+            f"step {i}: bodies {np.nonzero(bad)[0]} outside the tolerances")
+        if not ulp_rule:
+            for f, (rtol, atol) in JOINT_TOL.items():
+                np.testing.assert_allclose(
+                    getattr(got.joints, f).numpy(),
+                    np.asarray(getattr(want.joints, f)), rtol=rtol,
+                    atol=atol, err_msg=f"step {i}: joints.{f}")
         if bad.any():
             pos = np.asarray(start.pos)
             sens = {f: np.zeros_like(d) for f, d in diff.items()}
