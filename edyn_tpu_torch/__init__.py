@@ -9,8 +9,8 @@ from .core.builder import Material, RigidBodyDef, WorldBuilder
 from .core.state import KIND_DYNAMIC, KIND_KINEMATIC, KIND_STATIC, WorldState
 from .core.world import World, derive_meta, make_world
 from .shapes.params import (
-    BoxShape, CapsuleShape, CylinderShape, PlaneShape, PolyhedronShape,
-    SphereShape,
+    BoxShape, CapsuleShape, CompoundShape, CylinderShape, MeshShape,
+    PagedMeshShape, PlaneShape, PolyhedronShape, SphereShape,
 )
 from .constraints.api import (
     dof, make_cone_constraint, make_cvjoint_constraint, make_distance_constraint,
@@ -25,7 +25,7 @@ __all__ = [
     "World", "make_world", "derive_meta", "SceneMeta", "physics_step",
     "KIND_DYNAMIC", "KIND_KINEMATIC", "KIND_STATIC",
     "SphereShape", "BoxShape", "CapsuleShape", "CylinderShape", "PlaneShape",
-    "PolyhedronShape",
+    "PolyhedronShape", "CompoundShape", "MeshShape", "PagedMeshShape",
     "make_distance_constraint", "make_soft_distance_constraint",
     "make_point_constraint", "make_hinge_constraint", "make_cone_constraint",
     "make_generic_constraint", "make_cvjoint_constraint", "dof",

@@ -27,6 +27,8 @@ class ContactResult:
     normal: torch.Tensor       # [K,4,3] world, B -> A
     distance: torch.Tensor     # [K,4]
     attachment: torch.Tensor   # [K,4] int32
+    friction_scale: torch.Tensor     # [K,4] per-point surface material scale
+    restitution_scale: torch.Tensor  # [K,4]
 
     def swapped(self) -> "ContactResult":
         """Swap the roles of A and B."""
@@ -38,7 +40,9 @@ class ContactResult:
         return ContactResult(point_valid=self.point_valid,
                              pivot_a=self.pivot_b, pivot_b=self.pivot_a,
                              normal=-self.normal, distance=self.distance,
-                             attachment=attach)
+                             attachment=attach,
+                             friction_scale=self.friction_scale,
+                             restitution_scale=self.restitution_scale)
 
 
 def take1(x, i):
@@ -70,7 +74,9 @@ def make_result(pos_a, orn_a, pos_b, orn_b, p_world_a, p_world_b, normal,
         point_valid=point_valid, pivot_a=pivot_a, pivot_b=pivot_b,
         normal=normal.expand(pivot_a.shape),
         distance=distance,
-        attachment=attachment.expand(point_valid.shape).to(torch.int32))
+        attachment=attachment.expand(point_valid.shape).to(torch.int32),
+        friction_scale=torch.ones_like(distance),
+        restitution_scale=torch.ones_like(distance))
 
 
 def reduce_to_4(cand_pos, cand_depth, cand_valid):

@@ -28,11 +28,21 @@ class Side:
     disc_axis: torch.Tensor     # [K,3]
 
 
+SIDE_FIELDS = tuple(f.name for f in dataclasses.fields(Side))
+
+
+def side_map(fn, S: Side) -> Side:
+    """Apply fn to every tensor field (the repeat / tile helpers of the mesh
+    and compound buckets)."""
+    return Side(**{f: fn(getattr(S, f)) for f in SIDE_FIELDS})
+
+
 def pack_side_table(state):
-    """[N, C] packed transform + convex columns, so a bucket's Side costs one
-    gather per pair side. Layout: pos 3 | orn 4 | params 4 | radius 1 |
-    disc_r 1 | disc_axis 3 | verts V*3 | vert_mask V | face_normals F*3 |
-    face_mask F | edge_dirs E*3 | edge_mask E."""
+    """[N, C] packed transform + convex columns of the N bodies (the body
+    rows of the convex table, never its compound-child rows), so a bucket's
+    Side costs one gather per pair side. Layout: pos 3 | orn 4 | params 4 |
+    radius 1 | disc_r 1 | disc_axis 3 | verts V*3 | vert_mask V |
+    face_normals F*3 | face_mask F | edge_dirs E*3 | edge_mask E."""
     cx = state.convex
     N = state.capacity
     V = cx.verts.shape[1]

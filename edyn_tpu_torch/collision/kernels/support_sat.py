@@ -101,11 +101,20 @@ def _rim_axes(A: Side, B: Side, n_seed, iters: int = 8):
     return torch.stack([ax_a, ax_b], 1), torch.stack([ok_a, ok_b], 1)
 
 
-def collide_support(A: Side, B: Side, threshold, rim_axes: bool = True):
-    """The unified convex-convex contact generator."""
+def collide_support(A: Side, B: Side, threshold, axis_validity=None,
+                    orient_ref=None, clamp_flat: bool = True,
+                    rim_axes: bool = True):
+    """The unified convex-convex contact generator.
+
+    The mesh bucket's options: ``axis_validity(axes) -> mask`` restricts
+    the admissible separating axes (Voronoi internal-edge rejection);
+    ``orient_ref`` [K,3] replaces the centre delta that orients the axes
+    (the one-sided surface normal, which never flips under penetration);
+    ``clamp_flat=False`` rejects out-of-slab candidates instead of clamping
+    them (a triangle's tangent slab is its bounding rectangle)."""
     K = A.pos.shape[0]
     dev = A.pos.device
-    delta = A.pos - B.pos
+    delta = orient_ref if orient_ref is not None else A.pos - B.pos
 
     fa, fam = face_axes(A, B.pos)
     fb, fbm = face_axes(B, A.pos)
@@ -129,6 +138,8 @@ def collide_support(A: Side, B: Side, threshold, rim_axes: bool = True):
     sign = torch.where(torch.sum(axes * delta[:, None, :], -1) >= 0,
                        1.0, -1.0)
     axes = axes * sign[..., None]
+    if axis_validity is not None:
+        amask = amask & axis_validity(axes)
 
     pa_proj = -support_projection(A, -axes)
     pb_proj = support_projection(B, axes)
@@ -210,7 +221,10 @@ def collide_support(A: Side, B: Side, threshold, rim_axes: bool = True):
         hi = base_hi + off + torch.where(cap, disc_span, rim_off)
         return lo, hi
 
-    both_flat = (flat_feature(A, -n) & flat_feature(B, n))[:, None]
+    if clamp_flat:
+        both_flat = (flat_feature(A, -n) & flat_feature(B, n))[:, None]
+    else:
+        both_flat = torch.zeros((K, 1), dtype=torch.bool, device=dev)
 
     shift = torch.zeros_like(on_a)
     for t in (t1, t2):

@@ -2,10 +2,13 @@
 class, then the merge into the persistent manifolds (counterpart of
 ``edyn_tpu/collision/narrowphase.py``; reference: narrowphase.cpp:21-109).
 
-Buckets in this slice: UNIFIED (any convex pair, support-mapped SAT),
-BOXBOX (box pair, face clipping) and PLANE (convex vs plane). The compound
-and mesh buckets come with a later slice, and ``update_contacts`` refuses a
-world whose shape types would need them.
+Buckets: UNIFIED (any convex pair, support-mapped SAT), BOXBOX (box pair,
+face clipping), PLANE (convex vs plane), MESH (convex vs static triangle
+mesh, one support-SAT sub-pair per candidate triangle) and the compound
+classes COMP_CONVEX, COMP_PLANE, COMP_COMP and COMP_MESH (one sub-pair per
+child). Every bucket but UNIFIED-on-CUDA is plain PyTorch on both devices,
+as the JAX package keeps them in XLA; each runs over the live prefix of its
+compacted selection in chunks of at most ``CHUNK`` sub-pairs.
 
 The UNIFIED bucket runs by the device, as in the JAX package, whose
 ``_use_pallas(None)`` runs its Pallas kernel on a TPU and its jnp path
@@ -32,6 +35,11 @@ from ..math import quat
 from ..shapes.params import ShapeType
 from .broadphase import compact
 from .kernels import box_box
+from .kernels.compound import (
+    collide_compound_compound, collide_compound_convex, collide_compound_mesh,
+    collide_compound_plane,
+)
+from .kernels.mesh import collide_convex_mesh
 from .kernels.plane_unified import collide_convex_plane
 from .kernels.support import pack_side_table, side_from_packed
 from .kernels.support_sat import collide_support
@@ -39,11 +47,16 @@ from .kernels.unified_kernel import collide_support_unified, pack_side_table_t
 from .manifold import merge_points
 
 S = ShapeType
-B_UNIFIED, B_BOXBOX, B_PLANE = 0, 1, 2
+# bucket classes (the JAX package's numbers; its B_CYLPLANE = 3 is never
+# present: its _classes_present does not return it)
+B_UNIFIED, B_BOXBOX, B_PLANE, B_MESH = 0, 1, 2, 4
+B_COMP_CONVEX, B_COMP_PLANE, B_COMP_COMP, B_COMP_MESH = 5, 6, 7, 8
 CONVEX_TYPES = (S.SPHERE, S.BOX, S.CAPSULE, S.CYLINDER, S.POLYHEDRON)
-SUPPORTED_TYPES = frozenset(CONVEX_TYPES + (S.PLANE, S.NONE))
-# pairs per call of a plain bucket: bounds the [K, axes, verts, 3]
-# temporaries of the support-mapped SAT on the CPU
+MESH_TYPES = (S.MESH, S.PAGED_MESH)
+SUPPORTED_TYPES = frozenset(S)
+# support-SAT sub-pairs per call of a plain bucket (a mesh pair is CAP
+# sub-pairs, a compound pair one per child): bounds the [K, axes, verts, 3]
+# temporaries
 CHUNK = 32768
 
 
@@ -54,22 +67,38 @@ def _is_convex(t):
     return out
 
 
+def _is_mesh(t):
+    return (t == S.MESH) | (t == S.PAGED_MESH)
+
+
 def classify(ta, tb):
-    """(bucket_class, swap); swap puts the convex body first for the plane
-    bucket. Other combinations get class -1."""
+    """(bucket_class, swap); swap puts the convex or compound body first
+    for the plane, mesh and compound classes. Other combinations get class
+    -1."""
     cls = torch.full(ta.shape, -1, dtype=torch.int32, device=ta.device)
-    cls = torch.where(_is_convex(ta) & _is_convex(tb),
-                      torch.full_like(cls, B_UNIFIED), cls)
-    cls = torch.where((ta == S.BOX) & (tb == S.BOX),
-                      torch.full_like(cls, B_BOXBOX), cls)
-    plane_b = _is_convex(ta) & (tb == S.PLANE)
-    plane_a = (ta == S.PLANE) & _is_convex(tb)
-    cls = torch.where(plane_a | plane_b, torch.full_like(cls, B_PLANE), cls)
-    return cls, plane_a
+    put = lambda where, c, cls: torch.where(where, torch.full_like(cls, c),
+                                            cls)
+    conv_a, conv_b = _is_convex(ta), _is_convex(tb)
+    mesh_a, mesh_b = _is_mesh(ta), _is_mesh(tb)
+    comp_a, comp_b = ta == S.COMPOUND, tb == S.COMPOUND
+    plane_a, plane_b = ta == S.PLANE, tb == S.PLANE
+    cls = put(conv_a & conv_b, B_UNIFIED, cls)
+    cls = put((ta == S.BOX) & (tb == S.BOX), B_BOXBOX, cls)
+    cls = put((plane_a & conv_b) | (conv_a & plane_b), B_PLANE, cls)
+    cls = put((mesh_a & conv_b) | (conv_a & mesh_b), B_MESH, cls)
+    cls = put((comp_a & conv_b) | (conv_a & comp_b), B_COMP_CONVEX, cls)
+    cls = put((comp_a & plane_b) | (plane_a & comp_b), B_COMP_PLANE, cls)
+    cls = put(comp_a & comp_b, B_COMP_COMP, cls)
+    cls = put((comp_a & mesh_b) | (mesh_a & comp_b), B_COMP_MESH, cls)
+    swap = ((plane_a & conv_b) | (mesh_a & conv_b) | (conv_a & comp_b)
+            | (plane_a & comp_b) | (mesh_a & comp_b))
+    return cls, swap
 
 
 def _classes_present(types_present: frozenset):
+    """The bucket classes that can occur given the shape types."""
     conv = [t for t in types_present if t in CONVEX_TYPES]
+    mesh = any(t in types_present for t in MESH_TYPES)
     out = []
     if conv:
         out.append(B_UNIFIED)
@@ -77,6 +106,16 @@ def _classes_present(types_present: frozenset):
         out.append(B_BOXBOX)
     if S.PLANE in types_present and conv:
         out.append(B_PLANE)
+    if mesh and conv:
+        out.append(B_MESH)
+    if S.COMPOUND in types_present:
+        if conv:
+            out.append(B_COMP_CONVEX)
+        if S.PLANE in types_present:
+            out.append(B_COMP_PLANE)
+        out.append(B_COMP_COMP)
+        if mesh:
+            out.append(B_COMP_MESH)
     return out
 
 
@@ -86,13 +125,34 @@ def _bucket_cap(bucket, cap, M):
     return max(512, cap // 4)
 
 
-def _run_bucket(bucket, A, B, threshold, has_cyl):
+def sub_pairs(bucket, state) -> int:
+    """Support-SAT sub-pairs a pair of the bucket expands into: candidate
+    triangles of a mesh pair, children of a compound pair."""
+    tris = state.mesh.grid.shape[-1]
+    ch = state.compound.child_row.shape[1]
+    return {B_MESH: tris, B_COMP_CONVEX: ch, B_COMP_PLANE: ch,
+            B_COMP_COMP: ch * ch, B_COMP_MESH: ch * tris}.get(bucket, 1)
+
+
+def _run_bucket(bucket, state, ka, kb, A, B, threshold, has_cyl):
     if bucket == B_UNIFIED:
         return collide_support(A, B, threshold, rim_axes=has_cyl)
     if bucket == B_BOXBOX:
         return box_box.collide_box_box(A.pos, A.orn, A.params,
                                        B.pos, B.orn, B.params, threshold)
-    return collide_convex_plane(A, B, threshold)
+    if bucket == B_PLANE:
+        return collide_convex_plane(A, B, threshold)
+    if bucket == B_MESH:
+        return collide_convex_mesh(A, B, threshold, state.mesh,
+                                   state.shape_index[kb], rim_axes=has_cyl)
+    if bucket == B_COMP_CONVEX:
+        return collide_compound_convex(state, ka, kb, A, B, threshold)
+    if bucket == B_COMP_PLANE:
+        return collide_compound_plane(state, ka, kb, A, B, threshold)
+    if bucket == B_COMP_MESH:
+        return collide_compound_mesh(state, ka, kb, A, B, threshold,
+                                     rim_axes=has_cyl)
+    return collide_compound_compound(state, ka, kb, A, B, threshold)
 
 
 def live_classes(state, man):
@@ -111,6 +171,47 @@ def live_classes(state, man):
     return cls, swap, frozen, man.valid & ~frozen & ~pre
 
 
+def bucket_points(bucket, state, man, s, swap, threshold: float,
+                  has_cyl: bool, packed, dims):
+    """The fresh points of the manifold pairs ``s`` (int64) of one plain
+    bucket, packed as ``update_contacts``' rows [len(s), 4, 14], computed
+    in chunks of at most ``CHUNK`` support-SAT sub-pairs. ``swap`` is
+    ``live_classes``' per manifold pair; ``packed, dims`` the state's
+    ``pack_side_table``."""
+    ba = man.body_a.long()
+    bb = man.body_b.long()
+    parts = []
+    step = max(1, CHUNK // sub_pairs(bucket, state))
+    for c0 in range(0, s.shape[0], step):
+        sc = s[c0:c0 + step]
+        a = ba[sc]
+        b = bb[sc]
+        sw = swap[sc]
+        ka = torch.where(sw, b, a)
+        kb = torch.where(sw, a, b)
+        A = side_from_packed(packed[ka], dims)
+        B = side_from_packed(packed[kb], dims)
+        res = _run_bucket(bucket, state, ka, kb, A, B, threshold, has_cyl)
+        if bucket not in (B_UNIFIED, B_BOXBOX):
+            res_sw = res.swapped()
+            w1 = sw[:, None]
+            w2 = sw[:, None, None]
+            pv = torch.where(w1, res_sw.point_valid, res.point_valid)
+            pa = torch.where(w2, res_sw.pivot_a, res.pivot_a)
+            pb = torch.where(w2, res_sw.pivot_b, res.pivot_b)
+            nr = torch.where(w2, res_sw.normal, res.normal)
+            at = torch.where(w1, res_sw.attachment, res.attachment)
+        else:
+            pv, pa, pb, nr, at = (res.point_valid, res.pivot_a,
+                                  res.pivot_b, res.normal, res.attachment)
+        parts.append(torch.cat([
+            pa, pb, nr, at.to(torch.float32)[..., None],
+            res.distance[..., None], pv.to(torch.float32)[..., None],
+            res.friction_scale[..., None],
+            res.restitution_scale[..., None]], dim=-1))
+    return torch.cat(parts)
+
+
 def update_contacts(state, man, threshold: float, types_present: frozenset,
                     bucket_cap: int | None = None, dt: float = 1.0 / 60.0):
     """Run the bucket kernels over the manifold pair list and merge fresh
@@ -119,8 +220,7 @@ def update_contacts(state, man, threshold: float, types_present: frozenset,
     unsupported = set(types_present) - SUPPORTED_TYPES
     if unsupported:
         raise NotImplementedError(
-            f"shape types {sorted(unsupported)} need narrowphase buckets "
-            "that are not ported yet")
+            f"shape types {sorted(unsupported)} have no narrowphase bucket")
     M = man.key.shape[0]
     dev = man.key.device
     cap = bucket_cap or M
@@ -157,35 +257,11 @@ def update_contacts(state, man, threshold: float, types_present: frozenset,
                                               device=dev)], dim=-1)
             continue
         # padded bucket rows produce nothing the JAX path keeps, so only the
-        # live prefix is computed, in chunks
-        for c0 in range(0, live, CHUNK):
-            s = sel[c0:min(live, c0 + CHUNK)].long()
-            a = ba[s]
-            b = bb[s]
-            sw = swap[s]
-            ka = torch.where(sw, b, a)
-            kb = torch.where(sw, a, b)
-            A = side_from_packed(packed[ka], dims)
-            B = side_from_packed(packed[kb], dims)
-            res = _run_bucket(bucket, A, B, threshold, has_cyl)
-            if bucket == B_PLANE:
-                res_sw = res.swapped()
-                w1 = sw[:, None]
-                w2 = sw[:, None, None]
-                pv = torch.where(w1, res_sw.point_valid, res.point_valid)
-                pa = torch.where(w2, res_sw.pivot_a, res.pivot_a)
-                pb = torch.where(w2, res_sw.pivot_b, res.pivot_b)
-                nr = torch.where(w2, res_sw.normal, res.normal)
-                at = torch.where(w1, res_sw.attachment, res.attachment)
-            else:
-                pv, pa, pb, nr, at = (res.point_valid, res.pivot_a,
-                                      res.pivot_b, res.normal, res.attachment)
-            ones = torch.ones(pv.shape + (2,), device=dev)
-            blk = torch.cat([
-                pa, pb, nr, at.to(torch.float32)[..., None],
-                res.distance[..., None], pv.to(torch.float32)[..., None],
-                ones], dim=-1)
-            new_pts[s] = blk
+        # live prefix is computed
+        if live:
+            s = sel[:live].long()
+            new_pts[s] = bucket_points(bucket, state, man, s, swap, threshold,
+                                       has_cyl, packed, dims)
     new_pts = new_pts[:M]
 
     # rolling analogue of the reference's rolling_tag

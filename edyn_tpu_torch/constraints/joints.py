@@ -23,7 +23,8 @@ import numpy as np
 import torch
 
 from ..core.state import MAX_JOINT_ROWS, JointTable
-from ..dynamics.solver import BIG, degree_counts, gather_ab, scatter_add_ab
+from ..dynamics.solver import (BIG, degree_counts, gather_ab, index_sum,
+                                scatter_add_ab)
 from ..math import quat, vec
 
 # Default positional-error reduction (reference:
@@ -632,11 +633,11 @@ def solve_joint_positions(state, num_iterations: int = 3,
                          0.0)
         lam = (error * correction_rate * em)[:, None]
         lam = torch.where(active[:, None], lam, 0.0)
-        dpos = torch.zeros((N, 3), device=dev).index_add(
-            0, ab, torch.cat([ima[:, None] * d_a * lam,
-                              imb[:, None] * d_b * lam]))
-        dang = torch.zeros((N, 3), device=dev).index_add(
-            0, ab, torch.cat([tA * lam, tB * lam]))
+        dpos = index_sum(torch.zeros((N, 3), device=dev), ab,
+                         torch.cat([ima[:, None] * d_a * lam,
+                                    imb[:, None] * d_b * lam]))
+        dang = index_sum(torch.zeros((N, 3), device=dev), ab,
+                         torch.cat([tA * lam, tB * lam]))
         return pos + dpos, quat.integrate(orn, dang, 1.0)
 
     # A section whose joint types no valid joint has moves no body: its
@@ -753,5 +754,5 @@ def apply_gravity_joints(state, dt: float):
     F = torch.where(mask, G * mA * mB / r2, 0.0)
     dva = dir_ * (F * ma_inv * dt)[:, None]
     dvb = -dir_ * (F * mb_inv * dt)[:, None]
-    linvel = state.linvel.index_add(0, a, dva).index_add(0, b, dvb)
+    linvel = index_sum(index_sum(state.linvel, a, dva), b, dvb)
     return dataclasses.replace(state, linvel=linvel)

@@ -3,9 +3,9 @@
 Counterpart of ``edyn_tpu/core/builder.py`` (reference:
 include/edyn/util/rigidbody.hpp rigidbody_def, make_rigidbody): bodies are
 staged host-side in float32 numpy, as the JAX builder stages them, and
-``finalize`` builds the tensors on the target device. Supports the convex
-and plane shapes and every joint type (``constraints.api``); compounds and
-meshes come with later slices.
+``finalize`` builds the tensors on the target device. Supports every
+shape type (static triangle meshes only, as in the JAX package) and every
+joint type (``constraints.api``).
 """
 from __future__ import annotations
 
@@ -16,8 +16,13 @@ import numpy as np
 import torch
 
 from ..shapes.params import (
-    PolyhedronShape, ShapeType, pack_polyhedra, shape_roll_direction,
+    CompoundShape, MeshShape, PagedMeshShape, PolyhedronShape, ShapeType,
+    pack_polyhedra, preprocess_polyhedron, shape_roll_direction,
 )
+from ..shapes.compound import (
+    CompoundTable, compound_aabb_extent, compound_mass_properties,
+)
+from ..shapes.convex import shape_convex_data
 from ..shapes.inertia import moment_of_inertia, polyhedron_inertia
 from .device import resolve_device
 from .state import (
@@ -77,6 +82,10 @@ class WorldBuilder:
         self.defs: list[RigidBodyDef] = []
         self._polyhedra: list[PolyhedronShape] = []
         self._poly_index: dict[int, int] = {}
+        self._meshes: list[MeshShape] = []
+        self._mesh_index: dict[int, int] = {}
+        self._compounds: list[CompoundShape] = []
+        self._compound_index: dict[int, int] = {}
         self.exclusions: list[tuple[int, int]] = []
         self.joints: list[dict] = []
         self.material_mixes: list[tuple[int, int, Material]] = []
@@ -85,11 +94,22 @@ class WorldBuilder:
         """Returns the body's slot index."""
         idx = len(self.defs)
         self.defs.append(def_)
-        if isinstance(def_.shape, PolyhedronShape):
-            key = id(def_.shape)
-            if key not in self._poly_index:
-                self._poly_index[key] = len(self._polyhedra)
-                self._polyhedra.append(def_.shape)
+        sh = def_.shape
+        if isinstance(sh, PolyhedronShape):
+            if id(sh) not in self._poly_index:
+                self._poly_index[id(sh)] = len(self._polyhedra)
+                self._polyhedra.append(sh)
+        elif isinstance(sh, MeshShape):
+            if def_.kind != KIND_STATIC:
+                raise ValueError("trimesh bodies are static-only "
+                                 "(reference: mesh_shape)")
+            if id(sh) not in self._mesh_index:
+                self._mesh_index[id(sh)] = len(self._meshes)
+                self._meshes.append(sh)
+        elif isinstance(sh, CompoundShape):
+            if id(sh) not in self._compound_index:
+                self._compound_index[id(sh)] = len(self._compounds)
+                self._compounds.append(sh)
         return idx
 
     def exclude_collision(self, a: int, b: int):
@@ -115,6 +135,7 @@ class WorldBuilder:
         from ..constraints.joints import pack_joints
         from ..shapes.aabb import compute_aabbs
         from ..shapes.convex import build_convex_table
+        from ..shapes.mesh import pack_meshes
 
         device = resolve_device(device)
         n = len(self.defs)
@@ -186,6 +207,16 @@ class WorldBuilder:
                 stype[i] = ShapeType.POLYHEDRON
                 sindex[i] = self._poly_index[id(sh)]
                 sparams[i, 0] = sindex[i]
+            elif isinstance(sh, MeshShape):
+                stype[i] = (ShapeType.PAGED_MESH
+                            if isinstance(sh, PagedMeshShape)
+                            else ShapeType.MESH)
+                sindex[i] = self._mesh_index[id(sh)]
+                sparams[i, 0] = sindex[i]
+            elif isinstance(sh, CompoundShape):
+                stype[i] = ShapeType.COMPOUND
+                sindex[i] = self._compound_index[id(sh)]
+                sparams[i, 0] = sindex[i]
             else:
                 st, prm = sh.pack()
                 stype[i] = st
@@ -201,6 +232,8 @@ class WorldBuilder:
                     I = np.diag(I) if I.ndim == 1 else I
                 elif isinstance(sh, PolyhedronShape):
                     I = polyhedron_inertia(sh.vertices, d.mass)
+                elif isinstance(sh, CompoundShape):
+                    I, _ = compound_mass_properties(sh, d.mass)
                 elif sh is not None:
                     I = np.diag(moment_of_inertia(int(stype[i]), sparams[i],
                                                   d.mass))
@@ -239,8 +272,34 @@ class WorldBuilder:
         poly = PolyTable(t(poly_np.verts), t(poly_np.vert_mask),
                          t(poly_np.face_normals), t(poly_np.face_mask),
                          t(poly_np.edge_dirs), t(poly_np.edge_mask))
+        # compound children become extra convex-table rows past the N
+        # bodies; a compound body's own row is its bounding sphere (AABB)
+        child_data, comp_rows = [], []
+        for comp in self._compounds:
+            rows = []
+            for shape, _, _ in comp.children:
+                if isinstance(shape, PolyhedronShape):
+                    pi = self._poly_index.get(id(shape))
+                    if pi is None:
+                        v = np.asarray(shape.vertices, np.float64)
+                        fn, ed = preprocess_polyhedron(v)
+                        data = (v, 0.0, fn, ed, 0.0,
+                                np.array([0.0, 0.0, 1.0]))
+                    else:
+                        data = shape_convex_data(int(ShapeType.POLYHEDRON),
+                                                 (pi, 0, 0, 0), poly_np, pi)
+                else:
+                    st_c, prm_c = shape.pack()
+                    data = shape_convex_data(int(st_c), prm_c)
+                rows.append(N + len(child_data))
+                child_data.append(data)
+            comp_rows.append(rows)
         convex = build_convex_table(stype, sparams, sindex, poly_np,
-                                    device=device)
+                                    extra_data=child_data, device=device)
+        for i, d in enumerate(self.defs):
+            if isinstance(d.shape, CompoundShape):
+                convex.radius[i] = compound_aabb_extent(d.shape)
+        compound = self._compound_table(comp_rows, device)
         if self.material_mixes:
             ids = np.array([[ia, ib] for ia, ib, _ in self.material_mixes],
                            np.int32)
@@ -280,10 +339,45 @@ class WorldBuilder:
             bp_carry_ok=scalar(False, torch.bool),
             contacts=ContactTable.zeros(M, device),
             joints=pack_joints(self.joints, J, device),
-            poly=poly, convex=convex, mix_table=mix,
+            poly=poly, mesh=pack_meshes(self._meshes, device), convex=convex,
+            compound=compound, mix_table=mix,
             step_count=scalar(0, torch.int32),
             sim_time=scalar(0.0, torch.float32),
             overflow=torch.zeros((5,), dtype=torch.int32, device=device))
         amin, amax = compute_aabbs(ws.shape_type, ws.origin_pos(), ws.orn,
-                                   ws.convex)
+                                   ws.convex, ws.shape_index, ws.mesh)
         return dataclasses.replace(ws, aabb_min=amin, aabb_max=amax)
+
+    def _compound_table(self, comp_rows, device) -> CompoundTable:
+        """The padded child lists of the compounds; ``comp_rows`` are their
+        children's convex-table rows."""
+        if not self._compounds:
+            return CompoundTable.empty(device)
+        CH = max(len(r) for r in comp_rows)
+        NC = len(self._compounds)
+        c_row = np.full((NC, CH), -1, np.int32)
+        c_pos = np.zeros((NC, CH, 3), np.float32)
+        c_orn = np.zeros((NC, CH, 4), np.float32)
+        c_orn[..., 3] = 1
+        c_mask = np.zeros((NC, CH), bool)
+        c_type = np.zeros((NC, CH), np.int32)
+        c_prm = np.zeros((NC, CH, 4), np.float32)
+        for ci, (comp, rows) in enumerate(zip(self._compounds, comp_rows)):
+            for k, ((shape, lpos, lorn), row) in enumerate(
+                    zip(comp.children, rows)):
+                c_row[ci, k] = row
+                c_pos[ci, k] = lpos
+                q = np.asarray(lorn, np.float64)
+                c_orn[ci, k] = q / np.linalg.norm(q)
+                c_mask[ci, k] = True
+                if isinstance(shape, PolyhedronShape):
+                    c_type[ci, k] = int(ShapeType.POLYHEDRON)
+                else:
+                    st_c, prm_c = shape.pack()
+                    c_type[ci, k] = int(st_c)
+                    c_prm[ci, k] = prm_c
+        t = lambda x: torch.as_tensor(x, device=device)
+        return CompoundTable(
+            child_row=t(c_row), child_pos=t(c_pos), child_orn=t(c_orn),
+            child_mask=t(c_mask), child_type=t(c_type),
+            child_params=t(c_prm))

@@ -2,7 +2,8 @@
 
 ``tree`` is a nested dict of numpy arrays with the field names of
 ``edyn_tpu.core.state.WorldState`` (sub-tables ``contacts``, ``joints``,
-``poly``, ``convex``, ``mix_table`` as nested dicts), in the JAX package's
+``poly``, ``mesh``, ``convex``, ``compound``, ``mix_table`` as nested
+dicts), in the JAX package's
 dtypes: pair keys uint32 with uint32 max as the invalid key, collision
 group/mask uint32, float32 floats. The caller flattens the JAX state; this
 module never sees a JAX type.
@@ -14,7 +15,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..shapes.compound import CompoundTable
 from ..shapes.convex import ConvexTable
+from ..shapes.mesh import MeshTable
 from .state import (
     INVALID_KEY, ContactTable, JointTable, MixTable, PolyTable, WorldState,
 )
@@ -22,8 +25,8 @@ from .world import resolve_device
 
 JAX_INVALID_KEY = np.uint32(np.iinfo(np.uint32).max)
 _SUBTABLES = {"contacts": ContactTable, "joints": JointTable,
-              "poly": PolyTable, "convex": ConvexTable,
-              "mix_table": MixTable}
+              "poly": PolyTable, "mesh": MeshTable, "convex": ConvexTable,
+              "compound": CompoundTable, "mix_table": MixTable}
 _KEY_FIELDS = ("key", "sort_key")
 _BIT_FIELDS = ("group", "mask")
 

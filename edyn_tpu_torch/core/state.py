@@ -207,7 +207,10 @@ class WorldState:
     contacts: ContactTable
     joints: JointTable
     poly: PolyTable
-    convex: object              # shapes.convex.ConvexTable
+    mesh: object                # shapes.mesh.MeshTable (static trimeshes)
+    convex: object              # shapes.convex.ConvexTable (N body rows,
+                                # then the compound children's rows)
+    compound: object            # shapes.compound.CompoundTable
     mix_table: MixTable
     step_count: torch.Tensor    # [] int32
     sim_time: torch.Tensor      # [] float32

@@ -158,6 +158,23 @@ class World:
     def angvel(self, i):
         return self.state.angvel[i].cpu().numpy()
 
+    def apply_torque_impulse(self, i, torque_impulse):
+        """Add the world-space inverse inertia times ``torque_impulse`` to
+        body i's angular velocity and wake it (reference:
+        rigidbody_apply_torque_impulse)."""
+        st = self.state
+        t = torch.as_tensor(np.asarray(torque_impulse, np.float32),
+                            device=st.device)
+        angvel = st.angvel.clone()
+        angvel[i] += st.inertia_world_inv()[i] @ t
+        asleep = st.asleep.clone()
+        asleep[i] = False
+        timer = st.sleep_timer.clone()
+        timer[i] = 0.0
+        self.state = dataclasses.replace(st, angvel=angvel, asleep=asleep,
+                                         sleep_timer=timer)
+        return self
+
     # -- runtime constraints (reference: make_constraint on a live registry,
     # util/constraint_util.hpp; constraints are destroyable entities) -------
     def _add_joint(self, **kw) -> int:

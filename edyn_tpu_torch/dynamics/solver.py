@@ -200,6 +200,7 @@ def build_contact_rows(state, man, dt: float, use_restitution_solver: bool,
 
     if mass_splitting:
         v2 = valid.to(torch.float32)
+        # counts of 0 and 1 are exact in any order of summation
         deg = torch.ones((state.capacity,), device=dev).index_add(
             0, ab, torch.cat([v2, v2]))
         dg = torch.clamp(deg[ab] - 1.0, min=1.0)
@@ -384,7 +385,27 @@ def warm_start_contacts(rows: ContactRows, imp6, dvw):
             + rows.sB_t2 * dr2_
     upd = torch.cat([torch.cat([lin_a, ang_a], 1),
                      torch.cat([lin_b, ang_b], 1)])
-    return dvw.index_add(0, rows.ab, upd)
+    return index_sum(dvw, rows.ab, upd)
+
+
+def index_sum(x, index, src):
+    """``x.index_add(0, index, src)``, each target's terms added in row
+    order on every device. CUDA's ``index_add`` adds with atomics, in
+    whatever order the threads arrive, so the same scene stepped one way in
+    one run and another way in the next. ``index_put`` with ``accumulate``
+    sorts the targets stably and adds each target's terms one after the
+    other, in row order (the CPU's order). Its kernel walks a target's
+    terms in one thread, so the rows of zeros (invalid rows, and rows into
+    static bodies, whose inverse mass is 0: most of a table) each go to a
+    scratch row of their own; adding zero changes no sum."""
+    if not x.is_cuda:
+        return x.index_add(0, index, src)
+    N, E = x.shape[0], index.shape[0]
+    live = (src != 0).reshape(E, -1).any(1)
+    target = torch.where(live, index.long(),
+                         torch.arange(N, N + E, device=x.device))
+    out = torch.cat([x, x.new_zeros((E,) + tuple(x.shape[1:]))])
+    return out.index_put_((target,), src, accumulate=True)[:N]
 
 
 def gather_ab(dvw, ab):
@@ -400,11 +421,12 @@ def scatter_add_ab(dvw, ab, lin_a, ang_a, lin_b, ang_b):
     of an [N,6] table."""
     ua = torch.cat([lin_a, ang_a], dim=1)
     ub = torch.cat([lin_b, ang_b], dim=1)
-    return dvw.index_add(0, ab, torch.cat([ua, ub]))
+    return index_sum(dvw, ab, torch.cat([ua, ub]))
 
 
 def degree_counts(N: int, idx_list, valid_list):
-    """Constraint degree per body (for mass splitting), >= 1."""
+    """Constraint degree per body (for mass splitting), >= 1 (counts of 0
+    and 1, exact in any order of summation)."""
     deg = torch.zeros((N,), dtype=torch.float32, device=idx_list[0].device)
     for idx, valid in zip(idx_list, valid_list):
         deg = deg.index_add(0, idx.long(), valid.to(torch.float32))
@@ -414,7 +436,10 @@ def degree_counts(N: int, idx_list, valid_list):
 def scatter_upd_t(x_t, ab_p, upd):
     """Scatter-add a kernel's [12,Rp] endpoint update into transposed
     [6,N] body deltas (a-half to rows a, b-half to rows b)."""
-    return x_t.index_add(1, ab_p, torch.cat([upd[:6], upd[6:]], dim=1))
+    src = torch.cat([upd[:6], upd[6:]], dim=1)
+    if x_t.is_cuda:
+        return index_sum(x_t.t().contiguous(), ab_p, src.t()).t().contiguous()
+    return x_t.index_add(1, ab_p, src)
 
 
 def solve_contacts_once(tbl, imp_t, dvw_t, ab_p, with_sr: bool):

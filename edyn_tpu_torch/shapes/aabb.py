@@ -1,6 +1,7 @@
 """Batched world-space AABBs over the unified convex table (counterpart of
 ``edyn_tpu/shapes/aabb.py``; reference: include/edyn/util/aabb_util.hpp).
-Planes get a world-sized slab."""
+Planes get a world-sized slab, meshes their baked object-space bounds
+transformed."""
 from __future__ import annotations
 
 import torch
@@ -13,9 +14,11 @@ PLANE_EXTENT = 1e6
 BIG = 1e30
 
 
-def compute_aabbs(shape_type, pos, orn, convex_table, margin=AABB_MARGIN):
+def compute_aabbs(shape_type, pos, orn, convex_table, shape_index=None,
+                  mesh_table=None, margin=AABB_MARGIN):
     """Returns (aabb_min [N,3], aabb_max [N,3]); ``pos`` is the shape
-    origin."""
+    origin. The convex table may carry rows past the N bodies (compound
+    children): the body rows are its first N."""
     st = shape_type[..., None]
     cx = convex_table
     N = pos.shape[0]
@@ -39,4 +42,20 @@ def compute_aabbs(shape_type, pos, orn, convex_table, margin=AABB_MARGIN):
     is_plane = st == ShapeType.PLANE
     amin = torch.where(is_plane, pos - PLANE_EXTENT, amin)
     amax = torch.where(is_plane, pos + PLANE_EXTENT, amax)
+    if mesh_table is not None and mesh_table.aabb.shape[0] > 0:
+        mi = torch.clamp(shape_index.long(), 0, mesh_table.aabb.shape[0] - 1)
+        mb = mesh_table.aabb[mi]                            # [N,2,3]
+        # corner c takes the high bound on axis k where bit k of c is set
+        # (made on the device: no host copy in the step)
+        bit = torch.arange(3, device=pos.device)
+        high = ((torch.arange(8, device=pos.device)[:, None] >> bit)
+                & 1).bool()                                 # [8,3]
+        corners = torch.where(high, mb[:, None, 1, :],
+                              mb[:, None, 0, :])            # [N,8,3]
+        R = quat.to_matrix(orn)
+        w = torch.einsum("...ij,...cj->...ci", R, corners) + pos[..., None, :]
+        is_mesh = ((shape_type == ShapeType.MESH)
+                   | (shape_type == ShapeType.PAGED_MESH))[..., None]
+        amin = torch.where(is_mesh, torch.amin(w, dim=-2), amin)
+        amax = torch.where(is_mesh, torch.amax(w, dim=-2), amax)
     return amin - margin, amax + margin

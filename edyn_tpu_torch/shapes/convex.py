@@ -68,19 +68,23 @@ def shape_convex_data(stype: int, params, poly_np=None, poly_index: int = 0):
         return (poly_np.verts[poly_index][vm], 0.0,
                 poly_np.face_normals[poly_index][fm],
                 poly_np.edge_dirs[poly_index][em]) + _NO_DISC
-    # NONE / PLANE: point placeholder (never a convex side of a pair)
+    # NONE / PLANE / MESH / COMPOUND: point placeholder (never a convex side
+    # of a pair; a compound's children have rows of their own)
     return (np.zeros((1, 3)), 0.0, np.zeros((0, 3)),
             np.zeros((0, 3))) + _NO_DISC
 
 
 def build_convex_table(shape_types, shape_params, shape_index, poly_np=None,
-                       device=None) -> ConvexTable:
+                       extra_data=None, device=None) -> ConvexTable:
     """Bake the per-body table host-side and place it on ``device``
-    (default ``cuda``; raises without a GPU, see ``resolve_device``)."""
+    (default ``cuda``; raises without a GPU, see ``resolve_device``).
+    ``extra_data`` appends rows (compound children, each a
+    ``shape_convex_data`` tuple) past the N body rows."""
     device = resolve_device(device)
-    N = len(shape_types)
     data = [shape_convex_data(int(shape_types[i]), shape_params[i], poly_np,
-                              int(shape_index[i])) for i in range(N)]
+                              int(shape_index[i]))
+            for i in range(len(shape_types))] + list(extra_data or ())
+    N = len(data)
     V = max(max((len(d[0]) for d in data), default=1), 1)
     F = max(max((len(d[2]) for d in data), default=1), 1)
     E = max(max((len(d[3]) for d in data), default=1), 1)

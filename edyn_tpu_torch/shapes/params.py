@@ -1,9 +1,8 @@
 """Host-side shape descriptors and their packed representation (numpy).
 
-The port's own copy of the convex and plane parts of
-``edyn_tpu/shapes/params.py`` (reference: include/edyn/shapes/*.hpp). Each
-shape becomes a ``ShapeType`` value plus a 4-float parameter row;
-polyhedra index a padded side table.
+The port's own copy of ``edyn_tpu/shapes/params.py`` (reference:
+include/edyn/shapes/*.hpp). Each shape becomes a ``ShapeType`` value plus a
+4-float parameter row; polyhedra, compounds and meshes index side tables.
 
 Packed ``shape_params`` layout per type:
 - SPHERE:     [radius, 0, 0, 0]
@@ -11,6 +10,9 @@ Packed ``shape_params`` layout per type:
 - CAPSULE:    [radius, half_length, axis(0/1/2), 0]
 - CYLINDER:   [radius, half_length, axis(0/1/2), 0]
 - PLANE:      [nx, ny, nz, constant]     (static only)
+- COMPOUND:   [table_index, 0, 0, 0]
+- MESH:       [mesh_index, 0, 0, 0]
+- PAGED_MESH: [mesh_index, 1, 0, 0]      (flag marks paged)
 - POLYHEDRON: [table_index, 0, 0, 0]
 """
 from __future__ import annotations
@@ -107,6 +109,35 @@ class PolyhedronShape:
     def pack(self):
         raise RuntimeError("PolyhedronShape is packed via the builder's "
                            "polyhedron table")
+
+
+@dataclasses.dataclass
+class CompoundShape:
+    """Children = list of (shape, local_pos, local_orn_xyzw)."""
+    children: list
+
+    def pack(self):
+        raise RuntimeError("CompoundShape is packed via the builder's "
+                           "compound table")
+
+
+@dataclasses.dataclass
+class MeshShape:
+    """Concave static triangle mesh (reference: triangle_mesh), with
+    optional per-vertex material scales."""
+    vertices: np.ndarray  # [V,3]
+    indices: np.ndarray   # [T,3]
+    vertex_friction: np.ndarray | None = None     # [V] multiplier
+    vertex_restitution: np.ndarray | None = None  # [V] multiplier
+
+    def pack(self):
+        raise RuntimeError("MeshShape is packed via the builder's mesh table")
+
+
+@dataclasses.dataclass
+class PagedMeshShape(MeshShape):
+    """Paged terrain mesh (reference: paged_triangle_mesh), stored like a
+    MeshShape."""
 
 
 @dataclasses.dataclass

@@ -167,7 +167,8 @@ def prepare_rows(state, settings: Settings, meta: SceneMeta):
     candidates dropped, manifold slots dropped)."""
     dt = settings.fixed_dt
     amin, amax = compute_aabbs(state.shape_type, state.origin_pos(),
-                               state.orn, state.convex)
+                               state.orn, state.convex, state.shape_index,
+                               state.mesh)
     # carried pair-admission boxes: re-seated (swept tight box + margin)
     # only when the swept tight box escapes them
     swept = state.linvel * dt

@@ -4,14 +4,18 @@
     python3 scripts/torch_step_profile.py [--bodies 10000] [--settle 120]
                                           [--steps 10]
     python3 scripts/torch_step_profile.py --scene ragdolls [--ragdolls 768]
+    python3 scripts/torch_step_profile.py --scene terrain [--bodies 10000]
 
 Steps ``mixed_pile(--bodies)`` (or, with ``--scene ragdolls``,
 ``chip_smoke.ragdoll_pile(--ragdolls)`` with ``chip_smoke.ragdoll_settings``,
-whose joint phases are timed on their own) for ``--settle`` steps, then times ``--steps`` steps twice:
+whose joint phases are timed on their own; or, with ``--scene terrain``,
+``rich_scene(--bodies)``, the trimesh terrain with hinge chains) for
+``--settle`` steps, then times ``--steps`` steps twice:
 
 1. with each phase function of the stepper wrapped in a timer that
    synchronises the device before and after it, giving milliseconds per
-   step for every phase (the rest of the step is the glue between them);
+   step for every phase (the rest of the step is the glue between them),
+   and inside the narrowphase each bucket class on its own row;
 2. under ``torch.profiler`` without the timers, giving the device's busy
    share of the wall time and the kernels that take the most device time.
 
@@ -45,8 +49,11 @@ def _timed(table, name, fn):
 
 def phase_times(world, steps: int) -> dict:
     """ms per step of each phase, with synchronising timers installed on the
-    stepper's phase functions for the duration of the run."""
+    stepper's phase functions for the duration of the run; the
+    narrowphase's bucket classes are rows of their own ("narrowphase:
+    <class>"), parts of the narrowphase row."""
     import torch
+    from edyn_tpu_torch.collision import narrowphase as nph
     from edyn_tpu_torch.constraints import joints
     from edyn_tpu_torch.dynamics import islands, solver
     from edyn_tpu_torch.dynamics import solver_kernels as sk
@@ -71,9 +78,21 @@ def phase_times(world, steps: int) -> dict:
         (joints, "solve_joints_once", "joint velocity solve"),
         (joints, "solve_joint_positions", "joint positions"),
     ]
+    names = {getattr(nph, k): k[2:] for k in dir(nph) if k.startswith("B_")}
+    buckets = collections.defaultdict(float)
+    run_bucket = nph._run_bucket
+
+    def timed_bucket(bucket, *a, **k):
+        return _timed(buckets, f"narrowphase: {names[bucket]}",
+                      run_bucket)(bucket, *a, **k)
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
+    saved += [(nph, "_run_bucket", run_bucket),
+              (nph, "collide_support_unified", nph.collide_support_unified)]
     for mod, attr, name in patches:
         setattr(mod, attr, _timed(table, name, getattr(mod, attr)))
+    nph._run_bucket = timed_bucket
+    nph.collide_support_unified = _timed(
+        buckets, "narrowphase: UNIFIED (K4)", nph.collide_support_unified)
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -86,6 +105,7 @@ def phase_times(world, steps: int) -> dict:
     out = {k: 1e3 * v / steps for k, v in table.items()}
     out["glue"] = 1e3 * total / steps - sum(out.values())
     out["step"] = 1e3 * total / steps
+    out.update({k: 1e3 * v / steps for k, v in buckets.items()})
     return out
 
 
@@ -129,7 +149,8 @@ def main() -> int:
     ap.add_argument("--bodies", type=int, default=10_000)
     ap.add_argument("--settle", type=int, default=120)
     ap.add_argument("--steps", type=int, default=10)
-    ap.add_argument("--scene", choices=("pile", "ragdolls"), default="pile")
+    ap.add_argument("--scene", choices=("pile", "ragdolls", "terrain"),
+                    default="pile")
     ap.add_argument("--ragdolls", type=int, default=768)
     a = ap.parse_args()
 
@@ -139,7 +160,7 @@ def main() -> int:
         print("torch_step_profile: no CUDA device", file=sys.stderr)
         return 1
     import edyn_tpu_torch as et
-    from edyn_tpu_torch.utils.scenes import mixed_pile
+    from edyn_tpu_torch.utils.scenes import mixed_pile, rich_scene
 
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -148,6 +169,9 @@ def main() -> int:
         from chip_smoke import ragdoll_pile, ragdoll_settings
         builder, _ = ragdoll_pile(et, a.ragdolls)
         settings = ragdoll_settings()
+    elif a.scene == "terrain":
+        builder, _ = rich_scene(n_bodies=a.bodies)
+        settings = et.Settings()
     else:
         builder, _ = mixed_pile(n_bodies=a.bodies, seed=0)
         settings = et.Settings()

@@ -7,6 +7,6 @@ import pytest
 from test_torch_joint_behaviour import RAGDOLL_CASES, one_thread  # noqa: F401
 
 
-@pytest.mark.parametrize("case", RAGDOLL_CASES, ids=lambda f: f.__name__)
+@pytest.mark.parametrize("case", RAGDOLL_CASES[:3], ids=lambda f: f.__name__)
 def test_behaviour(case):
     case()

@@ -40,7 +40,7 @@ from edyn_tpu_torch.constraints import joints as TJ
 from edyn_tpu_torch.core.convert import state_from_numpy, state_to_numpy
 from edyn_tpu_torch.dynamics import islands as tislands
 
-from test_torch_step import jtree
+from test_torch_step import jtree, one_thread, to_jax  # noqa: F401
 
 DT = 1.0 / 60.0
 ROWS_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -158,12 +158,16 @@ def test_finalize_tables_bit_equal():
 
 
 def test_state_round_trip_bit_equal():
-    """A jointed JAX state stepped until its angles and impulses are not
-    zero crosses to the port and back bit for bit."""
-    w = ej.make_world(scene(ej, list(VARIANTS)), max_joints=len(VARIANTS)
-                      + SPARE)
-    w.step(5)
-    tree = jtree(w.state)
+    """A jointed state stepped until its angles and impulses are not zero,
+    held in a JAX state, crosses to the port and back bit for bit. (The
+    steps are the port's on the CPU, carried into the JAX package's state
+    structure: no compile of the JAX step.)"""
+    J = len(VARIANTS) + SPARE
+    tw = et.make_world(scene(et, list(VARIANTS)), max_joints=J,
+                       device="cpu")
+    tw.step(5)
+    like = scene(ej, list(VARIANTS)).finalize(max_joints=J)
+    tree = jtree(to_jax(state_to_numpy(tw.state), like))
     assert np.abs(tree["joints"]["impulses"]).max() > 0
     assert np.abs(tree["joints"]["angle"]).max() > 0
     back = state_to_numpy(state_from_numpy(tree, "cpu"))

@@ -30,7 +30,7 @@ from edyn_tpu_torch.math import vec as tvec
 from edyn_tpu_torch.shapes.aabb import compute_aabbs as t_compute_aabbs
 from edyn_tpu_torch.utils.scenes import mixed_pile as t_mixed_pile
 
-from test_torch_step import jtree
+from test_torch_step import jtree, one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -59,7 +59,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                                        "edyn_tpu_torch."):
             importlib.import_module(m.name)
         for path in ("chip_smoke.py", "scripts/torch_step_profile.py",
-                     "scripts/torch_device_diff.py"):
+                     "scripts/torch_device_diff.py",
+                     "scripts/pile_floor_depth.py"):
             spec = importlib.util.spec_from_file_location(
                 path.replace("/", "_")[:-3], {ROOT!r} + "/" + path)
             spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -68,6 +69,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                      or n.startswith("edyn_tpu."))
         print(len([n for n in sys.modules if n.startswith("edyn_tpu_torch")]))
         assert not bad, bad
+        for m in ("shapes.mesh", "shapes.compound", "collision.kernels.mesh",
+                  "collision.kernels.compound"):
+            assert "edyn_tpu_torch." + m in sys.modules, m
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT, timeout=300)

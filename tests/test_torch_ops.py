@@ -18,7 +18,7 @@ from edyn_tpu.utils.scenes import mixed_pile as j_mixed_pile
 from edyn_tpu_torch.core.convert import state_from_numpy, state_to_numpy
 from edyn_tpu_torch.ops import overlap_count as tov
 
-from test_torch_step import jtree
+from test_torch_step import jtree, one_thread  # noqa: F401
 
 
 def _boxes(seed, n, invalid):

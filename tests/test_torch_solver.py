@@ -23,6 +23,8 @@ from edyn_tpu_torch.dynamics import position as tposition
 from edyn_tpu_torch.dynamics import solver as tsolver
 from edyn_tpu_torch.dynamics import solver_kernels as sk
 
+from test_torch_step import one_thread  # noqa: F401
+
 DIR = ("JaA", "JaB", "tA", "tB", "eff_mass", "rhs")
 SR = ("spin_friction", "roll_friction", "sA_n", "sB_n", "sA_t1", "sB_t1",
       "sA_t2", "sB_t2", "em_spin", "em_roll1", "em_roll2", "rhs_spin",

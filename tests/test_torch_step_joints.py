@@ -4,14 +4,15 @@ scenes without contacts (the method and tolerances of
 ``test_torch_step_ragdolls.py``).
 
 - ``joint_chain(6)``: a hinge chain hanging from a static anchor. Every
-  third step of its first 30 from the JAX package's jitted states is held
-  without the 1-ulp rule: pos, orn and linvel at the whole-step
-  tolerances, and the joints' tracked angles and impulses too (each
-  op-by-op JAX step takes seconds).
+  third step of its first 30 is held without the 1-ulp rule: pos, orn and
+  linvel at the whole-step tolerances, and the joints' tracked angles and
+  impulses too (each op-by-op JAX step takes seconds). The start states
+  are the port's own CPU trajectory carried into JAX states.
 - Runtime joints: ``make_distance_constraint`` and ``make_hinge_constraint``
   on a live ``World`` (``_add_joint`` into spare ``max_joints`` slots), then
   ``destroy_joint``, in both packages, each followed by steps compared
-  the same way.
+  the same way; the JAX world advances by the op-by-op reference step of
+  each comparison.
 """
 import importlib
 
@@ -22,7 +23,9 @@ import edyn_tpu as ej
 import edyn_tpu_torch as et
 from edyn_tpu_torch.core.convert import state_from_numpy
 
-from test_torch_step import Trajectory, eager_cache, jtree  # noqa: F401
+from test_torch_step import (  # noqa: F401
+    Trajectory, eager_cache, jtree, one_thread,
+)
 
 
 def chain6(pkg):
@@ -44,7 +47,7 @@ def ball_pair(pkg):
 
 @pytest.fixture(scope="module")
 def chain(eager_cache):  # noqa: F811
-    return Trajectory(30, chain6)
+    return Trajectory(30, chain6, source="port")
 
 
 @pytest.mark.parametrize("step", range(0, 30, 3))
@@ -66,7 +69,7 @@ def test_runtime_joints_parity(eager_cache):  # noqa: F811
     def step_both(n):
         for _ in range(n):
             tr.check_from(jw.state, 0, ulp_rule=False)
-            jw.step()
+            jw.state = tr.last
             tw.state = state_from_numpy(jtree(jw.state), "cpu")
 
     ja, ta = both(lambda p, w: p.make_distance_constraint(

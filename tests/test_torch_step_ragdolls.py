@@ -3,12 +3,14 @@ four ragdolls in two layers dropped on the floor (``chip_smoke.ragdoll_pile``
 at n_ragdolls=4): point, cone and hinge joints beside contacts in the
 UNIFIED, BOXBOX and PLANE buckets. Contact generation is 1-ulp sensitive,
 so every fourth step of the first 40 is held under ``check_step``'s rule
-(see ``test_torch_step.py``); the last one has floor contacts."""
+(see ``test_torch_step.py``); the last one has floor contacts. The start
+states are the port's own CPU trajectory carried into JAX states (no
+compile of the JAX package's jitted step)."""
 import numpy as np
 import pytest
 
 from chip_smoke import ragdoll_pile
-from test_torch_step import Trajectory, eager_cache  # noqa: F401
+from test_torch_step import Trajectory, eager_cache, one_thread  # noqa: F401
 
 
 def ragdolls4(pkg):
@@ -17,7 +19,7 @@ def ragdolls4(pkg):
 
 @pytest.fixture(scope="module")
 def ragdolls(eager_cache):  # noqa: F811
-    return Trajectory(40, ragdolls4)
+    return Trajectory(40, ragdolls4, source="port")
 
 
 def test_scene(ragdolls):

@@ -2,7 +2,7 @@
 ``collide_support_plain`` against the JAX package's Pallas kernel
 ``collide_support_pallas``. (The CPU narrowphase, which runs the jnp
 bucket ``support_sat`` and never K4, is held against the JAX jnp path by
-``test_torch_collision.py::test_update_contacts``.)
+``test_torch_step.py::test_update_contacts``.)
 
 Inputs: two 24-body worlds of random spheres, boxes, capsules and cylinders
 (``test_pallas_narrowphase._random_world``'s scene, own copy) with 128
@@ -45,7 +45,7 @@ from edyn_tpu.collision.kernels import pallas_unified as pu
 from edyn_tpu_torch.collision.kernels import unified_kernel as uk
 from edyn_tpu_torch.core.convert import state_from_numpy
 
-from test_torch_step import jtree
+from test_torch_step import jtree, one_thread  # noqa: F401
 
 THRESH = 0.02
 BLK = pu.BLK
