@@ -39,9 +39,13 @@ def _edge_dirs(tv):
 
 
 def collide_convex_mesh(A: Side, B: Side, threshold, mesh_table,
-                        mesh_index, rim_axes: bool = True) -> ContactResult:
+                        mesh_index, rim_axes: bool = True,
+                        cull_box=None) -> ContactResult:
     """A = convex body, B = static mesh body (its mesh table row is
-    ``mesh_index``)."""
+    ``mesh_index``). ``cull_box`` = (lo, hi) [K,3], the convex body's
+    world AABB, keeps only the candidate triangles whose world AABB
+    overlaps it inflated by ``threshold`` (``Settings.mesh_triangle_cull``;
+    None runs every candidate, as the JAX package does)."""
     K = A.pos.shape[0]
     CAP = mesh_table.grid.shape[-1]
     dev = A.pos.device
@@ -59,6 +63,12 @@ def collide_convex_mesh(A: Side, B: Side, threshold, mesh_table,
     tn = mesh_table.tri_normal[mr, ids_c]                  # [K,CAP,3]
     adj = mesh_table.adj_normal[mr, ids_c]                 # [K,CAP,3,3]
     tv_w = quat.rotate(B.orn[:, None, None, :], tv) + B.pos[:, None, None, :]
+    if cull_box is not None:
+        lo, hi = cull_box
+        ids_ok = ids_ok & torch.all(
+            (torch.amin(tv_w, dim=2) <= hi[:, None, :] + threshold)
+            & (torch.amax(tv_w, dim=2) >= lo[:, None, :] - threshold),
+            dim=-1)
     tn_w = quat.rotate(B.orn[:, None, :], tn)
     adj_w = quat.rotate(B.orn[:, None, None, :], adj)
 

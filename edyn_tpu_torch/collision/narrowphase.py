@@ -134,7 +134,8 @@ def sub_pairs(bucket, state) -> int:
             B_COMP_COMP: ch * ch, B_COMP_MESH: ch * tris}.get(bucket, 1)
 
 
-def _run_bucket(bucket, state, ka, kb, A, B, threshold, has_cyl):
+def _run_bucket(bucket, state, ka, kb, A, B, threshold, has_cyl,
+                tri_cull: bool = False):
     if bucket == B_UNIFIED:
         return collide_support(A, B, threshold, rim_axes=has_cyl)
     if bucket == B_BOXBOX:
@@ -143,8 +144,11 @@ def _run_bucket(bucket, state, ka, kb, A, B, threshold, has_cyl):
     if bucket == B_PLANE:
         return collide_convex_plane(A, B, threshold)
     if bucket == B_MESH:
+        box = ((state.aabb_min[ka], state.aabb_max[ka]) if tri_cull
+               else None)
         return collide_convex_mesh(A, B, threshold, state.mesh,
-                                   state.shape_index[kb], rim_axes=has_cyl)
+                                   state.shape_index[kb], rim_axes=has_cyl,
+                                   cull_box=box)
     if bucket == B_COMP_CONVEX:
         return collide_compound_convex(state, ka, kb, A, B, threshold)
     if bucket == B_COMP_PLANE:
@@ -172,12 +176,13 @@ def live_classes(state, man):
 
 
 def bucket_points(bucket, state, man, s, swap, threshold: float,
-                  has_cyl: bool, packed, dims):
+                  has_cyl: bool, packed, dims, tri_cull: bool = False):
     """The fresh points of the manifold pairs ``s`` (int64) of one plain
     bucket, packed as ``update_contacts``' rows [len(s), 4, 14], computed
     in chunks of at most ``CHUNK`` support-SAT sub-pairs. ``swap`` is
     ``live_classes``' per manifold pair; ``packed, dims`` the state's
-    ``pack_side_table``."""
+    ``pack_side_table``; ``tri_cull`` is ``Settings.mesh_triangle_cull``
+    (the MESH bucket's triangle cull)."""
     ba = man.body_a.long()
     bb = man.body_b.long()
     parts = []
@@ -191,7 +196,8 @@ def bucket_points(bucket, state, man, s, swap, threshold: float,
         kb = torch.where(sw, a, b)
         A = side_from_packed(packed[ka], dims)
         B = side_from_packed(packed[kb], dims)
-        res = _run_bucket(bucket, state, ka, kb, A, B, threshold, has_cyl)
+        res = _run_bucket(bucket, state, ka, kb, A, B, threshold, has_cyl,
+                          tri_cull)
         if bucket not in (B_UNIFIED, B_BOXBOX):
             res_sw = res.swapped()
             w1 = sw[:, None]
@@ -213,10 +219,11 @@ def bucket_points(bucket, state, man, s, swap, threshold: float,
 
 
 def update_contacts(state, man, threshold: float, types_present: frozenset,
-                    bucket_cap: int | None = None, dt: float = 1.0 / 60.0):
+                    bucket_cap: int | None = None, dt: float = 1.0 / 60.0,
+                    tri_cull: bool = False):
     """Run the bucket kernels over the manifold pair list and merge fresh
     points into ``man``. Returns (table, dropped candidates as a host
-    int)."""
+    int). ``tri_cull``: ``Settings.mesh_triangle_cull``."""
     unsupported = set(types_present) - SUPPORTED_TYPES
     if unsupported:
         raise NotImplementedError(
@@ -261,7 +268,7 @@ def update_contacts(state, man, threshold: float, types_present: frozenset,
         if live:
             s = sel[:live].long()
             new_pts[s] = bucket_points(bucket, state, man, s, swap, threshold,
-                                       has_cyl, packed, dims)
+                                       has_cyl, packed, dims, tri_cull)
     new_pts = new_pts[:M]
 
     # rolling analogue of the reference's rolling_tag

@@ -42,7 +42,7 @@ DTYPE = torch.float32
 class Settings:
     """Runtime settings (reference: include/edyn/context/settings.hpp:21-58).
     Field for field the same as ``edyn_tpu.Settings``, plus
-    ``cone_max_violation``."""
+    ``cone_max_violation`` and ``mesh_triangle_cull``."""
     fixed_dt: float = 1.0 / 60.0
     gravity: tuple = GRAVITY_EARTH
     max_steps_per_update: int = 10
@@ -64,6 +64,14 @@ class Settings:
     # a departure from the reference, whose results are not the JAX
     # package's once a cone row reaches the cap.
     cone_max_violation: float | None = None
+    # The MESH bucket runs the SAT on all 64 candidate triangles of the
+    # body's grid cell, and a triangle beside the body can give a contact
+    # point metres from it with a real depth (ROADMAP R10). False keeps
+    # that, the JAX package's bucket. True keeps only the candidate
+    # triangles whose AABB overlaps the body's AABB inflated by the
+    # collision threshold, as the C++ reference's static triangle tree
+    # does: a departure from the JAX package.
+    mesh_triangle_cull: bool = False
 
     def replace(self, **kw) -> "Settings":
         return dataclasses.replace(self, **kw)

@@ -10,12 +10,15 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..config import Settings
+from ..config import ISLAND_TIME_TO_SLEEP, Settings
 from ..constraints.joints import JointType, types_present
 from ..simulation.stepper import SceneMeta, physics_step
 from .builder import WorldBuilder
 from .device import resolve_device
-from .state import WorldState, grow_contact_table
+from .spawn import set_rows
+from .state import (
+    KIND_DYNAMIC, KIND_STATIC, WorldState, grow_contact_table,
+)
 
 
 def _pairs_for(n_bodies: int) -> int:
@@ -173,6 +176,350 @@ class World:
         timer[i] = 0.0
         self.state = dataclasses.replace(st, angvel=angvel, asleep=asleep,
                                          sleep_timer=timer)
+        return self
+
+    def block_until_ready(self):
+        """Wait for the device's queued work (the JAX package's
+        ``jax.block_until_ready`` on the state)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self
+
+    def _f32(self, x):
+        return torch.as_tensor(np.asarray(x, np.float64).astype(np.float32),
+                               device=self.device)
+
+    def set_center_of_mass(self, i, com):
+        """Move the body's COM keeping the shape's world pose: the stored
+        position moves to the new world COM and linvel takes the w x dr
+        term; the inertia is kept (reference: set_center_of_mass ->
+        apply_center_of_mass, src/edyn/util/rigidbody.cpp:364-543)."""
+        from ..math import quat, vec
+        st = self.state
+        com = self._f32(com)
+        orn = st.orn[i]
+        origin = st.pos[i] - quat.rotate(orn, st.com[i])
+        com_w = origin + quat.rotate(orn, com)
+        dlin = vec.cross(st.angvel[i], com_w - st.pos[i])
+        self.state = set_rows(st, i, pos=com_w, com=com,
+                              linvel=st.linvel[i] + dlin, asleep=False,
+                              sleep_timer=0.0)
+        return self
+
+    def set_roll_direction(self, i, direction):
+        """Override the object-space rolling axis (reference:
+        comp/roll_direction.hpp; a zero vector rolls isotropically)."""
+        self.state = set_rows(self.state, i, roll_axis=self._f32(direction))
+        return self
+
+    # -- mutators (reference: util/rigidbody.cpp) -----------------------
+    def apply_impulse(self, i, impulse, rel_location=(0.0, 0.0, 0.0)):
+        """reference: rigidbody_apply_impulse."""
+        from ..math import vec
+        st = self.state
+        imp = self._f32(impulse)
+        rel = self._f32(rel_location)
+        Iw = st.inertia_world_inv()[i]
+        self.state = set_rows(
+            st, i, linvel=st.linvel[i] + st.mass_inv[i] * imp,
+            angvel=st.angvel[i] + Iw @ vec.cross(rel, imp), asleep=False,
+            sleep_timer=0.0)
+        return self
+
+    def set_position(self, i, position, orientation=None):
+        """Kinematic or teleport move (reference:
+        update_kinematic_position)."""
+        kw = {"pos": self._f32(position)}
+        if orientation is not None:
+            kw["orn"] = self._f32(orientation)
+        self.state = set_rows(self.state, i, **kw)
+        # a teleported PLANE keeps its world-slab AABB (no box escape
+        # fires), so the pair carry is invalidated here
+        self._reset_island_stability()
+        return self
+
+    def set_velocity(self, i, linvel=None, angvel=None):
+        kw = {"asleep": False, "sleep_timer": 0.0}
+        if linvel is not None:
+            kw["linvel"] = self._f32(linvel)
+        if angvel is not None:
+            kw["angvel"] = self._f32(angvel)
+        self.state = set_rows(self.state, i, **kw)
+        return self
+
+    def exclude_collision(self, a: int, b: int):
+        """Runtime collision exclusion (reference:
+        util/exclude_collision.hpp), appended to both bodies' fixed-width
+        lists."""
+        # host read: the lists are edited on the host, as numpy does
+        ex = self.state.exclusions.cpu().numpy().copy()
+        for x, y in ((a, b), (b, a)):
+            row = ex[x]
+            if y in row:
+                continue
+            slots = np.nonzero(row < 0)[0]
+            if not len(slots):
+                raise ValueError(f"exclusion list of body {x} full")
+            ex[x, int(slots[0])] = y
+        self.state = dataclasses.replace(
+            self.state, exclusions=torch.as_tensor(ex, device=self.device))
+        self._reset_island_stability()  # pair eligibility changed
+        return self
+
+    def set_mass(self, i, mass: float):
+        """reference: set_rigidbody_mass (rigidbody.cpp:300-305): the mass
+        only; the inertia is untouched (``set_inertia``)."""
+        if not mass > 0:
+            raise ValueError("mass must be positive")
+        self.state = set_rows(self.state, i, mass_inv=1.0 / mass)
+        return self
+
+    def set_inertia(self, i, inertia):
+        """reference: set_rigidbody_inertia (rigidbody.cpp:307-312). Takes
+        the local 3x3 inertia tensor or its diagonal [3]."""
+        I = np.asarray(inertia, np.float64)
+        if I.ndim == 1:
+            I = np.diag(I)
+        self.state = set_rows(self.state, i,
+                              inertia_inv=self._f32(np.linalg.inv(I)))
+        return self
+
+    def set_friction(self, i, friction: float):
+        """reference: set_rigidbody_friction (rigidbody.cpp:314-345).
+        Contact rows re-mix body materials every step, so live contacts
+        take the new value on the next step."""
+        self.state = set_rows(self.state, i, friction=friction)
+        return self
+
+    def get_gravity(self, i=None):
+        """Body i's gravity, or the world default when i is None
+        (reference: get_gravity, util/gravity_util.hpp:15)."""
+        if i is None:
+            return np.asarray(self.settings.gravity)
+        return self.state.gravity[i].cpu().numpy()
+
+    def set_gravity(self, g, i=None):
+        """Set body i's gravity, or the world default and every dynamic
+        body still on it (reference: set_gravity,
+        util/gravity_util.hpp:23)."""
+        st = self.state
+        g = self._f32(g)
+        if i is not None:
+            self.state = set_rows(st, i, gravity=g)
+            return self
+        old = self._f32(self.settings.gravity)
+        on_default = (st.kind == KIND_DYNAMIC) & torch.all(
+            st.gravity == old[None, :], dim=-1)
+        self.settings = dataclasses.replace(
+            self.settings, gravity=tuple(float(x) for x in g.cpu().numpy()))
+        self.state = dataclasses.replace(
+            st, gravity=torch.where(on_default[:, None], g[None, :],
+                                    st.gravity))
+        return self
+
+    def set_kind(self, i, kind, mass: float | None = None):
+        """Change a body's kind (reference: rigidbody_set_kind); becoming
+        dynamic takes a mass and recomputes the inertia from the shape."""
+        from ..shapes.inertia import moment_of_inertia
+        st = self.state
+        kw = {"kind": int(kind), "asleep": False, "sleep_timer": 0.0}
+        if kind == KIND_DYNAMIC:
+            if mass is None or not mass > 0:
+                raise ValueError("becoming dynamic requires a mass")
+            # host read: the shape's parameters for its inertia
+            stype = int(st.shape_type[i])
+            params = st.shape_params[i].cpu().numpy()
+            I = np.diag(moment_of_inertia(stype, params, mass))
+            kw.update(mass_inv=1.0 / mass,
+                      inertia_inv=self._f32(np.linalg.inv(I)),
+                      gravity=self._f32(self.settings.gravity))
+        else:
+            kw.update(mass_inv=0.0, inertia_inv=0.0, gravity=0.0)
+            if kind == KIND_STATIC:
+                kw["linvel"] = 0.0
+        self.state = set_rows(st, i, **kw)
+        # only dynamic bodies connect islands: the graph changed without a
+        # pair-list change
+        self._reset_island_stability()
+        return self
+
+    def set_shape(self, i, shape):
+        """Swap a body's simple shape (reference: rigidbody_set_shape): the
+        mass is kept, the inertia recomputed, the body's manifolds
+        cleared."""
+        from ..shapes.inertia import moment_of_inertia
+        from ..shapes.params import shape_roll_direction
+        from .spawn import update_convex_row
+        st = self.state
+        stype, params = shape.pack()
+        kw = {"shape_type": int(stype), "shape_params": self._f32(params),
+              # the roll direction follows the shape (rigidbody.cpp:450-466)
+              "roll_axis": self._f32(shape_roll_direction(int(stype),
+                                                          params))}
+        # host read: the body's mass
+        minv = float(st.mass_inv[i])
+        if minv > 0:
+            I = np.diag(moment_of_inertia(int(stype), params, 1.0 / minv))
+            kw["inertia_inv"] = self._f32(np.linalg.inv(I))
+        st = set_rows(st, i, **kw)
+        # this body's contact points are invalid for the new shape
+        # (rigidbody.cpp:488-495)
+        man = st.contacts
+        hit = ((man.body_a == i) | (man.body_b == i)) & man.valid
+        h1, h2 = hit[:, None], hit[:, None, None]
+        zero = lambda x, h: torch.where(h, torch.zeros_like(x), x)
+        man = dataclasses.replace(
+            man, point_valid=man.point_valid & ~h1,
+            normal_impulse=zero(man.normal_impulse, h1),
+            friction_impulse=zero(man.friction_impulse, h2),
+            spin_impulse=zero(man.spin_impulse, h1),
+            roll_impulse=zero(man.roll_impulse, h2),
+            lifetime=zero(man.lifetime, h1))
+        self.state = dataclasses.replace(
+            st, contacts=man,
+            convex=update_convex_row(st.convex, i, int(stype), params))
+        self.meta = dataclasses.replace(
+            self.meta, types_present=self.meta.types_present | {int(stype)})
+        # points cleared without a pair-list change: the pointed mask moves
+        # under the steady-state label skip
+        self._reset_island_stability()
+        return self
+
+    def spawn(self, def_, poly_index=None) -> int:
+        """Create a body in a free slot (reference: make_rigidbody on a
+        live registry). Returns its slot."""
+        from .spawn import spawn_rigidbody
+        self.state, idx = spawn_rigidbody(self.state, def_,
+                                          poly_index=poly_index)
+        # host read: the new row's shape type
+        stype = int(self.state.shape_type[idx])
+        if stype not in self.meta.types_present:
+            self.meta = dataclasses.replace(
+                self.meta, types_present=self.meta.types_present | {stype})
+        m = def_.material
+        if m is not None and (m.spin_friction > 0 or m.roll_friction > 0) \
+                and not self.meta.has_spin_roll:
+            self.meta = dataclasses.replace(self.meta, has_spin_roll=True)
+        self._reset_island_stability()
+        return idx
+
+    def destroy(self, i):
+        """reference: clear_rigidbody."""
+        from .spawn import destroy_rigidbody
+        self.state = destroy_rigidbody(self.state, i)
+        self._reset_island_stability()
+        return self
+
+    # -- queries and events ---------------------------------------------
+    def manifold_between(self, a, b) -> dict | None:
+        """The contact manifold of two bodies, or None (reference:
+        manifold_exists / get_manifold_entity,
+        util/contact_manifold_util.hpp:19-35): the live points' world
+        positions and normals, separations and impulses. The normal points
+        towards body_a, the lower body index."""
+        from ..math import quat
+        st = self.state
+        man = st.contacts
+        lo, hi = (a, b) if a < b else (b, a)
+        key = int(lo) * st.capacity + int(hi)
+        # host read: the table is slot-stable, not sorted by key
+        hits = torch.nonzero((man.key == key) & man.valid).flatten()
+        if hits.numel() == 0:
+            return None
+        idx = int(hits[0])
+        pv = man.point_valid[idx].cpu().numpy()
+        if not pv.any():
+            return None
+        ia, ib = int(man.body_a[idx]), int(man.body_b[idx])
+        ppos = st.origin_pos()[ia] + quat.rotate(st.orn[ia], man.pivot_a[idx])
+        # attachment: 0 world-space normal, 1 turns with A, 2 with B
+        att = man.normal_attachment[idx][:, None]
+        ln = man.local_normal[idx]
+        nrm = torch.where(att == 1, quat.rotate(st.orn[ia], ln),
+                          torch.where(att == 2, quat.rotate(st.orn[ib], ln),
+                                      ln))
+        h = lambda x: x.cpu().numpy()
+        return {"body_a": ia, "body_b": ib, "num_points": int(pv.sum()),
+                "point_valid": pv, "position": h(ppos), "normal": h(nrm),
+                "distance": h(man.distance[idx]),
+                "normal_impulse": h(man.normal_impulse[idx]),
+                "friction_impulse": h(man.friction_impulse[idx])}
+
+    def manifold_exists(self, a, b) -> bool:
+        """reference: manifold_exists (util/contact_manifold_util.hpp:19)."""
+        return self.manifold_between(a, b) is not None
+
+    def step_with_events(self, n: int = 1):
+        """Step and return the (started, ended) touching pairs (reference:
+        the contact_started/ended signals). The step and the setters build
+        new tensors, so the state kept here stays as it was."""
+        from ..collision.events import contact_events
+        prev = self.state
+        self.step(n)
+        return contact_events(prev, self.state)
+
+    def query_aabb(self, lo, hi, include_non_procedural=True):
+        """reference: include/edyn/collision/query_aabb.hpp."""
+        from ..collision.events import query_aabb
+        return query_aabb(self.state, lo, hi, include_non_procedural)
+
+    def raycast(self, p0, p1):
+        """Cast one ray or a batch (reference: edyn::raycast): fraction,
+        entity (-1 on a miss), world normal and the feature detail
+        (``raycast.FEAT_*``, sub index, compound child index); arrays for a
+        batch, scalars for one ray."""
+        from ..collision.raycast import raycast as _raycast
+        p0 = np.atleast_2d(np.asarray(p0, np.float32))
+        p1 = np.atleast_2d(np.asarray(p1, np.float32))
+        out = _raycast(self.state, torch.as_tensor(p0, device=self.device),
+                       torch.as_tensor(p1, device=self.device))
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+        if p0.shape[0] == 1:
+            return {"fraction": float(out["fraction"][0]),
+                    "entity": int(out["entity"][0]),
+                    "normal": out["normal"][0],
+                    "feature": int(out["feature"][0]),
+                    "sub_index": int(out["sub_index"][0]),
+                    "child_index": int(out["child_index"][0])}
+        return out
+
+    # -- sleep ------------------------------------------------------------
+    def wake_set(self, indices):
+        """Wake exactly these bodies (no island walk)."""
+        if not indices:
+            return self
+        idx = torch.as_tensor(sorted(indices), dtype=torch.long,
+                              device=self.device)
+        st = self.state
+        asleep = st.asleep.clone()
+        asleep[idx] = False
+        timer = st.sleep_timer.clone()
+        timer[idx] = 0.0
+        self.state = dataclasses.replace(st, asleep=asleep,
+                                         sleep_timer=timer)
+        return self
+
+    def put_to_sleep(self, indices=None):
+        """Force bodies (default: every dynamic body) asleep now:
+        velocities zeroed, sleep timer saturated. The island update keeps
+        them asleep while their whole island stays quiet, the state the
+        reference's timer-driven sleep converges to (island_manager.cpp
+        put_islands_to_sleep)."""
+        st = self.state
+        mask = st.is_dynamic
+        if indices is not None:
+            chosen = torch.zeros_like(mask)
+            chosen[torch.as_tensor(sorted(indices), dtype=torch.long,
+                                   device=self.device)] = True
+            mask = mask & chosen
+        m3 = mask[:, None]
+        self.state = dataclasses.replace(
+            st, asleep=st.asleep | mask,
+            sleep_timer=torch.where(
+                mask, torch.full_like(st.sleep_timer, ISLAND_TIME_TO_SLEEP),
+                st.sleep_timer),
+            linvel=torch.where(m3, torch.zeros_like(st.linvel), st.linvel),
+            angvel=torch.where(m3, torch.zeros_like(st.angvel), st.angvel))
         return self
 
     # -- runtime constraints (reference: make_constraint on a live registry,

@@ -214,7 +214,8 @@ def prepare_rows(state, settings: Settings, meta: SceneMeta):
     wake_bodies[old.body_a[edge_wake].long()] = True
     wake_bodies[old.body_b[edge_wake].long()] = True
     man, np_dropped = update_contacts(state, man, settings.collision_threshold,
-                                      meta.types_present, meta.bucket_cap, dt)
+                                      meta.types_present, meta.bucket_cap, dt,
+                                      settings.mesh_triangle_cull)
 
     # steady-state island skip: unchanged pair list and pointed mask for
     # >= 2*RESET_PERIOD steps

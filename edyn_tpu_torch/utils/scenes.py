@@ -1,6 +1,7 @@
-"""Benchmark scenes. ``mixed_pile`` and ``rich_scene`` draw the same bodies,
-from the same seed, as their namesakes in ``edyn_tpu.utils.scenes``;
-``grid_mesh`` and ``joint_chain`` build the same mesh and chain."""
+"""Benchmark and test scenes. ``mixed_pile`` and ``rich_scene`` draw the
+same bodies, from the same seed, as their namesakes in
+``edyn_tpu.utils.scenes``; ``hello_world``, ``box_stack``, ``grid_mesh``
+and ``joint_chain`` build the same scenes."""
 from __future__ import annotations
 
 import numpy as np
@@ -12,6 +13,34 @@ from ..shapes.params import (
     BoxShape, CapsuleShape, CylinderShape, MeshShape, PlaneShape,
     PolyhedronShape, SphereShape,
 )
+
+
+def hello_world():
+    """One dynamic box onto a static ground plane (reference:
+    examples/hello_world/hello_world.cpp:16-35)."""
+    b = WorldBuilder()
+    b.make_rigidbody(RigidBodyDef(
+        kind=KIND_STATIC, shape=PlaneShape((0, 1, 0), 0.0),
+        material=Material(friction=0.5)))
+    box = b.make_rigidbody(RigidBodyDef(
+        mass=10.0, shape=BoxShape((0.2, 0.2, 0.2)), position=(0, 3, 0),
+        material=Material(friction=0.8)))
+    return b, box
+
+
+def box_stack(n: int = 10, half: float = 0.2, spacing: float = 1.001):
+    """A vertical stack of n boxes on a plane."""
+    b = WorldBuilder()
+    b.make_rigidbody(RigidBodyDef(
+        kind=KIND_STATIC, shape=PlaneShape((0, 1, 0), 0.0),
+        material=Material(friction=0.7)))
+    ids = []
+    for i in range(n):
+        ids.append(b.make_rigidbody(RigidBodyDef(
+            mass=1.0, shape=BoxShape((half, half, half)),
+            position=(0.0, half + 2 * half * spacing * i, 0.0),
+            material=Material(friction=0.7))))
+    return b, ids
 
 
 def mixed_pile(n_bodies: int = 10_000, seed: int = 0, bin_half: float = None,

@@ -5,12 +5,16 @@
                                           [--steps 10]
     python3 scripts/torch_step_profile.py --scene ragdolls [--ragdolls 768]
     python3 scripts/torch_step_profile.py --scene terrain [--bodies 10000]
+    python3 scripts/torch_step_profile.py --scene asleep [--bodies 10000]
 
 Steps ``mixed_pile(--bodies)`` (or, with ``--scene ragdolls``,
 ``chip_smoke.ragdoll_pile(--ragdolls)`` with ``chip_smoke.ragdoll_settings``,
 whose joint phases are timed on their own; or, with ``--scene terrain``,
 ``rich_scene(--bodies)``, the trimesh terrain with hinge chains) for
-``--settle`` steps, then times ``--steps`` steps twice:
+``--settle`` steps (or, with ``--scene asleep``, runs ``bench.py``'s
+protocol on ``mixed_pile(--bodies)`` through ``chip_smoke.asleep_path``
+and takes the mostly-asleep world it ends with, ``--settle`` ignored),
+then times ``--steps`` steps twice:
 
 1. with each phase function of the stepper wrapped in a timer that
    synchronises the device before and after it, giving milliseconds per
@@ -149,7 +153,8 @@ def main() -> int:
     ap.add_argument("--bodies", type=int, default=10_000)
     ap.add_argument("--settle", type=int, default=120)
     ap.add_argument("--steps", type=int, default=10)
-    ap.add_argument("--scene", choices=("pile", "ragdolls", "terrain"),
+    ap.add_argument("--scene", choices=("pile", "ragdolls", "terrain",
+                                        "asleep"),
                     default="pile")
     ap.add_argument("--ragdolls", type=int, default=768)
     a = ap.parse_args()
@@ -165,18 +170,23 @@ def main() -> int:
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    if a.scene == "ragdolls":
-        from chip_smoke import ragdoll_pile, ragdoll_settings
-        builder, _ = ragdoll_pile(et, a.ragdolls)
-        settings = ragdoll_settings()
-    elif a.scene == "terrain":
-        builder, _ = rich_scene(n_bodies=a.bodies)
-        settings = et.Settings()
+    if a.scene == "asleep":
+        from chip_smoke import asleep_path
+        _, _, _, world, _ = asleep_path(a.bodies, torch.device("cuda"))
+        a.settle = None
     else:
-        builder, _ = mixed_pile(n_bodies=a.bodies, seed=0)
-        settings = et.Settings()
-    world = et.make_world(builder, settings)
-    world.step_n(a.settle)
+        if a.scene == "ragdolls":
+            from chip_smoke import ragdoll_pile, ragdoll_settings
+            builder, _ = ragdoll_pile(et, a.ragdolls)
+            settings = ragdoll_settings()
+        elif a.scene == "terrain":
+            builder, _ = rich_scene(n_bodies=a.bodies)
+            settings = et.Settings()
+        else:
+            builder, _ = mixed_pile(n_bodies=a.bodies, seed=0)
+            settings = et.Settings()
+        world = et.make_world(builder, settings)
+        world.step_n(a.settle)
     phases = phase_times(world, a.steps)
     for k, v in sorted(phases.items(), key=lambda kv: -kv[1]):
         print(f"{k:28s} {v:9.3f} ms/step")

@@ -1,6 +1,5 @@
-"""The JAX package's compound behaviour tests (``tests/test_compound.py``,
-all but the raycast, which waits for the port's queries) on the port's CPU
-``World``: the same scenes, steps and assertions, as cases of one
+"""The JAX package's compound behaviour tests (``tests/test_compound.py``)
+on the port's CPU ``World``: the same scenes, steps and assertions, as cases of one
 parametrised test, the first three here and the rest in
 ``test_torch_compound_behaviour_b.py`` (files of at most four tests run after
 the suite's long files of few tests: see ``test_torch_joint_behaviour.py``).
@@ -107,8 +106,32 @@ def compound_rests_on_trimesh(device="cpu"):
     assert abs(v[0]) < 0.1, v
 
 
+def compound_raycast_hits_children(device="cpu"):
+    """A raycast against a compound tests each child's own geometry
+    (reference: raycast.cpp:323)."""
+    b = et.WorldBuilder()
+    body = b.make_rigidbody(et.RigidBodyDef(
+        kind=et.KIND_STATIC, shape=dumbbell(), position=(0, 0, 0)))
+    w = world(b, device)
+    # down onto the left sphere child (centre (-0.5, 0, 0), r 0.25)
+    out = w.raycast((-0.5, 2.0, 0.0), (-0.5, -2.0, 0.0))
+    assert out["entity"] == body
+    np.testing.assert_allclose(out["fraction"], (2.0 - 0.25) / 4.0,
+                               atol=1e-3)
+    np.testing.assert_allclose(out["normal"], [0, 1, 0], atol=1e-3)
+    # down onto the thin bar (half height 0.08)
+    out = w.raycast((0.0, 2.0, 0.0), (0.0, -2.0, 0.0))
+    assert out["entity"] == body
+    np.testing.assert_allclose(out["fraction"], (2.0 - 0.08) / 4.0,
+                               atol=1e-3)
+    # between the spheres above the bar: a miss
+    out = w.raycast((-0.25, 2.0, 0.2), (-0.25, -2.0, 0.2))
+    assert out["entity"] == -1
+
+
 CASES = [compound_rests_on_plane, convex_vs_compound, compound_vs_compound,
-         compound_inertia_reasonable, compound_rests_on_trimesh]
+         compound_inertia_reasonable, compound_rests_on_trimesh,
+         compound_raycast_hits_children]
 
 
 @pytest.mark.parametrize("case", CASES[:3], ids=lambda f: f.__name__)

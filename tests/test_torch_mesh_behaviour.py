@@ -1,6 +1,5 @@
-"""The JAX package's trimesh behaviour tests (``tests/test_mesh.py``, all
-but the raycast, which waits for the port's queries) on the port's CPU
-``World``: the same scenes, steps and assertions, as cases of one
+"""The JAX package's trimesh behaviour tests (``tests/test_mesh.py``) on
+the port's CPU ``World``: the same scenes, steps and assertions, as cases of one
 parametrised test, the first three here and the rest in
 ``test_torch_mesh_behaviour_b.py`` (files of at most four tests run after
 the suite's long files of few tests: see ``test_torch_joint_behaviour.py``).
@@ -34,14 +33,14 @@ def make_grid_mesh(nx=8, nz=8, size=1.0, height_fn=None):
     return verts, tris
 
 
-def terrain_world(height_fn=None, bodies=()):
+def terrain_world(height_fn=None, bodies=(), settings=et.Settings()):
     verts, tris = make_grid_mesh(10, 10, 1.0, height_fn)
     b = et.WorldBuilder()
     b.make_rigidbody(et.RigidBodyDef(
         kind=et.KIND_STATIC, shape=et.MeshShape(verts, tris),
         material=et.Material(friction=0.7)))
     ids = [b.make_rigidbody(d) for d in bodies]
-    return et.make_world(b, device="cpu"), ids
+    return et.make_world(b, settings, device="cpu"), ids
 
 
 def sphere_rests_on_flat_terrain():
@@ -87,13 +86,13 @@ def sphere_rolls_into_valley():
     assert float(w.position(ball)[1]) < 1.2
 
 
-def polyhedron_on_terrain():
+def polyhedron_on_terrain(settings=et.Settings()):
     tet = et.PolyhedronShape(np.array(
         [[0.2, 0.2, 0.2], [0.2, -0.2, -0.2],
          [-0.2, 0.2, -0.2], [-0.2, -0.2, 0.2]], np.float32))
     w, (body,) = terrain_world(bodies=[et.RigidBodyDef(
         mass=1.0, shape=tet, position=(0.1, 1.5, -0.1),
-        material=et.Material(friction=0.6))])
+        material=et.Material(friction=0.6))], settings=settings)
     w.step(300)
     ys = []
     for _ in range(60):
@@ -139,11 +138,29 @@ def one_thread():
     torch.set_num_threads(n)
 
 
+def raycast_mesh():
+    w, _ = terrain_world()
+    w.step(1)
+    hit = w.raycast((0.25, 5.0, 0.25), (0.25, -5.0, 0.25))
+    assert hit["entity"] == 0
+    np.testing.assert_allclose(hit["fraction"], 0.5, atol=1e-3)
+    np.testing.assert_allclose(hit["normal"], [0, 1, 0], atol=1e-3)
+
+
 CASES = [sphere_rests_on_flat_terrain, box_rests_on_flat_terrain_no_edge_snag,
          sphere_rolls_into_valley, polyhedron_on_terrain,
-         per_triangle_materials_two_zones]
+         per_triangle_materials_two_zones, raycast_mesh]
 
 
 @pytest.mark.parametrize("case", CASES[:3], ids=lambda f: f.__name__)
 def test_behaviour(case):
     case()
+
+
+def test_polyhedron_on_terrain_with_triangle_cull():
+    """``polyhedron_on_terrain`` under its own assertions with the port's
+    opt-in triangle cull (``Settings.mesh_triangle_cull``, ROADMAP P9):
+    the candidate triangles beside the body no longer give it contact
+    points (R10), and the tetrahedron rests. Without the cull the case
+    fails on the port (``test_torch_mesh_behaviour_b.py``)."""
+    polyhedron_on_terrain(et.Settings(mesh_triangle_cull=True))
