@@ -103,6 +103,20 @@ prints no result):
    frame: no centre below the surface, pages loaded and unloaded, none
    refused, at most 32 resident; the pool table bit-equal to the CPU
    path's for the same tile writes.
+11. The networked path (``networked_path``) on ``mixed_pile(10_000)``
+   with a ``"steer"`` user component and 256 spare slots, landed by 120
+   steps: the world's checkpoint resumed on the card steps 30 steps
+   bit-equal to the live world, and the same bytes loaded on the CPU
+   equal the card's resumed state leaf for leaf; a ``NetworkServer`` on
+   the pile serves a spectator (every entity, its transforms bit-equal to
+   the server's last delivered snapshot) and a player (a sphere it
+   creates, a ``"steer"`` input each frame, a 100 ms link, snapshots
+   replayed on the background worker, its world stepped each frame) for
+   120 frames over byte channels that lose 10% of unreliable packets;
+   ``AsyncSimulation`` steps the pile for 2 s under 64 impulses and 4,096
+   queued raycasts; ``Presentation`` renders 30 frames at 30 fps. Every
+   thread alive and on the main thread's stream, every world's counters
+   zero; K1-K4 launched, K5 not.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -1032,6 +1046,8 @@ def _to(x, dev):
     import torch
     if isinstance(x, torch.Tensor):
         return x.to(dev)
+    if isinstance(x, dict):  # the user components
+        return {k: _to(v, dev) for k, v in x.items()}
     if dataclasses.is_dataclass(x):
         return dataclasses.replace(x, **{f.name: _to(getattr(x, f.name), dev)
                                          for f in dataclasses.fields(x)})
@@ -2467,9 +2483,399 @@ def paged_path(dev):
                 travelled_m=travelled, launches=launches), launches
 
 
+# Phase 11: the networked path (checkpoint, server and clients over bytes,
+# the async worker, presentation) on the 10k pile
+NET_LAND = 120          # steps that land the pile before the phase
+NET_RESUME = 30         # steps the live and the resumed world take
+NET_FRAMES = 120        # frames at 60 Hz, one server step each
+NET_LOSS = 0.1          # share of unreliable packets lost on every channel
+NET_DELAY = 3           # frames each way on the player's link (100 ms RTT)
+PLAYER_HALF = 8.0       # the player's interest box half extents, m
+ASYNC_SECONDS = 2.0
+ASYNC_IMPULSES = 64
+PRES_FRAMES = 30        # render frames at 30 fps over 60 Hz steps
+TRANSFORMS = ("pos", "orn", "linvel", "angvel")
+
+
+class NetChannel:
+    """A transport that carries only bytes (``encode_packet``/
+    ``decode_packet``): unreliable packets are lost at ``loss`` (seeded),
+    every packet arrives ``delay`` frames after it was sent. Counts the
+    bytes sent and the packets decoded, and the seconds ``handler`` took
+    per packet type."""
+
+    def __init__(self, loss: float, seed: int, delay: int = 0):
+        import numpy as np
+        self.loss, self.delay = loss, delay
+        self.rng = np.random.RandomState(seed)
+        self.frame = 0
+        self.queue = []
+        self.sent_bytes = 0
+        self.decoded = 0
+        self.handle_s = {}
+        self.last = {}      # packet type -> (frame, packet) last delivered
+
+    def send(self, packet):
+        from edyn_tpu_torch.networking import packets as pk
+        from edyn_tpu_torch.networking.wire import encode_packet
+        raw = encode_packet(packet)
+        self.sent_bytes += len(raw)
+        if not pk.should_send_reliably(packet) and \
+                self.rng.rand() < self.loss:
+            return
+        self.queue.append((self.frame + self.delay, raw))
+
+    def drain(self, handler, now):
+        from edyn_tpu_torch.networking.wire import decode_packet
+        due = [r for f, r in self.queue if f <= self.frame]
+        self.queue = [(f, r) for f, r in self.queue if f > self.frame]
+        for raw in due:
+            p = decode_packet(raw)
+            self.decoded += 1
+            kind = type(p).__name__
+            t0 = time.perf_counter()
+            handler(p, now)
+            self.handle_s[kind] = self.handle_s.get(kind, 0.0) + (
+                time.perf_counter() - t0)
+            self.last[kind] = (self.frame, p)
+
+
+def _emptied(world):
+    """``world`` with every body destroyed in one write of each column
+    (its tables, widths and polyhedra stay: a client world that can take
+    the server's shapes)."""
+    import torch
+    from edyn_tpu_torch.core.spawn import destroy_rigidbody
+    st = world.state
+    world.state = destroy_rigidbody(st, torch.arange(
+        st.capacity, device=st.device))
+    world._reset_island_stability()
+    return world
+
+
+def _sync():
+    import torch
+    torch.cuda.synchronize()
+
+
+def networked_path(dev):
+    """Phase 11 on ``mixed_pile(N_BODIES)`` with a ``"steer"`` user
+    component (``replicate="input"``) and SPARE_SLOTS spare slots, landed
+    by NET_LAND steps; launch counts set to 0 before the phase and read
+    after it.
+
+    11a. ``world_to_bytes`` the landed world, ``resume_world`` the bytes on
+    the card, step both NET_RESUME steps: pos, orn, linvel, angvel and the
+    contact keys bit-equal; the same bytes loaded on the CPU equal, leaf
+    for leaf, the card's resumed state before it stepped.
+    11b. A ``NetworkServer`` on the live world and two clients over
+    ``NetChannel``s (NET_LOSS): a spectator (the default 50 m box, no
+    extrapolation, its world on the card) and a player that creates a
+    sphere 2 m above the pile, records a ``"steer"`` input every frame,
+    follows the sphere with a PLAYER_HALF box over a NET_DELAY-frame link,
+    replays snapshots on the background worker and steps its world every
+    frame (both clients' worlds are the pile's, emptied; the player's with
+    ``Settings(pool_convex_rows=True)``, ROADMAP R13). NET_FRAMES frames:
+    every packet decodes; the spectator maps every entity of its interest
+    set; its transforms of the last delivered transient snapshot's
+    entities equal the server's at that frame bit for bit; the player's
+    sphere is on the server with a recorded ``"steer"``; the extrapolation
+    worker is alive and has replayed; every world's counters are zero.
+    11c. ``AsyncSimulation`` on the live world for ASYNC_SECONDS, with
+    ASYNC_IMPULSES impulses and 4,096 ``raycast_async`` calls queued: the
+    thread alive and stepping before ``stop()``, every ray answered, on
+    the main thread's stream, the state finite, the counters zero.
+    11d. ``Presentation`` at 30 fps over 60 Hz steps for PRES_FRAMES
+    frames: every ``transforms()`` finite. Returns (summary, launches)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import edyn_tpu_torch as et
+    from edyn_tpu_torch.core.convert import state_to_numpy
+    from edyn_tpu_torch.networking import NetworkClient, NetworkServer
+    from edyn_tpu_torch.networking.wire import varint_encoder
+    from edyn_tpu_torch.serialization.checkpoint import (
+        resume_world, world_from_bytes, world_to_bytes,
+    )
+    from edyn_tpu_torch.simulation.async_worker import AsyncSimulation
+    from edyn_tpu_torch.simulation.presentation import Presentation
+    from edyn_tpu_torch.utils.scenes import mixed_pile
+
+    def pile_world(settings=et.Settings()):
+        builder, ids = mixed_pile(n_bodies=N_BODIES)
+        builder.register_component("steer", replicate="input")
+        return et.make_world(builder, settings,
+                             capacity=len(builder.defs) + SPARE_SLOTS,
+                             device=dev), ids
+
+    out = {}
+    _reset_counts()
+    world, ids = pile_world()
+    _run_steps(world, NET_LAND)
+    _check_world(world, "net landed")
+
+    # 11a. checkpoint resume
+    t0 = time.perf_counter()
+    blob = world_to_bytes(world.state, world.settings, world.meta)
+    save_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    resumed = resume_world(blob, device=dev)
+    _sync()
+    load_ms = 1e3 * (time.perf_counter() - t0)
+    if resumed.meta != world.meta:
+        raise AssertionError(f"[net] resumed meta {resumed.meta} != live "
+                             f"{world.meta}")
+    t0 = time.perf_counter()
+    cpu_state, _ = world_from_bytes(blob, device="cpu")
+    cpu_load_ms = 1e3 * (time.perf_counter() - t0)
+    card_tree, cpu_tree = (state_to_numpy(resumed.state),
+                           state_to_numpy(cpu_state))
+    del cpu_state
+    for name, val in card_tree.items():
+        leaves = val.items() if isinstance(val, dict) else [(None, val)]
+        for k, x in leaves:
+            y = cpu_tree[name][k] if k is not None else cpu_tree[name]
+            if x.dtype != y.dtype or not np.array_equal(x, y):
+                raise AssertionError(f"[net] CPU load differs in {name}/{k}")
+    del card_tree, cpu_tree
+    _run_steps(world, NET_RESUME)
+    _run_steps(resumed, NET_RESUME)
+    for f in TRANSFORMS:
+        if not torch.equal(getattr(world.state, f), getattr(resumed.state,
+                                                            f)):
+            d = (getattr(world.state, f) - getattr(resumed.state, f)).abs()
+            raise AssertionError(f"[net] resumed {f} differs after "
+                                 f"{NET_RESUME} steps (max {float(d.max())})")
+    if not torch.equal(world.state.contacts.key, resumed.state.contacts.key):
+        raise AssertionError("[net] resumed contact keys differ")
+    del resumed
+    out["checkpoint"] = dict(mb=len(blob) / 2**20, save_ms=save_ms,
+                             load_ms=load_ms, cpu_load_ms=cpu_load_ms,
+                             steps_equal=NET_RESUME)
+    log(f"[net] checkpoint {len(blob) / 2**20:.3f} MB, save {save_ms:.1f} "
+        f"ms, load on the card {load_ms:.1f} ms (CPU {cpu_load_ms:.1f} ms); "
+        f"resumed world bit-equal to the live one after {NET_RESUME} steps "
+        f"(max_pairs {world.meta.max_pairs})")
+    del blob
+
+    # 11b. a server and two clients over bytes
+    t0 = time.perf_counter()
+    spec_world = _emptied(pile_world()[0])
+    play_world = _emptied(pile_world(et.Settings(pool_convex_rows=True))[0])
+    build_s = time.perf_counter() - t0
+    server = NetworkServer(world)
+    down_a, up_a = NetChannel(NET_LOSS, 1), NetChannel(NET_LOSS, 2)
+    down_b = NetChannel(NET_LOSS, 3, NET_DELAY)
+    up_b = NetChannel(NET_LOSS, 4, NET_DELAY)
+    server.register_client(1, down_a.send)
+    server.register_client(2, down_b.send,
+                           interest_half_extents=(PLAYER_HALF,) * 3)
+    spectator = NetworkClient(spec_world, up_a.send,
+                              enable_extrapolation=False)
+    player = NetworkClient(play_world, up_b.send, enable_extrapolation=True,
+                           background_extrapolation=True)
+    # host read: the pile's top
+    top = float(world.state.pos[world.state.is_dynamic][:, 1].max())
+    ball = player.create_entity(et.RigidBodyDef(
+        mass=1.0, shape=et.SphereShape(0.3), position=(0.0, top + 2.0, 0.0),
+        material=et.Material(friction=0.5)))
+    steer = {}
+    step_s, update_s, sent_at = [], [], {}
+    dt = world.settings.fixed_dt
+    chans = (down_a, up_a, down_b, up_b)
+    t_loop = time.perf_counter()
+    for f in range(NET_FRAMES):
+        now = (f + 1) * dt
+        for c in chans:
+            c.frame = f
+        steer[f] = np.float32(0.1 + 0.9 * ((f * 37) % 100) / 100)
+        player.record_input(now, "steer", [ball], np.array([steer[f]]))
+        spectator.update(now)
+        player.update(now)
+        up_a.drain(lambda p, t: server.receive(1, p, t), now)
+        up_b.drain(lambda p, t: server.receive(2, p, t), now)
+        srv = server.clients[2]
+        if srv.interest.follow is None and srv.entity_map.has_remote(ball):
+            srv.interest.follow = srv.entity_map.to_local(ball)
+        _sync()
+        t0 = time.perf_counter()
+        world.step(1)
+        _sync()
+        t1 = time.perf_counter()
+        server.update(now)
+        _sync()
+        update_s.append(time.perf_counter() - t1)
+        step_s.append(t1 - t0)
+        # the server's transforms at every frame it sent a transient
+        # snapshot (what the spectator then holds)
+        if server.clients[1].last_snapshot_time == now:
+            sent_at[f] = (world.state.pos.clone(), world.state.orn.clone())
+        down_a.drain(spectator.receive, now)
+        down_b.drain(player.receive, now)
+        play_world.step(1)
+    _sync()
+    loop_s = time.perf_counter() - t_loop
+    worker = player._extrap_worker
+    if worker is None or not worker.alive or worker.error is not None:
+        raise AssertionError(f"[net] the extrapolation worker died: "
+                             f"{None if worker is None else worker.error!r}")
+    replays, timeouts, replay_steps = (worker.replays, worker.timeouts,
+                                       worker.steps)
+    player.close()
+    if worker.error is not None:
+        raise worker.error
+    # the spectator: every entity of its interest set mapped, the last
+    # delivered transient snapshot's transforms equal to the server's
+    interest = server.clients[1].interest.current
+    mapped = set(spectator.entity_map.rem2loc)
+    if mapped != interest:
+        raise AssertionError(f"[net] the spectator maps {len(mapped)} "
+                             f"entities of {len(interest)} in its interest")
+    frame, snap_pkt = down_a.last["TransientSnapshot"]
+    srv_pos, srv_orn = sent_at[frame]
+    ents = torch.as_tensor(np.asarray(snap_pkt.snapshot.entities,
+                                      np.int64), device=dev)
+    locs = torch.as_tensor([spectator.entity_map.to_local(int(e))
+                            for e in snap_pkt.snapshot.entities],
+                           dtype=torch.long, device=dev)
+    if not (torch.equal(spec_world.state.pos[locs], srv_pos[ents])
+            and torch.equal(spec_world.state.orn[locs], srv_orn[ents])):
+        raise AssertionError("[net] the spectator's transforms differ from "
+                             f"the server's at frame {frame}")
+    # the player's sphere on the server, steered by a recorded input
+    srv_ball = server.clients[2].entity_map.to_local(ball)
+    got = float(world.state.user["steer"][srv_ball])
+    if not (bool(world.state.valid[srv_ball])
+            and got in set(map(float, steer.values()))):
+        raise AssertionError(f"[net] the player's steer on the server is "
+                             f"{got}")
+    for w, label in ((world, "net server"), (spec_world, "net spectator"),
+                     (play_world, "net player")):
+        _check_world(w, label)
+    secs = NET_FRAMES * dt
+    inst = down_a.handle_s.get("EntityEntered", 0.0)
+    out["server"] = dict(
+        frames=NET_FRAMES, step_ms=1e3 * statistics.mean(step_s),
+        update_ms=1e3 * statistics.mean(update_s),
+        update_ms_max=1e3 * max(update_s),
+        frame_ms=1e3 * (statistics.mean(step_s) + statistics.mean(update_s)),
+        loop_s=loop_s, client_worlds_build_s=build_s,
+        bytes_per_s={"spectator": down_a.sent_bytes / secs,
+                     "player": down_b.sent_bytes / secs},
+        upload_bytes_per_s={"spectator": up_a.sent_bytes / secs,
+                            "player": up_b.sent_bytes / secs},
+        decoded=sum(c.decoded for c in chans),
+        spectator_mapped=len(mapped), spectator_instantiate_s=inst,
+        player_mapped=len(player.entity_map),
+        equal_at_frame=frame, equal_entities=len(ents),
+        replays=replays, replay_timeouts=timeouts,
+        replay_steps=replay_steps, steer_on_server=got,
+        varint_encoder=varint_encoder())
+    log(f"[net] {NET_FRAMES} frames in {loop_s:.2f} s: server "
+        f"{out['server']['frame_ms']:.2f} ms/frame (step "
+        f"{out['server']['step_ms']:.2f}, update() "
+        f"{out['server']['update_ms']:.2f}, max {1e3 * max(update_s):.2f});"
+        f" to the spectator {down_a.sent_bytes / secs / 1e6:.3f} MB/s, to "
+        f"the player {down_b.sent_bytes / secs / 1e6:.3f} MB/s; spectator "
+        f"maps {len(mapped)} entities, instantiated in {inst:.3f} s, equal "
+        f"to the server's bit for bit on {len(ents)} at frame {frame}; "
+        f"player maps {len(player.entity_map)}; replays {replays} "
+        f"({timeouts} timed out, {replay_steps} steps); steer {got}; "
+        f"{sum(c.decoded for c in chans)} packets decoded; varint encoder "
+        f"{varint_encoder()}; client worlds built in {build_s:.2f} s")
+    del spec_world, play_world, spectator, player, server
+
+    # 11c. the async worker on the same world
+    streams = set()
+    main_stream = torch.cuda.current_stream(dev).cuda_stream
+    sim = AsyncSimulation(world, pre_step_callback=lambda w: streams.add(
+        torch.cuda.current_stream(dev).cuda_stream))
+    st = world.state
+    # host read: the bodies to push and the ray grid over the pile
+    pos = st.pos.cpu().numpy()
+    dyn = np.nonzero(st.is_dynamic.cpu().numpy())[0]
+    rng = np.random.default_rng(11)
+    push = rng.choice(dyn, ASYNC_IMPULSES, replace=False)
+    lo, hi = pos[dyn][:, [0, 2]].min(0), pos[dyn][:, [0, 2]].max(0)
+    top = float(pos[dyn][:, 1].max())
+    gx = np.linspace(lo[0], hi[0], N_RAYS_SIDE)
+    gz = np.linspace(lo[1], hi[1], N_RAYS_SIDE)
+    answers = []
+    sim.start()
+    t0 = time.perf_counter()
+    for k, e in enumerate(push):
+        sim.apply_impulse(int(e), (0.0, 0.5 + 0.01 * k, 0.0))
+    for x in gx:
+        for z in gz:
+            sim.raycast_async((x, top + 1.0, z), (x, -1.0, z),
+                              answers.append)
+    time.sleep(max(0.0, ASYNC_SECONDS - (time.perf_counter() - t0)))
+    alive, steps_done = sim.alive, sim.steps_done
+    elapsed = time.perf_counter() - t0
+    sim.stop()
+    if sim.error is not None:
+        raise sim.error
+    if not (alive and steps_done > 0):
+        raise AssertionError(f"[net] async worker alive {alive}, "
+                             f"{steps_done} steps")
+    if len(answers) != N_RAYS_SIDE ** 2:
+        raise AssertionError(f"[net] {len(answers)} of {N_RAYS_SIDE ** 2} "
+                             "raycasts answered")
+    if streams != {main_stream}:
+        raise AssertionError(f"[net] the worker stepped on streams "
+                             f"{streams}, the main thread uses {main_stream}")
+    _check_world(world, "net async")
+    hits = sum(a["entity"] >= 0 for a in answers)
+    out["async"] = dict(seconds=elapsed, steps=steps_done,
+                        steps_per_s=steps_done / elapsed, target_hz=60.0,
+                        impulses=ASYNC_IMPULSES, rays=len(answers),
+                        ray_hits=hits, raycast_batches=sim.raycast_batches)
+    log(f"[net] async worker: {steps_done} steps in {elapsed:.2f} s = "
+        f"{steps_done / elapsed:.3f} steps/s (target 60); "
+        f"{ASYNC_IMPULSES} impulses; {len(answers)} rays answered in "
+        f"{sim.raycast_batches} batches, {hits} hits; one stream")
+
+    # 11d. presentation at 30 fps over 60 Hz steps
+    pres = Presentation(world)
+    t_start = float(world.state.sim_time)
+    calls = []
+    for k in range(PRES_FRAMES):
+        render = t_start + k / 30.0
+        while float(world.state.sim_time) + dt <= render:
+            world.step(1)
+            pres.on_step()
+        pres.observe(render)
+        _sync()
+        t0 = time.perf_counter()
+        p, q = pres.transforms(render)
+        calls.append(time.perf_counter() - t0)
+        if not (np.isfinite(p).all() and np.isfinite(q).all()):
+            raise AssertionError(f"[net] presentation frame {k} not finite")
+    _check_world(world, "net presentation")
+    launches = _read_counts()
+    out["presentation"] = dict(
+        frames=PRES_FRAMES, transforms_ms=1e3 * statistics.mean(calls),
+        transforms_ms_max=1e3 * max(calls),
+        delay_s=pres.presentation_delay)
+    log(f"[net] presentation: {PRES_FRAMES} frames, transforms() "
+        f"{1e3 * statistics.mean(calls):.3f} ms a call (max "
+        f"{1e3 * max(calls):.3f}) at {world.state.capacity} bodies; "
+        f"launches over the phase {launches}")
+    for name in ("solve_iteration", "ngs_iteration", "restitution_iteration",
+                 "relvel", "unified_features", "pair_order",
+                 "collide_support"):
+        if not launches[name]:
+            raise AssertionError(f"[net] {name} never launched")
+    if launches["count_overlaps"]:
+        raise AssertionError("[net] K5 launched on the step")
+    out["launches"] = launches
+    return out, launches
+
+
 def run_alone(phases, dev) -> None:
-    """``--phases``: phases 8, 9 and 10 alone, in the order given, after
-    the build; their summaries are printed, the result lines are not."""
+    """``--phases``: phases 8, 9, 10 and 11 alone, in the order given,
+    after the build; their summaries are printed, the result lines are
+    not."""
     out = {}
     for p in phases:
         if p == 8:
@@ -2484,6 +2890,8 @@ def run_alone(phases, dev) -> None:
             del bw
         elif p == 10:
             out[10], _ = paged_path(dev)
+        elif p == 11:
+            out[11], _ = networked_path(dev)
         else:
             raise SystemExit(f"--phases: phase {p} does not run alone")
     log(json.dumps(out, default=str))
@@ -2493,8 +2901,8 @@ def run(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="",
-                    help="comma-separated phases among 8, 9 and 10 to run "
-                         "alone after the build (a rehearsal: no result "
+                    help="comma-separated phases among 8, 9, 10 and 11 to "
+                         "run alone after the build (a rehearsal: no result "
                          "lines)")
     args = ap.parse_args(argv)
     import torch
@@ -2617,6 +3025,10 @@ def run(argv=None) -> int:
     # 10. PagedTerrain streaming on the card
     paged, paged_launches = paged_path(dev)
 
+    # 11. the networked path on the 10k pile: checkpoint resume, a server
+    #     and two clients over bytes, the async worker, presentation
+    networked, net_launches = networked_path(dev)
+
     kernels = []
     for name, r in rand.items():
         kernels.append(dict(
@@ -2628,6 +3040,7 @@ def run(argv=None) -> int:
             bench_launches=bench_launches[name],
             asleep_launches=asleep_launches[name],
             paged_launches=paged_launches[name],
+            networked_launches=net_launches[name],
             max_abs_err=max(r["max_abs_err"], real[name]["max_abs_err"],
                             rag_real[name]["max_abs_err"],
                             ter_real[name]["max_abs_err"],
@@ -2667,6 +3080,7 @@ def run(argv=None) -> int:
         bench_launches=bench_launches[K4["name"]],
         asleep_launches=asleep_launches[K4["name"]],
         paged_launches=paged_launches[K4["name"]],
+        networked_launches=net_launches[K4["name"]],
         max_abs_err=k4_err, tol=k4_tol,
         within_tol=min(r["within_tol"] for r in k4_all),
         equal_pairs=sum(r["equal_pairs"] for r in k4_all),
@@ -2708,6 +3122,7 @@ def run(argv=None) -> int:
                 bench_launches=bench_launches[step],
                 asleep_launches=asleep_launches[step],
                 paged_launches=paged_launches[step],
+                networked_launches=net_launches[step],
                 max_abs_err=k4_err if step == "collide_support" else 0.0,
                 tol=k4_tol if step == "collide_support"
                 else "bit-equal to the plain version",
@@ -2727,6 +3142,7 @@ def run(argv=None) -> int:
         bench_launches=bench_launches["count_overlaps"],
         asleep_launches=asleep_launches["count_overlaps"],
         paged_launches=paged_launches["count_overlaps"],
+        networked_launches=net_launches["count_overlaps"],
         max_abs_err=max(r["max_abs_err"] for r in k5_all),
         tol="exact", ms=k5_rand["ms"], plain_ms=k5_rand["plain_ms"],
         bound_ms=k5_rand["bound_ms"], bound_us=k5_rand["bound_ms"] * 1e3,
@@ -2744,7 +3160,7 @@ def run(argv=None) -> int:
                     "terrain": terrain,
                     "terrain_kernels": {"solver": ter_real, "k4": k4_ter},
                     "bench": bench, "asleep_kernels": asleep_real,
-                    "paged": paged}))
+                    "paged": paged, "networked": networked}))
     log(f"gpu: {line}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -42,7 +42,8 @@ DTYPE = torch.float32
 class Settings:
     """Runtime settings (reference: include/edyn/context/settings.hpp:21-58).
     Field for field the same as ``edyn_tpu.Settings``, plus
-    ``cone_max_violation`` and ``mesh_triangle_cull``."""
+    ``cone_max_violation``, ``mesh_triangle_cull`` and
+    ``pool_convex_rows`` (``PORT_ONLY``)."""
     fixed_dt: float = 1.0 / 60.0
     gravity: tuple = GRAVITY_EARTH
     max_steps_per_update: int = 10
@@ -72,6 +73,18 @@ class Settings:
     # collision threshold, as the C++ reference's static triangle tree
     # does: a departure from the JAX package.
     mesh_triangle_cull: bool = False
+    # A network client spawns the bodies a server announces
+    # (``EntityEntered``) from their component pools. The JAX client copies
+    # the columns but leaves the slot's convex-table row as it was, so a
+    # box or cylinder entered that way collides as whatever shape the slot
+    # held before, usually a point (ROADMAP R13). False keeps that, the JAX
+    # package's client. True writes the row from the entered shape (a
+    # polyhedron's from the client's own polyhedron table at the entered
+    # ``shape_index``): a departure from the JAX package.
+    pool_convex_rows: bool = False
+
+    PORT_ONLY = ("cone_max_violation", "mesh_triangle_cull",
+                 "pool_convex_rows")
 
     def replace(self, **kw) -> "Settings":
         return dataclasses.replace(self, **kw)

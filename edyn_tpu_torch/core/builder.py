@@ -66,6 +66,15 @@ class RigidBodyDef:
     networked: bool = False
 
 
+def torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a torch or numpy dtype (None: float32)."""
+    if dtype is None:
+        return torch.float32
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.zeros(0, np.dtype(dtype))).dtype
+
+
 def _qrot(q, v):
     qv = q[:3]
     t = 2.0 * np.cross(qv, v)
@@ -89,6 +98,27 @@ class WorldBuilder:
         self.exclusions: list[tuple[int, int]] = []
         self.joints: list[dict] = []
         self.material_mixes: list[tuple[int, int, Material]] = []
+        # user components: name -> (shape, torch dtype, default)
+        self.user_components: dict[str, tuple] = {}
+        self.user_component_policies: dict[str, str] = {}
+
+    def register_component(self, name: str, shape=(), dtype=None,
+                           default=0.0, replicate=None):
+        """Register a user component column [N, *shape] that rides the
+        state through the step, replicates in snapshots and can take
+        input-history writes (reference: register_external_components,
+        include/edyn/replication/register_external.hpp:28-67). ``dtype`` is
+        a torch or numpy dtype (default float32).
+
+        ``replicate``: None (local only) or a ``replication.exporter``
+        policy: "transient", "reliable" or "input"."""
+        from ..replication.snapshot import COMPONENT_COLUMNS
+        if name in COMPONENT_COLUMNS:
+            raise ValueError(f"{name!r} is a built-in component")
+        self.user_components[name] = (tuple(shape), torch_dtype(dtype),
+                                      default)
+        if replicate is not None:
+            self.user_component_policies[name] = replicate
 
     def make_rigidbody(self, def_: RigidBodyDef) -> int:
         """Returns the body's slot index."""
@@ -343,7 +373,11 @@ class WorldBuilder:
             compound=compound, mix_table=mix,
             step_count=scalar(0, torch.int32),
             sim_time=scalar(0.0, torch.float32),
-            overflow=torch.zeros((5,), dtype=torch.int32, device=device))
+            overflow=torch.zeros((5,), dtype=torch.int32, device=device),
+            user={name: torch.full((N,) + shape, default, dtype=dt,
+                                   device=device)
+                  for name, (shape, dt, default)
+                  in self.user_components.items()})
         amin, amax = compute_aabbs(ws.shape_type, ws.origin_pos(), ws.orn,
                                    ws.convex, ws.shape_index, ws.mesh)
         return dataclasses.replace(ws, aabb_min=amin, aabb_max=amax)

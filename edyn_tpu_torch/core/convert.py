@@ -3,7 +3,7 @@
 ``tree`` is a nested dict of numpy arrays with the field names of
 ``edyn_tpu.core.state.WorldState`` (sub-tables ``contacts``, ``joints``,
 ``poly``, ``mesh``, ``convex``, ``compound``, ``mix_table`` as nested
-dicts), in the JAX package's
+dicts, and ``user``, the user components by name), in the JAX package's
 dtypes: pair keys uint32 with uint32 max as the invalid key, collision
 group/mask uint32, float32 floats. The caller flattens the JAX state; this
 module never sees a JAX type.
@@ -31,7 +31,10 @@ _KEY_FIELDS = ("key", "sort_key")
 _BIT_FIELDS = ("group", "mask")
 
 
-def _to_tensor(name, x, device):
+def leaf_to_tensor(name, x, device):
+    """One leaf of the tree as the port's tensor: ``name`` is its field
+    name (the key and bit fields change representation; None for a user
+    component)."""
     x = np.asarray(x)
     if name in _KEY_FIELDS:
         k = x.astype(np.int64)
@@ -44,7 +47,9 @@ def _to_tensor(name, x, device):
     return torch.as_tensor(np.array(x, order="C"), device=device)
 
 
-def _to_numpy(name, t):
+def leaf_to_numpy(name, t):
+    """One tensor as the tree's numpy leaf, in the JAX package's dtype
+    (inverse of ``leaf_to_tensor``)."""
     x = t.detach().cpu().numpy()
     if name in _KEY_FIELDS:
         k = np.where(x == INVALID_KEY, np.int64(JAX_INVALID_KEY), x)
@@ -57,6 +62,8 @@ def _to_numpy(name, t):
 def _check_keys(cls, tree):
     want = {f.name for f in dataclasses.fields(cls)}
     got = set(tree)
+    if cls is WorldState:
+        got.add("user")  # optional: no user components
     if want != got:
         raise KeyError(f"{cls.__name__}: missing {sorted(want - got)}, "
                        f"unexpected {sorted(got - want)}")
@@ -70,13 +77,16 @@ def state_from_numpy(tree: dict, device=None) -> WorldState:
     _check_keys(WorldState, tree)
     kw = {}
     for name, val in tree.items():
-        if name in _SUBTABLES:
+        if name == "user":
+            kw[name] = {k: leaf_to_tensor(None, v, device)
+                        for k, v in val.items()}
+        elif name in _SUBTABLES:
             cls = _SUBTABLES[name]
             _check_keys(cls, val)
-            kw[name] = cls(**{k: _to_tensor(k, v, device)
+            kw[name] = cls(**{k: leaf_to_tensor(k, v, device)
                               for k, v in val.items()})
         else:
-            kw[name] = _to_tensor(name, val, device)
+            kw[name] = leaf_to_tensor(name, val, device)
     return WorldState(**kw)
 
 
@@ -85,9 +95,11 @@ def state_to_numpy(state: WorldState) -> dict:
     out = {}
     for f in dataclasses.fields(state):
         val = getattr(state, f.name)
-        if f.name in _SUBTABLES:
-            out[f.name] = {g.name: _to_numpy(g.name, getattr(val, g.name))
+        if f.name == "user":
+            out[f.name] = {k: leaf_to_numpy(None, v) for k, v in val.items()}
+        elif f.name in _SUBTABLES:
+            out[f.name] = {g.name: leaf_to_numpy(g.name, getattr(val, g.name))
                            for g in dataclasses.fields(val)}
         else:
-            out[f.name] = _to_numpy(f.name, val)
+            out[f.name] = leaf_to_numpy(f.name, val)
     return out

@@ -30,10 +30,10 @@ def find_free_slot(state: WorldState) -> int:
     return int(free[0])
 
 
-def set_rows(table, i: int, **values):
+def set_rows(table, i, **values):
     """A copy of ``table`` (a dataclass of tensors) whose columns named in
-    ``values`` are new tensors with row ``i`` set; the other columns are
-    shared."""
+    ``values`` are new tensors with row ``i`` (an index or an index
+    tensor) set; the other columns are shared."""
     out = {}
     for name, v in values.items():
         col = getattr(table, name).clone()
@@ -152,38 +152,53 @@ def update_convex_row(cx, i: int, stype: int, sparams, data=None):
     table. The shape must fit the world's padded vertex, face and edge
     widths."""
     from ..shapes.convex import shape_convex_data
-    v, r, f, e, dr, da = (data if data is not None
-                          else shape_convex_data(stype, sparams))
+    return update_convex_rows(cx, [i], [data if data is not None
+                                        else shape_convex_data(stype,
+                                                               sparams)])
+
+
+def update_convex_rows(cx, rows, datas):
+    """Bodies' unified convex data (``shape_convex_data`` tuples, one per
+    row) written into copies of the table's columns, one write a column."""
     V = cx.verts.shape[1]
     F = cx.face_normals.shape[1]
     E = cx.edge_dirs.shape[1]
-    if len(v) > V or len(f) > F or len(e) > E:
-        raise ValueError("the shape exceeds the world's convex table "
-                         "widths: build the world with at least one shape "
-                         "of this complexity")
-    pad_v = np.zeros((V, 3), np.float32)
-    pad_v[:len(v)] = v
-    if len(v):
-        pad_v[len(v):] = v[0]
-    vm = np.zeros((V,), bool)
-    vm[:len(v)] = True
-    pad_f = np.zeros((F, 3), np.float32)
-    pad_f[:len(f)] = f
-    fm = np.zeros((F,), bool)
-    fm[:len(f)] = True
-    pad_e = np.zeros((E, 3), np.float32)
-    pad_e[:len(e)] = e
-    em = np.zeros((E,), bool)
-    em[:len(e)] = True
+    K = len(rows)
+    pad_v = np.zeros((K, V, 3), np.float32)
+    vm = np.zeros((K, V), bool)
+    rad = np.zeros((K,), np.float32)
+    pad_f = np.zeros((K, F, 3), np.float32)
+    fm = np.zeros((K, F), bool)
+    pad_e = np.zeros((K, E, 3), np.float32)
+    em = np.zeros((K, E), bool)
+    dr_ = np.zeros((K,), np.float32)
+    da_ = np.zeros((K, 3), np.float32)
+    for k, (v, r, f, e, dr, da) in enumerate(datas):
+        if len(v) > V or len(f) > F or len(e) > E:
+            raise ValueError("the shape exceeds the world's convex table "
+                             "widths: build the world with at least one "
+                             "shape of this complexity")
+        pad_v[k, :len(v)] = v
+        if len(v):
+            pad_v[k, len(v):] = v[0]
+        vm[k, :len(v)] = True
+        rad[k] = r
+        pad_f[k, :len(f)] = f
+        fm[k, :len(f)] = True
+        pad_e[k, :len(e)] = e
+        em[k, :len(e)] = True
+        dr_[k] = dr
+        da_[k] = np.asarray(da, np.float64)
+    idx = torch.as_tensor(np.asarray(rows, np.int64), device=cx.verts.device)
     return set_rows(
-        cx, i, verts=pad_v, vert_mask=vm, radius=float(r),
-        face_normals=pad_f, face_mask=fm, edge_dirs=pad_e, edge_mask=em,
-        disc_r=float(dr),
-        disc_axis=np.asarray(da, np.float64).astype(np.float32))
+        cx, idx, verts=pad_v, vert_mask=vm, radius=rad, face_normals=pad_f,
+        face_mask=fm, edge_dirs=pad_e, edge_mask=em, disc_r=dr_,
+        disc_axis=da_)
 
 
-def destroy_rigidbody(state: WorldState, i: int) -> WorldState:
-    """reference: clear_rigidbody (src/edyn/util/rigidbody.cpp)."""
+def destroy_rigidbody(state: WorldState, i) -> WorldState:
+    """reference: clear_rigidbody (src/edyn/util/rigidbody.cpp); ``i`` is
+    a slot or an index tensor of slots."""
     return set_rows(
         state, i, valid=False, bp_aabb_min=1e30, bp_aabb_max=-1e30,
         com=0.0, shape_type=int(ShapeType.NONE), roll_axis=0.0,

@@ -217,6 +217,10 @@ class WorldState:
     overflow: torch.Tensor      # [5] int32: broadphase pairs, narrowphase
                                 # candidates, contact rows, sweep alarms,
                                 # manifold slots
+    # user components (``WorldBuilder.register_component``): name -> [N,...]
+    # columns that ride the step untouched, replicate over the wire and
+    # take input-history writes
+    user: dict = dataclasses.field(default_factory=dict)
 
     @property
     def capacity(self) -> int:

@@ -68,6 +68,9 @@ class World:
         # dropped floor contacts for tens of steps and bodies fell through
         # the floor.
         self.auto_grow = True
+        # replication policies of the user components (make_world copies
+        # the builder's; replication.exporter.policy_from_world reads them)
+        self.user_component_policies: dict = {}
 
     @property
     def device(self):
@@ -644,4 +647,6 @@ def make_world(builder: WorldBuilder, settings: Settings = Settings(),
         builder.default_gravity = np.asarray(settings.gravity, np.float64)
     state = builder.finalize(capacity=capacity, max_manifolds=max_pairs,
                              max_joints=max_joints, device=dev)
-    return World(state, settings, derive_meta(state, max_pairs))
+    world = World(state, settings, derive_meta(state, max_pairs))
+    world.user_component_policies = dict(builder.user_component_policies)
+    return world

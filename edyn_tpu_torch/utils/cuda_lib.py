@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 import torch
@@ -34,6 +35,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               # plain version does (parity first)
               "-fmad=false"]
 _libs: dict = {}
+# one build and load at a time: a client's extrapolation thread or an
+# AsyncSimulation can make the first launch of a library
+_load_lock = threading.Lock()
+_count_lock = threading.Lock()  # launch counts from several threads
 # compiler output of each source built by this process ({name: log})
 BUILD_LOGS: dict = {}
 
@@ -105,13 +110,17 @@ def load(name: str, signatures: dict):
     entry point's argument types set (pointers and the stream as
     ``c_void_p``; every entry point returns a ``cudaError_t`` as int)."""
     lib = _libs.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(str(build_libraries([name])[name]))
-        for fn_name, args in signatures.items():
-            fn = getattr(lib, fn_name)
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
-        _libs[name] = lib
+    if lib is not None:
+        return lib
+    with _load_lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build_libraries([name])[name]))
+            for fn_name, args in signatures.items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
+            _libs[name] = lib
     return lib
 
 
@@ -145,4 +154,5 @@ def launched(counts: dict, name: str, rc: int):
     """Raise if the launch failed; else count it in ``counts[name]``."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
-    counts[name] += 1
+    with _count_lock:
+        counts[name] += 1

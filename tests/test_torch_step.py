@@ -73,9 +73,13 @@ def jtree(state) -> dict:
     out = {}
     for name in PORT_FIELDS:
         v = getattr(state, name)
-        out[name] = ({g.name: np.asarray(getattr(v, g.name))
-                      for g in dataclasses.fields(v)}
-                     if dataclasses.is_dataclass(v) else np.asarray(v))
+        if isinstance(v, dict):  # the user components
+            out[name] = {k: np.asarray(x) for k, x in v.items()}
+        elif dataclasses.is_dataclass(v):
+            out[name] = {g.name: np.asarray(getattr(v, g.name))
+                         for g in dataclasses.fields(v)}
+        else:
+            out[name] = np.asarray(v)
     return out
 
 
@@ -92,9 +96,13 @@ def to_jax(tree: dict, like):
     kw = {}
     for name, val in tree.items():
         cur = getattr(like, name)
-        kw[name] = (dataclasses.replace(cur, **{
-            k: jnp.asarray(v) for k, v in val.items()})
-            if isinstance(val, dict) else jnp.asarray(val))
+        if isinstance(cur, dict):  # the user components
+            kw[name] = {k: jnp.asarray(v) for k, v in val.items()}
+        elif isinstance(val, dict):
+            kw[name] = dataclasses.replace(cur, **{
+                k: jnp.asarray(v) for k, v in val.items()})
+        else:
+            kw[name] = jnp.asarray(val)
     return dataclasses.replace(like, **kw)
 
 
