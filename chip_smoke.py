@@ -117,6 +117,22 @@ prints no result):
    queued raycasts; ``Presentation`` renders 30 frames at 30 fps. Every
    thread alive and on the main thread's stream, every world's counters
    zero; K1-K4 launched, K5 not.
+12. Float64 and the sweep broadphase. 12a: phase 3's path under
+   ``torch.set_default_dtype(torch.float64)`` (the port's f64 mode), 120
+   steps and ``suggest_max_pairs`` once, launch counts read as in phase 3:
+   K1-K5's double entries (``*_f64``) launched, the float entries not at
+   all; every state leaf float64, every counter int32 and zero, phase 3's
+   pile checks; steps/s beside phase 3's. 12b: the double entries against
+   their plain float64 versions on phase 2's random inputs at f64 and on a
+   real step of that pile (K1-K3b max abs error 0, K4 equal on every pair
+   with its pre-pass and order, K5's counts equal, its edge cases too),
+   timed L2-cold against bounds at the float64 rate. 12c: phase 5 at
+   float64. 12d: the landed 10k pile of phase 3 (float32) stepped 60 steps
+   under ``broadphase_mode="sweep"`` and under ``"dense"`` from the same
+   state, the pair keys equal at every step, then the two broadphases
+   alone timed on that state; a 30-step drop of ``mixed_pile(65_531)``
+   (65,536 slots, the pair-key limit) under "sweep", its keys equal to
+   ``find_pairs``' at every step that grew nothing, both broadphases timed.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -133,11 +149,13 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-# H100 SXM peaks (NVIDIA data sheet): device memory rate and float32 rate
-# outside the tensor cores. The bound of a kernel is the larger of its bytes
-# over the memory rate and its operations over the float32 rate.
+# H100 SXM peaks (NVIDIA data sheet): device memory rate, and the float32
+# and float64 rates outside the tensor cores. The bound of a kernel is the
+# larger of its bytes over the memory rate and its operations over the rate
+# of its scalar type.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+FP64_FLOPS_PER_S = 34e12
 L2_BYTES = 50 * 2**20
 
 # Per row: table rows each kernel reads (see solver_kernels.ROWS_READ), the
@@ -352,8 +370,11 @@ def max_err(name, got, want) -> float:
     return worst
 
 
-def check_kernels(inp, with_sr: bool, label: str) -> dict:
-    """Hold every kernel against its plain version; time both.
+def check_kernels(inp, with_sr: bool, label: str,
+                  exact: bool = False) -> dict:
+    """Hold every kernel against its plain version; time both. With
+    ``exact`` the two must agree to the bit (max abs error 0), else within
+    ``TOL``. The bytes and the operation rate follow the inputs' dtype.
 
     ``ms`` and ``plain_ms`` are L2-cold: the graph cycles through copies of
     the inputs that together move at least three times the L2's size, so
@@ -363,12 +384,16 @@ def check_kernels(inp, with_sr: bool, label: str) -> dict:
     import torch
     from edyn_tpu_torch.dynamics import solver_kernels as sk
     C, Rp = inp["tbl"].shape
+    es, rate = inp["tbl"].element_size(), flops_per_s(inp["tbl"].dtype)
     out = {}
     for name, (kern, plain) in kernel_calls(inp, with_sr).items():
         err = max_err(name, kern(), plain())
+        if exact and err != 0.0:
+            raise AssertionError(f"[{label}] {name} differs from its plain "
+                                 f"version by {err}, 0 required")
         torch.cuda.synchronize()
         _, extra_in, n_out, flops = KERNELS[name]
-        nbytes = 4 * Rp * (sk.rows_read(name, with_sr) + extra_in + n_out)
+        nbytes = es * Rp * (sk.rows_read(name, with_sr) + extra_in + n_out)
         n_sets = max(2, -(-3 * L2_BYTES // nbytes))
         sets = [inp] + [{k: v.clone() for k, v in inp.items()}
                         for _ in range(n_sets - 1)]
@@ -379,14 +404,17 @@ def check_kernels(inp, with_sr: bool, label: str) -> dict:
         warm_ms = device_ms([kern])
         per_call = call_ms(kern, 20)
         ops = Rp * (FLOPS_K1[with_sr] if flops is None else flops)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS_PER_S
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
         out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          warm_ms=warm_ms, call_ms=per_call,
                          bound_ms=1e3 * max(t_bytes, t_ops),
                          bound_by="bytes" if t_bytes >= t_ops
-                         else "operations", bytes=nbytes, C=C, Rp=Rp)
-        log(f"[{label}] {name}: C={C} Rp={Rp} max_abs_err={err:.3g} "
-            f"(tol {TOL} x (1+|plain|)); device {ms * 1e3:.2f} us L2-cold "
+                         else "operations", bytes=nbytes, C=C, Rp=Rp,
+                         dtype=str(inp["tbl"].dtype))
+        log(f"[{label}] {name}: {inp['tbl'].dtype} C={C} Rp={Rp} "
+            f"max_abs_err={err:.3g} "
+            f"({'0 required' if exact else f'tol {TOL} x (1+|plain|)'}); "
+            f"device {ms * 1e3:.2f} us L2-cold "
             f"({n_sets} input sets), {warm_ms * 1e3:.2f} us L2-warm; plain "
             f"{plain_ms * 1e3:.2f} us; bound "
             f"{out[name]['bound_ms'] * 1e3:.2f} us ({nbytes / 1e6:.2f} MB); "
@@ -425,8 +453,14 @@ def count_ops(fn):
     return sum(by_op.values()), by_op
 
 
-def bound(nbytes: float, ops: float) -> dict:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS_PER_S
+def flops_per_s(dtype) -> float:
+    """The card's peak rate for operations on ``dtype``."""
+    import torch
+    return FP64_FLOPS_PER_S if dtype == torch.float64 else FP32_FLOPS_PER_S
+
+
+def bound(nbytes: float, ops: float, rate: float = FP32_FLOPS_PER_S) -> dict:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
     return dict(bound_ms=1e3 * max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=nbytes, ops=ops)
@@ -489,9 +523,11 @@ def contract_stats(got, pv_ref, d_ref, n_ref) -> dict:
                 shallow_count_within_1=count_ok)
 
 
-def build_info(source: str, kernel: str) -> dict:
+def build_info(source: str, kernel: str, scalar: str = "float") -> dict:
     """Registers, stack frame and spills of ``kernel`` in ``source``'s build,
-    from ``nvcc -Xptxas -v`` (empty when this process did not build it)."""
+    from ``nvcc -Xptxas -v`` (empty when this process did not build it); of
+    its ``scalar`` ("float" or "double") instantiation where it is a
+    template."""
     import re
     from edyn_tpu_torch.utils import cuda_lib
     info, cur = {}, None
@@ -500,7 +536,9 @@ def build_info(source: str, kernel: str) -> dict:
         if m:
             cur = m.group(1)
             continue
-        if cur is None or not re.search(f"{len(kernel)}{kernel}[EI]", cur):
+        code = "d" if scalar == "double" else "f"
+        if cur is None or not re.search(
+                f"{len(kernel)}{kernel}(E|I{code}E)", cur):
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
@@ -513,9 +551,10 @@ def build_info(source: str, kernel: str) -> dict:
     return info
 
 
-def kernel_times(fns, names) -> dict:
+def kernel_times(fns, names, scalar: str = "float") -> dict:
     """Mean device time (us) per launch of each kernel in ``names`` while
-    ``fns`` run once each, from ``torch.profiler`` (device events only)."""
+    ``fns`` run once each, from ``torch.profiler`` (device events only);
+    a template kernel by its ``scalar`` instantiation (``name<float>``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -535,7 +574,7 @@ def kernel_times(fns, names) -> dict:
         if e.device_type == DeviceType.CPU or not dev_us(e):
             continue
         for n in names:
-            if f"{n}(" in e.key:
+            if f"{n}(" in e.key or f"{n}<{scalar}>" in e.key:
                 out[n] = dev_us(e) / e.count
     return out
 
@@ -614,9 +653,10 @@ def check_unified(tbl, ka, kb, dims, rim: bool, label: str,
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"[{label}] K4 output not finite")
     K = len(ka)
+    es, rate = tbl.element_size(), flops_per_s(tbl.dtype)
+    ibits = torch.int32 if es == 4 else torch.int64
     equal = (got == want).reshape(K, -1).all(-1)
-    bits = (got.view(torch.int32) == want.view(torch.int32)).reshape(
-        K, -1).all(-1)
+    bits = (got.view(ibits) == want.view(ibits)).reshape(K, -1).all(-1)
     d = (got - want).abs().reshape(K, -1)
     share = float((d <= TOL * (1 + want.abs().reshape(K, -1))).all(-1)
                   .float().mean())
@@ -627,7 +667,7 @@ def check_unified(tbl, ka, kb, dims, rim: bool, label: str,
                              f"{bad}), max abs {float(d.max())}")
     feat, code, ids = uk.world_features(tbl, dims)
     feat_p, code_p, ids_p = uk.world_features_plain(tbl, dims)
-    if not (torch.equal(feat.view(torch.int32), feat_p.view(torch.int32))
+    if not (torch.equal(feat.view(ibits), feat_p.view(ibits))
             and torch.equal(code, code_p) and torch.equal(ids, ids_p)):
         raise AssertionError(f"[{label}] K4's pre-pass differs from its "
                              "plain version")
@@ -643,19 +683,20 @@ def check_unified(tbl, ka, kb, dims, rim: bool, label: str,
                within_tol=share, classes=len(torch.unique(bins)),
                valid_points=int((want[..., 11] > 0.5).sum()),
                contract_vs_plain=contract)
-    msg = (f"[{label}] K4 rim_axes={rim}: {K} pairs in {out['classes']} "
+    msg = (f"[{label}] K4 {tbl.dtype} rim_axes={rim}: {K} pairs in "
+           f"{out['classes']} "
            f"classes, equal to plain on {out['equal_pairs']}, bit-equal on "
            f"{out['bit_equal_pairs']}; pre-pass bit-equal, order equal; "
            f"{out['valid_points']} valid points")
     if timed:
         C, N = tbl.shape
         RS = uk.feature_row(dims)
-        nbytes = 4 * C * N + 16 * K + 4 * 48 * K
+        nbytes = es * C * N + 16 * K + es * 48 * K
         live, padded, _ = class_ops(tbl, ka, kb, dims, rim)
         tc = tbl.cpu()
         f_ops, _ = count_ops(lambda: uk.world_features_plain(tc, dims))
         o_ops = 4 * K   # two class lookups, a multiply and an add a pair
-        n_sets = max(2, -(-3 * L2_BYTES // (nbytes + 4 * RS * N)))
+        n_sets = max(2, -(-3 * L2_BYTES // (nbytes + es * RS * N)))
         sets = []
         for i in range(n_sets):
             t, a, b = ((tbl, ka, kb) if i == 0 else
@@ -704,25 +745,26 @@ def check_unified(tbl, ka, kb, dims, rim: bool, label: str,
             warm_ms=device_ms([kern]), call_ms=call_ms(kern, 20),
             kernel_us=kernel_times([lambda s=s: whole(s) for s in sets],
                                    [k for ks in K4_STEPS.values()
-                                    for k in ks]),
+                                    for k in ks],
+                                   "double" if es == 8 else "float"),
             n_sets=n_sets, live_ops=live, padded_ops=padded,
             ops_per_pair=live / K, padded_ops_per_pair=padded / K,
-            **bound(nbytes, live + f_ops + o_ops))
-        out["padded_bound_ms"] = bound(nbytes, padded + f_ops + o_ops)[
-            "bound_ms"]
-        main_bytes = 4 * RS * N + 24 * K + 192 * K
+            **bound(nbytes, live + f_ops + o_ops, rate))
+        out["padded_bound_ms"] = bound(nbytes, padded + f_ops + o_ops,
+                                       rate)["bound_ms"]
+        main_bytes = es * RS * N + 24 * K + es * 48 * K
         out["steps"] = {
-            "unified_features": dict(ms=out["features_ms"],
-                                     plain_ms=out["features_plain_ms"],
-                                     **bound(4 * (C + RS + 1) * N, f_ops)),
+            "unified_features": dict(
+                ms=out["features_ms"], plain_ms=out["features_plain_ms"],
+                **bound(es * (C + RS) * N + 4 * N, f_ops, rate)),
             "pair_order": dict(ms=out["order_ms"],
                                plain_ms=out["order_plain_ms"],
                                library_ms=out["order_library_ms"],
                                **bound(4 * N + 24 * K, o_ops)),
             "collide_support": dict(
                 ms=out["main_ms"], plain_ms=out["plain_ms"],
-                padded_bound_ms=bound(main_bytes, padded)["bound_ms"],
-                **bound(main_bytes, live))}
+                padded_bound_ms=bound(main_bytes, padded, rate)["bound_ms"],
+                **bound(main_bytes, live, rate))}
         del sets
         msg += (f"; all launches {out['ms'] * 1e3:.2f} us L2-cold ({n_sets} "
                 f"input sets: pre-pass {out['features_ms'] * 1e3:.2f}, pair "
@@ -811,9 +853,11 @@ def check_overlaps(amin, amax, valid, label: str, timed: bool) -> dict:
         raise AssertionError(f"[{label}] K5 counts {got}, plain {want}")
     N = amin.shape[0]
     out = dict(n=N, count=got, max_abs_err=float(abs(got - want)))
-    msg = f"[{label}] K5: {N} boxes, {got} overlapping pairs, equal to plain"
+    msg = (f"[{label}] K5 {amin.dtype}: {N} boxes, {got} overlapping pairs, "
+           "equal to plain")
     if timed:
-        nbytes = N * (3 * 4 + 3 * 4 + 1) + 8
+        es = amin.element_size()
+        nbytes = N * (3 * es + 3 * es + 1) + 8
         n_sets = max(2, -(-3 * L2_BYTES // nbytes))
         sets = [(amin.clone(), amax.clone(), valid.clone())
                 for _ in range(n_sets - 1)] + [(amin, amax, valid)]
@@ -827,7 +871,8 @@ def check_overlaps(amin, amax, valid, label: str, timed: bool) -> dict:
                    call_ms=call_ms(lambda: ov.count_overlaps(amin, amax,
                                                              valid), 20),
                    n_sets=n_sets,
-                   **bound(nbytes, K5_OPS_PER_PAIR * N * (N - 1) / 2))
+                   **bound(nbytes, K5_OPS_PER_PAIR * N * (N - 1) / 2,
+                           flops_per_s(amin.dtype)))
         del sets
         msg += (f"; device {out['ms'] * 1e3:.2f} us L2-cold ({n_sets} input "
                 f"sets), {out['warm_ms'] * 1e3:.2f} us L2-warm; plain "
@@ -838,12 +883,13 @@ def check_overlaps(amin, amax, valid, label: str, timed: bool) -> dict:
     return out
 
 
-def k5_edge_cases(dev) -> dict:
+def k5_edge_cases(dev, dtype=None) -> dict:
     """K5 on the inputs its exactness must survive, each count equal to the
     plain one: N below one tile (300) and not a multiple of it (1,000),
     every box invalid, infinite extents, 1e30 extents, and a row of boxes
-    whose faces touch exactly."""
+    whose faces touch exactly; the boxes at ``dtype`` (default float32)."""
     import torch
+    dtype = dtype or torch.float32
     inf = float("inf")
     cases = {"300 boxes": random_aabbs(300, 11, dev, side=6.0),
              "1,000 boxes": random_aabbs(1000, 12, dev, side=9.0)}
@@ -865,8 +911,8 @@ def k5_edge_cases(dev) -> dict:
         * torch.tensor([1.0, 0.0, 0.0], device=dev)
     cases["touching faces"] = (lo, lo + 1.0,
                                torch.ones(700, dtype=torch.bool, device=dev))
-    return {name: check_overlaps(a.contiguous(), b.contiguous(), v, name,
-                                 False)
+    return {name: check_overlaps(a.to(dtype).contiguous(),
+                                 b.to(dtype).contiguous(), v, name, False)
             for name, (a, b, v) in cases.items()}
 
 
@@ -1034,7 +1080,7 @@ def real_inputs(world):
     relv = sk.relvel_plain(tbl, g)
     restit = tbl[56:57]
     dyn = torch.cat([-relv * (1.0 + restit),
-                     ((tbl[55:56] > 0.5) & (relv < -0.005)).float()])
+                     ((tbl[55:56] > 0.5) & (relv < -0.005)).to(tbl.dtype)])
     return dict(tbl=tbl, imp=imp6.T.contiguous(),
                 imp3=imp6[:, :3].T.contiguous(), g=g,
                 dyn=dyn.contiguous()), rows.sA_n is not None
@@ -1076,9 +1122,9 @@ STEP_TOL = (("pos", 1e-3, 2e-3), ("orn", 1e-3, 2e-3), ("linvel", 1e-3, 5e-3))
 def _nudged(tree, seed=None, mask=None, ulps: int = 1, up: bool = True,
             field: str = "pos"):
     """A copy of a numpy state tree with body positions (or orientations,
-    ``field="orn"``) moved by ``ulps`` float32 ulps: those under ``mask``
-    all one way (``up`` or down), or, with a ``seed``, every body's each
-    component a random way."""
+    ``field="orn"``) moved by ``ulps`` ulps of their dtype: those under
+    ``mask`` all one way (``up`` or down), or, with a ``seed``, every
+    body's each component a random way."""
     import numpy as np
     val = tree[field]
     if seed is not None:
@@ -1088,10 +1134,10 @@ def _nudged(tree, seed=None, mask=None, ulps: int = 1, up: bool = True,
         rise = np.full(val.shape, up)
     new = val.copy()
     for _ in range(ulps):
-        new = np.where(rise, np.nextafter(new, np.float32(np.inf)),
-                       np.nextafter(new, np.float32(-np.inf)))
+        new = np.where(rise, np.nextafter(new, val.dtype.type(np.inf)),
+                       np.nextafter(new, val.dtype.type(-np.inf)))
     return dict(tree, **{field: np.where(mask[:, None], new, val).astype(
-        np.float32)})
+        val.dtype)})
 
 
 # A manifold whose point validity differs, or a point of which moved more
@@ -2872,10 +2918,429 @@ def networked_path(dev):
     return out, launches
 
 
+# Phase 12: the float64 mode and the sweep broadphase.
+F64_KERNELS = ("solve_iteration", "ngs_iteration", "restitution_iteration",
+               "relvel", "unified_features", "pair_order", "collide_support",
+               "count_overlaps")
+SWEEP_STEPS = 60        # steps of the landed 10k pile under each broadphase
+SWEEP_CALLS = 10        # broadphase calls timed on one state
+N_SWEEP_BIG = 65_531    # mixed_pile bodies: 65,536 slots, the key limit
+SWEEP_BIG_STEPS = 30    # the drop at 65,536 slots under "sweep"
+
+
+class default_dtype:
+    """PyTorch's default dtype set for a block (the port's f64 switch),
+    restored after it."""
+
+    def __init__(self, dtype):
+        self.dtype = dtype
+
+    def __enter__(self):
+        import torch
+        self.old = torch.get_default_dtype()
+        torch.set_default_dtype(self.dtype)
+
+    def __exit__(self, *exc):
+        import torch
+        torch.set_default_dtype(self.old)
+
+
+def _leaves(x, name="state"):
+    """(path, tensor) of every tensor of a state."""
+    import dataclasses
+    import torch
+    if isinstance(x, torch.Tensor):
+        yield name, x
+    elif isinstance(x, dict):
+        for k, v in x.items():
+            yield from _leaves(v, f"{name}[{k}]")
+    elif dataclasses.is_dataclass(x):
+        for f in dataclasses.fields(x):
+            yield from _leaves(getattr(x, f.name), f"{name}.{f.name}")
+
+
+def _read_counts_f64() -> dict:
+    from edyn_tpu_torch.collision.kernels import unified_kernel as uk
+    from edyn_tpu_torch.dynamics import solver_kernels as sk
+    from edyn_tpu_torch.ops import overlap_count as ov
+    return dict(sk.LAUNCHES_F64, **uk.LAUNCHES_F64, **ov.LAUNCHES_F64)
+
+
+def check_dtypes(st, label: str):
+    """Every float leaf float64; the counters int32 and zero."""
+    import torch
+    bad = [n for n, t in _leaves(st)
+           if t.is_floating_point() and t.dtype != torch.float64]
+    if bad:
+        raise AssertionError(f"[{label}] leaves not float64: {bad[:8]}")
+    for n in ("overflow", "step_count", "island_stable_steps"):
+        if getattr(st, n).dtype != torch.int32:
+            raise AssertionError(f"[{label}] {n} is "
+                                 f"{getattr(st, n).dtype}, int32 expected")
+    if bool((st.overflow != 0).any()):
+        raise AssertionError(f"[{label}] overflow counters "
+                             f"{st.overflow.tolist()}")
+
+
+def f64_path(n_bodies: int, steps: int, dev, f32_main: dict):
+    """12a: phase 3's main path under the float64 default dtype, then
+    ``suggest_max_pairs`` once; every launch count set to 0 before and read
+    after: K1-K5's double entries launched (K5 once), the float entries
+    not at all. Returns (world, f64 launches, summary)."""
+    import torch
+    import edyn_tpu_torch as et
+    from edyn_tpu_torch.ops import overlap_count as ov
+    from edyn_tpu_torch.utils.scenes import mixed_pile
+    with default_dtype(torch.float64):
+        t0 = time.perf_counter()
+        builder, _ = mixed_pile(n_bodies=n_bodies, seed=0)
+        world = et.make_world(builder, et.Settings(), device=dev)
+        torch.cuda.synchronize()
+        check_dtypes(world.state, "f64 built")
+        log(f"[f64] built {n_bodies} bodies in "
+            f"{time.perf_counter() - t0:.2f} s")
+        _reset_counts()
+        t0 = time.perf_counter()
+        first = max(1, steps - 20)
+        world.step_n(first)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        world.step_n(steps - first)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        budget = ov.suggest_max_pairs(world.state)
+        f32c, f64c = _read_counts(), _read_counts_f64()
+    st = world.state
+    check_dtypes(st, "f64 stepped")
+    if any(f32c.values()):
+        raise AssertionError(f"[f64] float entries launched: {f32c}")
+    per_step = max_launches_per_step(world.settings)
+    for name, n in f64c.items():
+        most = 1 if name == "count_overlaps" else per_step[name] * steps
+        if not 0 < n <= most:
+            raise AssertionError(f"[f64] {name}_f64: {n} launches, expected "
+                                 f"1..{most}")
+    plain = ov.count_overlaps_plain(st.aabb_min, st.aabb_max, st.valid)
+    if budget != max(256, int(plain * 1.5)):
+        raise AssertionError(f"[f64] suggest_max_pairs gives {budget}, the "
+                             f"plain count {plain}")
+    lowest = check_pile(st, -FLOOR_BURIAL, "f64")
+    out = dict(steps=steps, seconds=t2 - t0, steps_per_s=steps / (t2 - t0),
+               ms_per_step=1e3 * (t2 - t0) / steps,
+               last_steps_per_s=(steps - first) / (t2 - t1),
+               f32_steps_per_s=f32_main["steps_per_s"],
+               f32_ms_per_step=1e3 * f32_main["seconds"] / f32_main["steps"],
+               max_pairs=world.meta.max_pairs, suggest_max_pairs=budget,
+               lowest_centre=lowest)
+    out["f64_over_f32"] = out["steps_per_s"] / out["f32_steps_per_s"]
+    log(f"[f64] {steps} steps in {t2 - t0:.3f} s = "
+        f"{out['steps_per_s']:.3f} steps/s ({out['ms_per_step']:.2f} "
+        f"ms/step); phase 3 at float32 in this call: "
+        f"{out['f32_steps_per_s']:.3f} steps/s ({out['f32_ms_per_step']:.2f}"
+        f" ms/step); ratio {out['f64_over_f32']:.3f}; launches of the double "
+        f"entries {f64c}, of the float entries none; suggest_max_pairs "
+        f"{budget}")
+    return world, f64c, out
+
+
+def f64_kernels(world, dev) -> dict:
+    """12b: the double entries against their plain float64 versions on the
+    card: K1-K3b on phase 2's random inputs at f64 and on a real step of
+    12a's pile (max abs error 0), K4 on random pairs and on that step's
+    live pairs (equal on every pair, pre-pass and order equal), K5 on
+    random boxes, on its edge cases and on the pile (counts equal). Timed
+    L2-cold, bounds at float64."""
+    import torch
+    from edyn_tpu_torch.collision.kernels import unified_kernel as uk
+    from edyn_tpu_torch.dynamics.solver_kernels import C_BASE, C_SR
+    from edyn_tpu_torch.shapes.params import ShapeType
+    f64 = lambda inp: {k: v.double() if v.is_floating_point() else v
+                       for k, v in inp.items()}
+    Rp_full = -(-16 * (N_BODIES + 5) // 128) * 128
+    out = dict(random=check_kernels(f64(random_inputs(
+        C_BASE + C_SR, Rp_full, N_BODIES + 5, 0, dev)), True, "f64 random",
+        exact=True))
+    check_kernels(f64(random_inputs(C_BASE, Rp_full, N_BODIES + 5, 1, dev)),
+                  False, "f64 random, no spin/roll rows", exact=True)
+    inp, with_sr = real_inputs(world)
+    if inp["tbl"].dtype != torch.float64:
+        raise AssertionError("the f64 pile's row table is not float64")
+    out["real"] = check_kernels(inp, with_sr, "f64 real step", exact=True)
+    del inp
+    st = world.state
+    tbl, dims = uk.pack_side_table_t(st)
+    rim = ShapeType.CYLINDER in world.meta.types_present
+    ra, rb = random_pairs(st.capacity, K4_PAIRS, 2, dev)
+    out["k4_random"] = [check_unified(tbl, ra, rb, dims, r,
+                                      "f64 random pairs", False)
+                        for r in (True, False)]
+    ka, kb = unified_pairs(st)
+    out["k4_real"] = check_unified(tbl, ka, kb, dims, rim, "f64 real step",
+                                   True)
+    out["C"] = tbl.shape[0]
+    amin, amax, v = random_aabbs(65_573, 3, dev)
+    out["k5_random"] = check_overlaps(amin.double(), amax.double(), v,
+                                      "f64 random AABBs", True)
+    out["k5_edges"] = k5_edge_cases(dev, torch.float64)
+    out["k5_real"] = check_overlaps(st.aabb_min.contiguous(),
+                                    st.aabb_max.contiguous(), st.valid,
+                                    "f64 real step", False)
+    return out
+
+
+def f64_card_vs_cpu(dev) -> dict:
+    """12c: phase 5 under the float64 default dtype (its settled 1,000-body
+    pile, one step on the card and on the CPU, under phase 5's rule), and
+    the manifolds with another point set."""
+    import torch
+    with default_dtype(torch.float64):
+        out, w = card_vs_cpu(dev, label="card-vs-cpu f64")
+    check_dtypes(w.state, "card-vs-cpu f64")
+    return out
+
+
+def _pair_keys(st, meta):
+    """The sorted pair list a step of ``st`` used (the manifold table's
+    sorted view)."""
+    return st.contacts.sort_key[:meta.max_pairs]
+
+
+def sweep_window_for(st, meta, window: int) -> tuple:
+    """The smallest of window, 2 window, 4 window, ... at which
+    ``find_pairs_sweep`` raises no window alarm on ``st``; and the alarms
+    and pairs missed against ``find_pairs`` at ``window`` itself."""
+    import torch
+    from edyn_tpu_torch.collision.broadphase import (INVALID_KEY,
+                                                     find_pairs,
+                                                     find_pairs_sweep)
+    dense = find_pairs(st, meta.max_pairs, meta.wide_cap)[0]
+    first = find_pairs_sweep(st, meta.max_pairs, window, meta.wide_cap)
+    missed = int((~torch.isin(dense[dense != INVALID_KEY], first[0])).sum())
+    W, alarms = window, first[5]
+    while alarms and W < st.capacity:
+        W *= 2
+        alarms = find_pairs_sweep(st, meta.max_pairs, W, meta.wide_cap)[5]
+    return W, first[5], missed
+
+
+def sweep_path(landed, dev) -> dict:
+    """12d: from the landed 10k pile (float32), 60 steps under
+    ``broadphase_mode="sweep"`` and under ``"dense"`` from the same state:
+    the sorted pair keys equal at every step (then every state equal), at
+    the narrowest window of 192 x 2^k that raises no alarm on the landed
+    state (the default window's alarms and the pairs it misses there are
+    printed: a landed pile overlaps along every axis over more than 192
+    bodies); the broadphase alone timed, ``find_pairs`` against
+    ``find_pairs_sweep`` at both windows, ``SWEEP_CALLS`` calls each. Then
+    a 30-step drop of ``mixed_pile(65_531)`` (65,536 slots, the key limit)
+    under "sweep" after one dense step that seats the boxes, at the window
+    chosen as on the landed pile, each step's pair keys equal to
+    ``find_pairs`` on the same admission boxes, and the two broadphases
+    timed there."""
+    import dataclasses
+    import torch
+    import edyn_tpu_torch as et
+    from edyn_tpu_torch.collision.broadphase import (find_pairs,
+                                                     find_pairs_sweep)
+    from edyn_tpu_torch.core.convert import state_from_numpy
+    from edyn_tpu_torch.utils.scenes import mixed_pile
+    tree, meta, settings = landed
+    st0 = state_from_numpy(tree, dev)
+    W, alarms0, missed0 = sweep_window_for(st0, meta, meta.sweep_window)
+    log(f"[sweep] landed pile: window {meta.sweep_window} raises {alarms0} "
+        f"alarms and misses {missed0} of the dense path's pairs; window {W} "
+        f"raises none")
+    worlds = {}
+    for mode in ("dense", "sweep"):
+        worlds[mode] = et.World(
+            state_from_numpy(tree, dev), settings,
+            dataclasses.replace(meta, broadphase_mode=mode, sweep_window=W))
+    alarms = 0
+    for i in range(SWEEP_STEPS):
+        for w in worlds.values():
+            w.step()
+        kd = _pair_keys(worlds["dense"].state, worlds["dense"].meta)
+        ks = _pair_keys(worlds["sweep"].state, worlds["sweep"].meta)
+        alarms += int(worlds["sweep"].state.overflow[3])
+        if not torch.equal(kd, ks):
+            raise AssertionError(f"[sweep] step {i}: sweep and dense pair "
+                                 f"keys differ (window {W}, alarms so far "
+                                 f"{alarms})")
+    for f in ("pos", "orn", "linvel", "angvel"):
+        if not torch.equal(getattr(worlds["dense"].state, f),
+                           getattr(worlds["sweep"].state, f)):
+            raise AssertionError(f"[sweep] the two worlds' {f} differ")
+    st, m = worlds["sweep"].state, worlds["sweep"].meta
+
+    def timed(fn, calls=SWEEP_CALLS):
+        fn()
+        torch.cuda.synchronize()
+        t = []
+        for _ in range(calls):
+            s, e = _events()
+            s.record()
+            fn()
+            e.record()
+            e.synchronize()
+            t.append(s.elapsed_time(e))
+        return statistics.median(t)
+
+    dense_ms = timed(lambda: find_pairs(st, m.max_pairs, m.wide_cap))
+    sweep_ms = timed(lambda: find_pairs_sweep(st, m.max_pairs, W,
+                                              m.wide_cap))
+    sweep192_ms = timed(lambda: find_pairs_sweep(
+        st, m.max_pairs, meta.sweep_window, m.wide_cap))
+    out = dict(steps=SWEEP_STEPS, bodies=st.capacity, max_pairs=m.max_pairs,
+               window=W, alarms=alarms, default_window=meta.sweep_window,
+               default_window_alarms=alarms0,
+               default_window_missed_pairs=missed0, dense_ms=dense_ms,
+               sweep_ms=sweep_ms, sweep_default_window_ms=sweep192_ms)
+    log(f"[sweep] {st.capacity} slots: {SWEEP_STEPS} steps under sweep "
+        f"(window {W}) and dense, pair keys equal at every step, states "
+        f"equal; window alarms {alarms}; broadphase alone (median of "
+        f"{SWEEP_CALLS} calls, max_pairs {m.max_pairs}): dense "
+        f"{dense_ms:.2f} ms, sweep {sweep_ms:.2f} ms at window {W}, "
+        f"{sweep192_ms:.2f} ms at window {meta.sweep_window}")
+    del worlds, st, st0
+
+    # the key limit: 65,536 slots, a drop under "sweep". The first step
+    # (dense) seats the admission boxes; the window is then chosen as on
+    # the landed pile: the grid's slabs of 41 x 41 bodies share their
+    # minimum on every axis, so 192 bodies do not reach the next slab.
+    t0 = time.perf_counter()
+    builder, _ = mixed_pile(n_bodies=N_SWEEP_BIG, seed=0)
+    w = et.make_world(builder, et.Settings(), device=dev)
+    w.meta = dataclasses.replace(w.meta, broadphase_mode="dense")
+    w.step()
+    W, alarms0, missed0 = sweep_window_for(w.state, w.meta,
+                                           meta.sweep_window)
+    w.meta = dataclasses.replace(w.meta, broadphase_mode="sweep",
+                                 sweep_window=W)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    log(f"[sweep 65k] {w.state.capacity} slots seated: window "
+        f"{meta.sweep_window} raises {alarms0} alarms and misses {missed0} "
+        f"of the dense path's pairs; window {W} raises none")
+    alarms, checked = 0, 0
+    step_s = 0.0
+    for i in range(SWEEP_BIG_STEPS):
+        P0 = w.meta.max_pairs
+        ts = time.perf_counter()
+        w.step()
+        torch.cuda.synchronize()
+        step_s += time.perf_counter() - ts
+        alarms += int(w.state.overflow[3])
+        # a step that dropped pairs grew the world (its list is the
+        # truncated one, cut in each broadphase's own order): not compared
+        if w.meta.max_pairs == P0:
+            keys = find_pairs(w.state, P0, w.meta.wide_cap)[0]
+            if not torch.equal(keys, _pair_keys(w.state, w.meta)):
+                raise AssertionError(f"[sweep 65k] step {i}: the sweep's "
+                                     f"keys differ from find_pairs' (window "
+                                     f"{W}, alarms so far {alarms})")
+            checked += 1
+    st, m = w.state, w.meta
+    for f in ("pos", "orn", "linvel", "angvel"):
+        if not bool(torch.isfinite(getattr(st, f)).all()):
+            raise AssertionError(f"[sweep 65k] state.{f} is not finite")
+    big_dense = timed(lambda: find_pairs(st, m.max_pairs, m.wide_cap), 3)
+    big_sweep = timed(lambda: find_pairs_sweep(st, m.max_pairs, W,
+                                               m.wide_cap))
+    big_sweep192 = timed(lambda: find_pairs_sweep(
+        st, m.max_pairs, meta.sweep_window, m.wide_cap))
+    out["big"] = dict(bodies=st.capacity, steps=SWEEP_BIG_STEPS,
+                      steps_checked=checked, window=W, alarms=alarms,
+                      default_window_alarms=alarms0,
+                      default_window_missed_pairs=missed0,
+                      max_pairs=m.max_pairs, build_s=t1 - t0,
+                      ms_per_step=1e3 * step_s / SWEEP_BIG_STEPS,
+                      seconds=time.perf_counter() - t0,
+                      dense_ms=big_dense, sweep_ms=big_sweep,
+                      sweep_default_window_ms=big_sweep192,
+                      overflow=w.overflow_counters())
+    log(f"[sweep 65k] {st.capacity} slots, {SWEEP_BIG_STEPS}-step drop "
+        f"under sweep at window {W} ({1e3 * step_s / SWEEP_BIG_STEPS:.1f} "
+        f"ms/step; build and the seating step {t1 - t0:.1f} s, part "
+        f"{out['big']['seconds']:.1f} s): keys equal to find_pairs' at "
+        f"{checked} of {SWEEP_BIG_STEPS} steps (the others dropped pairs and "
+        f"grew), window alarms {alarms}, max_pairs {m.max_pairs}; "
+        f"broadphase alone: dense {big_dense:.2f} ms (median of 3), sweep "
+        f"{big_sweep:.2f} ms at window {W}, {big_sweep192:.2f} ms at window "
+        f"{meta.sweep_window}")
+    return out
+
+
+def f64_kernel_entries(kernels12, launches) -> list:
+    """The kernels line's entries of the five double builds."""
+    from edyn_tpu_torch.collision.kernels import unified_kernel as uk
+    rand, real = kernels12["random"], kernels12["real"]
+    k4 = kernels12["k4_real"]
+    k4_all = kernels12["k4_random"] + [k4]
+    k5_all = ([kernels12["k5_random"], kernels12["k5_real"]]
+              + list(kernels12["k5_edges"].values()))
+    out = []
+    for name, r in rand.items():
+        out.append(dict(
+            name=f"{name}_f64", route="cuda", source=SOURCE,
+            replaces=KERNELS[name][0], dtype="float64",
+            launches=launches[name],
+            max_abs_err=max(r["max_abs_err"], real[name]["max_abs_err"]),
+            tol="0", ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+            warm_ms=r["warm_ms"], call_ms=r["call_ms"], C=r["C"], Rp=r["Rp"],
+            real_Rp=real[name]["Rp"], real_ms=real[name]["ms"],
+            real_plain_ms=real[name]["plain_ms"],
+            real_bound_ms=real[name]["bound_ms"],
+            **build_info("solver_kernels", SOLVER_KERNELS[name], "double")))
+    out.append(dict(
+        K4, name="collide_support_f64", route="cuda", dtype="float64",
+        launches=launches["collide_support"],
+        pre_pass_launches=launches["unified_features"],
+        pair_order_launches=launches["pair_order"],
+        max_abs_err=max(r["max_abs_err"] for r in k4_all),
+        tol="equal to the plain version on every pair",
+        bit_equal_pairs=sum(r["bit_equal_pairs"] for r in k4_all),
+        pairs=sum(r["pairs"] for r in k4_all), ms=k4["ms"],
+        plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
+        bound_by=k4["bound_by"], library_ms=None, main_ms=k4["main_ms"],
+        features_ms=k4["features_ms"], order_ms=k4["order_ms"],
+        real_pairs=k4["pairs"], classes=k4["classes"],
+        ops_per_pair=k4["ops_per_pair"], C=kernels12["C"],
+        **build_info("unified_kernel", "unified_kernel", "double")))
+    k5 = kernels12["k5_random"]
+    out.append(dict(
+        K5, name="count_overlaps_f64", route="cuda", dtype="float64",
+        launches=launches["count_overlaps"],
+        max_abs_err=max(r["max_abs_err"] for r in k5_all), tol="exact",
+        ms=k5["ms"], plain_ms=k5["plain_ms"], bound_ms=k5["bound_ms"],
+        bound_by=k5["bound_by"], library_ms=None, n=k5["n"],
+        edge_cases={k: v["count"] for k, v in
+                    kernels12["k5_edges"].items()},
+        **build_info("overlap_count", "overlap_kernel", "double")))
+    return out
+
+
+def phase12(dev, main: dict, landed) -> tuple:
+    """Phase 12 in order: 12a, 12b, 12c, 12d. Returns (summary, launches of
+    the double entries on 12a's path, the kernels line's f64 entries)."""
+    t0 = time.perf_counter()
+    world, launches, f64 = f64_path(N_BODIES, STEPS, dev, main)
+    kern = f64_kernels(world, dev)
+    del world
+    f64["card_vs_cpu"] = f64_card_vs_cpu(dev)
+    t1 = time.perf_counter()
+    sweep = sweep_path(landed, dev)
+    log(f"[phase 12] f64 parts {t1 - t0:.1f} s, sweep "
+        f"{time.perf_counter() - t1:.1f} s")
+    return (dict(f64=f64, f64_kernels=kern, sweep=sweep), launches,
+            f64_kernel_entries(kern, launches))
+
+
 def run_alone(phases, dev) -> None:
-    """``--phases``: phases 8, 9, 10 and 11 alone, in the order given,
-    after the build; their summaries are printed, the result lines are
-    not."""
+    """``--phases``: phases 8, 9, 10, 11 and 12 alone, in the order
+    given, after the build (phase 12 after phase 3's main path, whose f32
+    figures and landed pile it uses); their summaries are printed, the
+    result lines are not."""
     out = {}
     for p in phases:
         if p == 8:
@@ -2892,6 +3357,13 @@ def run_alone(phases, dev) -> None:
             out[10], _ = paged_path(dev)
         elif p == 11:
             out[11], _ = networked_path(dev)
+        elif p == 12:
+            from edyn_tpu_torch.core.convert import state_to_numpy
+            world, _, main = main_path(N_BODIES, STEPS, dev)
+            landed = (state_to_numpy(world.state), world.meta,
+                      world.settings)
+            del world
+            out[12], _, _ = phase12(dev, main, landed)
         else:
             raise SystemExit(f"--phases: phase {p} does not run alone")
     log(json.dumps(out, default=str))
@@ -2901,15 +3373,16 @@ def run(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="",
-                    help="comma-separated phases among 8, 9, 10 and 11 to "
-                         "run alone after the build (a rehearsal: no result "
-                         "lines)")
+                    help="comma-separated phases among 8, 9, 10, 11 and 12 "
+                         "to run alone after the build (a rehearsal: no "
+                         "result lines)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from edyn_tpu_torch.collision.kernels import unified_kernel as uk
+    from edyn_tpu_torch.core.convert import state_to_numpy
     from edyn_tpu_torch.utils import cuda_lib
     from edyn_tpu_torch.shapes.params import ShapeType
     from edyn_tpu_torch.utils.scenes import mixed_pile
@@ -2970,6 +3443,8 @@ def run(argv=None) -> int:
     k5_real = check_overlaps(st.aabb_min.contiguous(),
                              st.aabb_max.contiguous(), st.valid, "real step",
                              False)
+    # the landed pile, on the host, for phase 12's sweep
+    landed = (state_to_numpy(st), world.meta, world.settings)
     del world, tbl, ka, kb, st
 
     # 5. card against CPU
@@ -3028,6 +3503,13 @@ def run(argv=None) -> int:
     # 11. the networked path on the 10k pile: checkpoint resume, a server
     #     and two clients over bytes, the async worker, presentation
     networked, net_launches = networked_path(dev)
+
+    # 12. float64: the 10k pile under the float64 default dtype (K1-K5's
+    #     double entries), those entries against their plain versions,
+    #     card against CPU at f64; the sweep broadphase against the dense
+    #     one on the landed pile and at the key limit
+    phase_12, f64_launches, f64_entries = phase12(dev, main, landed)
+    del landed
 
     kernels = []
     for name, r in rand.items():
@@ -3126,8 +3608,12 @@ def run(argv=None) -> int:
                 max_abs_err=k4_err if step == "collide_support" else 0.0,
                 tol=k4_tol if step == "collide_support"
                 else "bit-equal to the plain version",
-                ms=k4_real["kernel_us"][kname] * 1e-3,
-                timed_by="torch.profiler, L2-cold input sets",
+                # the step's own time where the profiler recorded nothing
+                ms=(k4_real["kernel_us"][kname] * 1e-3
+                    if kname in k4_real["kernel_us"] else r["ms"]),
+                timed_by=("torch.profiler, L2-cold input sets"
+                          if kname in k4_real["kernel_us"] else
+                          "CUDA graph of the whole step, L2-cold"),
                 step=step, step_ms=r["ms"], plain_ms=r["plain_ms"],
                 bound_ms=r["bound_ms"], bound_us=r["bound_ms"] * 1e3,
                 bound_by=r["bound_by"],
@@ -3151,6 +3637,7 @@ def run(argv=None) -> int:
         n=k5_rand["n"], real_n=k5_real["n"], real_count=k5_real["count"],
         edge_cases={k: v["count"] for k, v in k5_edges.items()},
         **build_info("overlap_count", "overlap_kernel")))
+    kernels += f64_entries
     log(json.dumps({"main_path": main, "suggest_max_pairs": suggest,
                     "k4": {"random": k4_rand, "real": k4_real},
                     "k5": {"random": k5_rand, "real": k5_real,
@@ -3160,7 +3647,8 @@ def run(argv=None) -> int:
                     "terrain": terrain,
                     "terrain_kernels": {"solver": ter_real, "k4": k4_ter},
                     "bench": bench, "asleep_kernels": asleep_real,
-                    "paged": paged, "networked": networked}))
+                    "paged": paged, "networked": networked,
+                    "phase_12": phase_12}))
     log(f"gpu: {line}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -18,6 +18,7 @@ from .constraints.api import (
     make_null_constraint, make_point_constraint, make_soft_distance_constraint,
 )
 from .constraints.joints import JointType
+from .shapes.volume import mesh_centroid, shape_volume
 from .simulation.stepper import SceneMeta, physics_step
 
 __all__ = [
@@ -30,4 +31,5 @@ __all__ = [
     "make_point_constraint", "make_hinge_constraint", "make_cone_constraint",
     "make_generic_constraint", "make_cvjoint_constraint", "dof",
     "make_gravity_constraint", "make_null_constraint", "JointType",
+    "shape_volume", "mesh_centroid",
 ]

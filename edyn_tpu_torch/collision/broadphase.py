@@ -8,8 +8,12 @@ AABB-vs-halfspace test. The pair list is the first ``max_pairs`` set bits of
 the row-major [narrow columns | wide columns] mask, exactly as the JAX
 extraction orders them, sorted by int64 key ``a * N + b``.
 
-The sweep path (``find_pairs_sweep``) waits for a later slice: the dense
-mask covers the main path's sizes.
+``find_pairs_sweep`` is the sort-and-sweep path of the same module: bodies
+sorted by box minimum along the axis of largest centre variance, each
+tested against the next ``window`` bodies of that order, wide bodies as
+dense rows. Both paths AND an optional user filter
+``should_collide_fn(state, i_idx, j_idx) -> bool tensor`` (broadcastable
+index tensors; reference: settings.should_collide_func) into their masks.
 """
 from __future__ import annotations
 
@@ -21,6 +25,11 @@ from ..shapes.params import ShapeType
 
 PLANE_PAIR_MARGIN = 0.05
 ROW_BLOCK = 2048  # mask rows built at a time (bounds the [B, N] temporaries)
+# The JAX package's key bound (uint32 keys), kept so that the "auto" mode
+# picks what the JAX package picks; the port's int64 keys have no such limit.
+MAX_BODIES_FOR_KEYS = 65536
+SWEEP_BLOCK = 1 << 22  # window entries built at a time by the sweep
+DENSE_LIMIT = MAX_BODIES_FOR_KEYS
 
 
 def pack_keys(a, b, N: int, ok):
@@ -80,11 +89,18 @@ def _overlap_elt(state, i, j):
     return o
 
 
-def find_pairs(state, max_pairs: int, wide_cap: int = 64):
+def _check_capacity(N: int):
+    assert N <= MAX_BODIES_FOR_KEYS, \
+        f"pair keys: capacity {N} > {MAX_BODIES_FOR_KEYS}"
+
+
+def find_pairs(state, max_pairs: int, wide_cap: int = 64,
+               should_collide_fn=None):
     """Returns (keys [max_pairs] int64 ascending, body_a, body_b, valid,
     dropped). ``dropped`` is a host int: set bits beyond ``max_pairs`` plus
     wide bodies beyond ``wide_cap``."""
     N = state.capacity
+    _check_capacity(N)
     dev = state.device
     idx = torch.arange(N, device=dev)
     validb = state.valid & (state.shape_type != ShapeType.NONE)
@@ -102,10 +118,14 @@ def find_pairs(state, max_pairs: int, wide_cap: int = 64):
         m = _pair_filters_elt(state, i2, idx[None, :])
         m &= narrow[ib][:, None] & narrow[None, :]
         m &= i2 < idx[None, :]
+        if should_collide_fn is not None:
+            m &= should_collide_fn(state, i2, idx[None, :])
         m &= _overlap_boxes(state, i2, idx[None, :])
         jw = wj_ids[None, :]
         mw = wok[None, :] & _pair_filters_elt(state, i2, jw)
         mw &= narrow[ib][:, None] | (wide[ib][:, None] & (i2 < jw))
+        if should_collide_fn is not None:
+            mw &= should_collide_fn(state, i2, jw)
         mw &= _overlap_elt(state, i2, jw)
         nz = torch.nonzero(torch.cat([m, mw], dim=1))
         rows.append(nz[:, 0] + r0)
@@ -125,13 +145,119 @@ def find_pairs(state, max_pairs: int, wide_cap: int = 64):
                                      torch.ones_like(lo_ab, dtype=torch.bool))
     keys = torch.sort(keys, stable=True).values
     dropped = max(total - max_pairs, 0) + max(wcnt - wide_cap, 0)
+    valid, body_a, body_b = _decode_excluded(state, keys)
+    return keys, body_a, body_b, valid, dropped
 
-    valid, body_a, body_b = decode_keys(keys, N)
-    # exclusion lists, post-compaction
+
+def _decode_excluded(state, keys):
+    """``decode_keys`` with the exclusion lists applied post-compaction."""
+    valid, body_a, body_b = decode_keys(keys, state.capacity)
     ex_a = state.exclusions[body_a.long()]
     excluded = torch.any(ex_a == body_b[:, None], dim=-1)
-    valid &= ~excluded
-    return keys, body_a, body_b, valid, dropped
+    return valid & ~excluded, body_a, body_b
+
+
+def find_pairs_sweep(state, max_pairs: int, window: int = 128,
+                     wide_cap: int = 64, should_collide_fn=None):
+    """Sort-and-sweep broadphase (counterpart of the JAX package's
+    ``find_pairs_sweep``). Bodies are sorted by admission-box minimum along
+    the axis of largest centre variance (a stable sort, as ``jnp.argsort``
+    is, so bodies with equal minima keep index order and fall into the
+    same windows); each tests the next ``window`` bodies of that order.
+    Wide bodies (planes always; others whose extent on the axis exceeds a
+    quarter of the non-plane span) are up to ``wide_cap`` dense rows
+    against every body, wide-wide pairs kept once by index order.
+
+    Returns (keys sorted ascending, body_a, body_b, valid, dropped,
+    alarms): ``dropped`` as ``find_pairs``; ``alarms`` (a host int) counts
+    bodies whose axis overlap continues past the window, a conservative
+    alarm that is not a definite drop."""
+    N = state.capacity
+    _check_capacity(N)
+    dev = state.device
+    W = min(window, max(N - 1, 1))
+    amin, amax = state.bp_aabb_min, state.bp_aabb_max
+    validb = state.valid & (state.shape_type != ShapeType.NONE)
+
+    # axis: largest variance of the box centres of valid bodies (first
+    # index among equal variances, as jnp.argmax)
+    cen = 0.5 * (amin + amax)
+    nv = max(int(validb.sum()), 1)
+    zero = torch.zeros_like(cen)
+    mean = torch.sum(torch.where(validb[:, None], cen, zero), 0) / nv
+    var = torch.sum(torch.where(validb[:, None], (cen - mean) ** 2, zero), 0)
+    ax = int(torch.argmax(var))
+    smin, smax = amin[:, ax], amax[:, ax]
+
+    inf = torch.full_like(smin, float("inf"))
+    is_plane = state.shape_type == ShapeType.PLANE
+    span_b = validb & ~is_plane
+    lo_w = torch.min(torch.where(span_b, smin, inf))
+    hi_w = torch.max(torch.where(span_b, smax, -inf))
+    span = torch.clamp(hi_w - lo_w, min=1e-6)
+    wide = validb & (is_plane | ((smax - smin) > 0.25 * span))
+    narrow = validb & ~wide
+
+    skey = torch.where(narrow, smin, inf)
+    order = torch.argsort(skey, stable=True)
+    os_min = skey[order]
+    os_max = torch.where(narrow[order], smax[order], -inf)
+
+    # windowed scan in sweep order, in blocks of sorted positions; the
+    # mask's row-major order is the JAX package's [N, W] order. Both
+    # bodies of a set bit are narrow, and planes are always wide, so the
+    # box test is the whole overlap test here.
+    koff = torch.arange(1, W + 1, device=dev)
+    rows, cols = [], []
+    block = max(1, SWEEP_BLOCK // W)
+    for r0 in range(0, N, block):
+        pos = torch.arange(r0, min(N, r0 + block), device=dev)
+        nbr = pos[:, None] + koff[None, :]
+        nbr_c = torch.clamp(nbr, max=N - 1)
+        i2 = order[pos][:, None]
+        j2 = order[nbr_c]
+        m = (nbr < N) & (os_min[nbr_c] <= os_max[pos][:, None])
+        m &= _pair_filters_elt(state, i2, j2)
+        m &= _overlap_boxes(state, i2, j2)
+        if should_collide_fn is not None:
+            m &= should_collide_fn(state, i2, j2)
+        nz = torch.nonzero(m)
+        rows.append(nz[:, 0] + r0)
+        cols.append(nz[:, 1])
+    rows = torch.cat(rows)
+    cols = torch.cat(cols)
+
+    # beyond-window alarm: the (W+1)-th body still overlaps on the axis
+    pos = torch.arange(N, device=dev)
+    beyond = torch.clamp(pos + W + 1, max=N - 1)
+    alarms = int(((os_min[beyond] <= os_max) & (pos + W + 1 < N)).sum())
+
+    # wide rows: dense against every body; wide-wide pairs by index order
+    wloc, wcnt = compact(wide, wide_cap)
+    wi = torch.where(wloc >= 0, wloc, torch.zeros_like(wloc)).long()
+    iw = wi[:, None]
+    jw = pos[None, :]
+    mw = (wloc >= 0)[:, None] & _pair_filters_elt(state, iw, jw)
+    mw &= _overlap_elt(state, iw, jw)
+    mw &= ~wide[None, :] | (jw > iw)
+    if should_collide_fn is not None:
+        mw &= should_collide_fn(state, iw, jw)
+    nzw = torch.nonzero(mw)
+
+    # the first max_pairs set bits of [narrow block | wide block]
+    a_ = torch.cat([order[rows], wi[nzw[:, 0]]])
+    b_ = torch.cat([order[rows + 1 + cols], nzw[:, 1]])
+    total = a_.shape[0]
+    a_, b_ = a_[:max_pairs], b_[:max_pairs]
+    keys = torch.full((max_pairs,), INVALID_KEY, dtype=torch.int64,
+                      device=dev)
+    keys[:a_.shape[0]] = pack_keys(torch.minimum(a_, b_),
+                                   torch.maximum(a_, b_), N,
+                                   torch.ones_like(a_, dtype=torch.bool))
+    keys = torch.sort(keys, stable=True).values
+    dropped = max(total - max_pairs, 0) + max(wcnt - wide_cap, 0)
+    valid, body_a, body_b = _decode_excluded(state, keys)
+    return keys, body_a, body_b, valid, dropped, alarms
 
 
 def decode_keys(keys, N: int):

@@ -89,7 +89,7 @@ def collide_box_box(pos_a, orn_a, params_a, pos_b, orn_b, params_b,
     hjv = take1(inc_h, jv)
     inc_center = inc_pos + inc_n * hj[:, None]
     corner_signs = torch.tensor([[1, 1], [1, -1], [-1, -1], [-1, 1]],
-                                dtype=torch.float32, device=dev)
+                                dtype=inc_pos.dtype, device=dev)
     inc_corners = (inc_center[:, None, :]
                    + iu[:, None, :] * (corner_signs[None, :, 0, None]
                                        * hju[:, None, None])
@@ -191,14 +191,15 @@ def collide_box_box(pos_a, orn_a, params_a, pos_b, orn_b, params_b,
 
     # =============== combine ===============
     is_face_ = is_face[:, None]
-    z33 = torch.zeros((K, 3, 3), device=dev)
+    z33 = torch.zeros((K, 3, 3), dtype=pae.dtype, device=dev)
     pa_w = torch.where(is_face_[..., None], face_pa,
                        torch.cat([pae[:, None], z33], 1))
     pb_w = torch.where(is_face_[..., None], face_pb,
                        torch.cat([pbe[:, None], z33], 1))
     dist = torch.where(is_face_, z4,
                        torch.cat([edge_dist[:, None],
-                                  torch.zeros((K, 3), device=dev)], 1))
+                                  torch.zeros((K, 3), dtype=pae.dtype,
+                                              device=dev)], 1))
     pv_edge = torch.zeros((K, 4), dtype=torch.bool, device=dev)
     pv_edge[:, 0] = edge_dist < threshold
     pv = torch.where(is_face_, pv_face, pv_edge)

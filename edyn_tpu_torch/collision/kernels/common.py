@@ -63,6 +63,12 @@ def gather_points(cand, idx):
                                                        cand.shape[-1]))
 
 
+def axis_onehot(axis_f):
+    """Float axis index (0, 1, 2) -> one-hot unit vector [..., 3]."""
+    idx = torch.arange(3, dtype=axis_f.dtype, device=axis_f.device)
+    return (torch.abs(idx - axis_f[..., None]) < 0.5).to(axis_f.dtype)
+
+
 def make_result(pos_a, orn_a, pos_b, orn_b, p_world_a, p_world_b, normal,
                 distance, point_valid, attachment, threshold):
     """Assemble a ContactResult from world-space contact data (object-space

@@ -41,7 +41,7 @@ def _expand_children(state, body_idx):
     r = flat(torch.clamp(rows, min=0)).long()
     side = Side(
         pos=flat(pos_w), orn=flat(orn_w),
-        params=torch.zeros((F, 4), device=pos_b.device),
+        params=torch.zeros((F, 4), dtype=pos_b.dtype, device=pos_b.device),
         verts=cx.verts[r], vert_mask=cx.vert_mask[r] & flat(mask)[:, None],
         radius=cx.radius[r],
         face_normals=cx.face_normals[r], face_mask=cx.face_mask[r],

@@ -77,18 +77,19 @@ def collide_convex_mesh(A: Side, B: Side, threshold, mesh_table,
     tn_f = tn_w.reshape(F, 3)
     adj_f = adj_w.reshape(F, 3, 3)
     cent = tv_f.mean(dim=1)
-    ident = torch.zeros((F, 4), device=dev)
+    fz = lambda *s: torch.zeros(s, dtype=tv_f.dtype, device=dev)
+    ident = fz(F, 4)
     ident[:, 3] = 1.0
-    disc_axis = torch.zeros((F, 3), device=dev)
+    disc_axis = fz(F, 3)
     disc_axis[:, 2] = 1.0
     ones = lambda n: torch.ones((F, n), dtype=torch.bool, device=dev)
     tri_side = Side(
-        pos=cent, orn=ident, params=torch.zeros((F, 4), device=dev),
+        pos=cent, orn=ident, params=fz(F, 4),
         verts=tv_f - cent[:, None, :], vert_mask=ones(3),
-        radius=torch.zeros((F,), device=dev),
+        radius=fz(F),
         face_normals=tn_f[:, None, :], face_mask=ones(1),
         edge_dirs=_edge_dirs(tv_f), edge_mask=ones(3),
-        disc_r=torch.zeros((F,), device=dev), disc_axis=disc_axis)
+        disc_r=fz(F), disc_axis=disc_axis)
     A_rep = side_map(lambda x: torch.repeat_interleave(x, CAP, dim=0), A)
 
     # admissible-axis filter: the Voronoi wedge of the triangle's support

@@ -48,7 +48,7 @@ def pack_side_table(state):
     V = cx.verts.shape[1]
     F = cx.face_normals.shape[1]
     E = cx.edge_dirs.shape[1]
-    f = lambda x: x.to(torch.float32)
+    f = lambda x: x.to(state.dtype)
     return torch.cat([
         state.origin_pos(), state.orn, state.shape_params,
         f(cx.radius)[:N, None], f(cx.disc_r)[:N, None], f(cx.disc_axis)[:N],

@@ -130,13 +130,13 @@ def collide_support(A: Side, B: Side, threshold, axis_validity=None,
         seed = vec.normalize_or(delta, _up_like(delta))
         ra, ram = _rim_axes(A, B, seed)
     else:
-        ra = torch.zeros((K, 0, 3), device=dev)
+        ra = torch.zeros((K, 0, 3), dtype=delta.dtype, device=dev)
         ram = torch.zeros((K, 0), dtype=torch.bool, device=dev)
 
     axes = torch.cat([fa, fb, cr, ra], dim=1)          # [K,X,3]
     amask = torch.cat([fam, fbm, crm, ram], dim=1)
     sign = torch.where(torch.sum(axes * delta[:, None, :], -1) >= 0,
-                       1.0, -1.0)
+                       1.0, -1.0).to(axes.dtype)
     axes = axes * sign[..., None]
     if axis_validity is not None:
         amask = amask & axis_validity(axes)
@@ -244,7 +244,7 @@ def collide_support(A: Side, B: Side, threshold, axis_validity=None,
     on_a = on_a + shift
     on_b = on_b + shift
     shifted = torch.sum(shift * shift, -1) > 1e-12
-    sel_depth = depth + torch.where(shifted, 1e-5, 0.0)
+    sel_depth = depth + torch.where(shifted, 1e-5, 0.0).to(depth.dtype)
 
     idx4, pv = reduce_to_4(on_a, sel_depth, valid)
     pa4 = gather_points(on_a, idx4)

@@ -54,12 +54,16 @@ OUT_ROWS = 48  # 4 points x (pivot_a 3 | pivot_b 3 | normal 3 | attachment |
 # launches of the wrapper's three steps: the pre-pass (features_kernel,
 # class_ids_kernel), the pair order (pair_bins_kernel, bin_offsets_kernel,
 # pair_place_kernel), the per-pair kernel (unified_kernel)
+# (the float entries; LAUNCHES_F64 the double entries, and the pair orders
+# made for a float64 table)
 LAUNCHES = {"unified_features": 0, "pair_order": 0, "collide_support": 0}
+LAUNCHES_F64 = dict.fromkeys(LAUNCHES, 0)
 
 
 def reset_launch_counts():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, LAUNCHES_F64):
+        for k in counts:
+            counts[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -73,7 +77,8 @@ def table_rows(dims) -> int:
 
 
 def pack_side_table_t(state):
-    """[C, N] transposed, component-major packed side table and its widths
+    """[C, N] transposed, component-major packed side table (at the
+    state's scalar dtype) and its widths
     (V, F, E). Layout rows: pos 0:3 | orn 3:7 | radius 7 | disc_r 8 |
     disc_axis 9:12 | verts x V | y V | z V | vert_mask V | face x F | y F |
     z F | face_mask F | edge x E | y E | z E | edge_mask E."""
@@ -85,7 +90,7 @@ def pack_side_table_t(state):
     E = cx.edge_dirs.shape[1]
 
     def pad(x):
-        x = x.to(torch.float32)
+        x = x.to(state.dtype)
         if Ncx < N:
             return torch.nn.functional.pad(
                 x, (0, 0) * (x.dim() - 1) + (0, N - Ncx))
@@ -167,7 +172,7 @@ def _qrotate_inv(q, v):
 
 def _ortho_basis(n):
     nx, ny, nz = n
-    sign = torch.where(nz >= 0.0, 1.0, -1.0)
+    sign = torch.where(nz >= 0.0, 1.0, -1.0).to(nz.dtype)
     a = -1.0 / (sign + nz)
     b = nx * ny * a
     t1 = (1.0 + sign * nx * nx * a, sign * b, -sign * nx)
@@ -461,7 +466,7 @@ def collide_sides_plain(A, B, threshold: float, rim_axes: bool = True):
     axes = tuple(torch.cat(ax_list[c], 0) for c in range(3))
     amask = torch.cat(m_list, 0)
 
-    sgn = torch.where(_dot(axes, delta) >= 0, 1.0, -1.0)
+    sgn = torch.where(_dot(axes, delta) >= 0, 1.0, -1.0).to(delta[0].dtype)
     axes = _scale(axes, sgn)
 
     pa_proj = -_support_projection(A, vwA, wA, _neg(axes))
@@ -522,7 +527,7 @@ def collide_sides_plain(A, B, threshold: float, rim_axes: bool = True):
     on_b = _add(on_b, shift)
     shifted = (shift[0] * shift[0] + shift[1] * shift[1]
                + shift[2] * shift[2]) > EPS
-    sel_depth = depth + torch.where(shifted, 1e-5, 0.0)
+    sel_depth = depth + torch.where(shifted, 1e-5, 0.0).to(depth.dtype)
 
     # reduce to <= 4 (insertion heuristic)
     G = depth.shape[0]
@@ -578,7 +583,7 @@ def collide_sides_plain(A, B, threshold: float, rim_axes: bool = True):
         piv_a = _qrotate_inv(A["orn"], _sub(pa_w, A["pos"]))
         piv_b = _qrotate_inv(B["orn"], _sub(pb_w, B["pos"]))
         orow += [piv_a[0], piv_a[1], piv_a[2], piv_b[0], piv_b[1], piv_b[2],
-                 n[0], n[1], n[2], zero, dd, vv.to(torch.float32)]
+                 n[0], n[1], n[2], zero, dd, vv.to(dd.dtype)]
     return torch.cat(orow, 0).T.reshape(K, 4, 12)
 
 
@@ -587,6 +592,8 @@ def collide_sides_plain(A, B, threshold: float, rim_axes: bool = True):
 # ---------------------------------------------------------------------------
 
 HDR = 16  # floats of a feature row's header
+# the integer type whose bits a header lane holds, by the table's dtype
+_INT_LANES = {torch.float32: torch.int32, torch.float64: torch.int64}
 NCODES = 1 << 13  # class codes of a body
 MAX_SIDE = 32  # side classes the pair order tells apart
 CHUNK = 1024  # pairs of one block of the CUDA counting sort
@@ -622,11 +629,13 @@ def class_ids_plain(code):
 
 def world_features_plain(table_t, dims):
     """The pre-pass's plain version: the body-major world-feature table
-    [N, feature_row(dims)] float32, the class codes [N] int32 of the side
-    table ``table_t`` [C, N], and the class numbers ``class_ids_plain``.
+    [N, feature_row(dims)] at the side table's dtype, the class codes [N]
+    int32 of the side table ``table_t`` [C, N], and the class numbers
+    ``class_ids_plain``.
 
     Row: pos xyz | radius, orn xyzw, world disc axis xyz | disc_r, the real
-    counts V F E and the class code (int32 bits), then (x, y, z, mask) per
+    counts V F E and the class code (the bits of int32 integers in float32
+    lanes, of int64 integers in float64 lanes), then (x, y, z, mask) per
     world vertex, world face normal and world edge direction, computed by
     ``_world`` as ``collide_support_plain`` computes them per pair. A real
     count is the index of the last unmasked feature + 1 (vertices at least
@@ -640,15 +649,16 @@ def world_features_plain(table_t, dims):
     disc = (S["disc_r"][0] > 1e-9).to(torch.int64)
     code = (torch.clamp(nv, max=15) | torch.clamp(nf, max=15) << 4
             | torch.clamp(ne, max=15) << 8 | disc << 12)
-    ints = torch.stack([nv, nf, ne, code], 1).to(torch.int32)
+    fdt = table_t.dtype
+    ints = torch.stack([nv, nf, ne, code], 1).to(_INT_LANES[fdt])
 
     def rows(xyz, mask):  # [G, N] x 3 and [G, N] -> [N, 4G]
-        q = torch.stack([xyz[0], xyz[1], xyz[2], mask.to(torch.float32)], -1)
+        q = torch.stack([xyz[0], xyz[1], xyz[2], mask.to(fdt)], -1)
         return q.permute(1, 0, 2).reshape(q.shape[1], -1)
 
     hdr = torch.cat([c.T for c in (*S["pos"], S["radius"], *S["orn"], *w,
                                    S["disc_r"])], 1)
-    feat = torch.cat([hdr, ints.view(torch.float32),
+    feat = torch.cat([hdr, ints.view(fdt),
                       rows(vw, S["vert_mask"]), rows(fw, S["face_mask"]),
                       rows(ew, S["edge_mask"])], 1)
     code = code.to(torch.int32)
@@ -671,7 +681,8 @@ def pair_order_plain(code, ids, ka, kb):
 
 def feature_counts(feat):
     """[N, 3] int64 real counts (V, F, E) of a feature table's rows."""
-    return feat[:, 12:15].contiguous().view(torch.int32).to(torch.int64)
+    return feat[:, 12:15].contiguous().view(_INT_LANES[feat.dtype]).to(
+        torch.int64)
 
 
 def class_widths(feat, ka, kb):
@@ -698,17 +709,37 @@ def repack_columns(cols, dims, widths):
 # the wrappers
 # ---------------------------------------------------------------------------
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_F, _D = ctypes.c_float, ctypes.c_double
 SIGNATURES = {
     "edyn_unified_features": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "edyn_unified_pair_order": [_P, _P, _P, _P, _I, _P, _P, _P, _P],
     "edyn_collide_support": [_P, _I, _I, _I, _P, _P, _P, _I, _F, _I, _P,
                              _P],
+    "edyn_unified_features_f64": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "edyn_collide_support_f64": [_P, _I, _I, _I, _P, _P, _P, _I, _D, _I,
+                                 _P, _P],
 }
 
 
 def _lib():
     return cuda_lib.load("unified_kernel", SIGNATURES)
+
+
+def _counts(dtype):
+    """The launch counts of a step run on tables of ``dtype``."""
+    if dtype == torch.float32:
+        return LAUNCHES
+    if dtype == torch.float64:
+        return LAUNCHES_F64
+    raise TypeError(f"float32 or float64 tables expected, got {dtype}")
+
+
+def _entry(name: str, dtype):
+    """(the entry point ``name`` for tables of ``dtype``, its counts)."""
+    counts = _counts(dtype)
+    suffix = "_f64" if dtype == torch.float64 else ""
+    return getattr(_lib(), f"edyn_{name}{suffix}"), counts
 
 
 def check_caps(dims):
@@ -731,24 +762,26 @@ def world_features(table_t, dims):
         raise ValueError(f"table has {C} rows, {table_rows(dims)} expected "
                          f"for widths {tuple(dims)}")
     check_caps(dims)
-    cuda_lib.check(table_t, "table_t", (C, N))
+    fn, counts = _entry("unified_features", table_t.dtype)
+    cuda_lib.check(table_t, "table_t", (C, N), table_t.dtype)
     dev = table_t.device
-    feat = torch.empty((N, feature_row(dims)), dtype=torch.float32,
+    feat = torch.empty((N, feature_row(dims)), dtype=table_t.dtype,
                        device=dev)
     code = torch.empty((N,), dtype=torch.int32, device=dev)
     present = torch.empty((NCODES,), dtype=torch.int32, device=dev)
     ids = torch.empty((NCODES + 1,), dtype=torch.int32, device=dev)
-    rc = _lib().edyn_unified_features(
-        table_t.data_ptr(), N, *dims, feat.data_ptr(), code.data_ptr(),
-        present.data_ptr(), ids.data_ptr(), cuda_lib.stream(table_t))
-    cuda_lib.launched(LAUNCHES, "unified_features", rc)
+    rc = fn(table_t.data_ptr(), N, *dims, feat.data_ptr(), code.data_ptr(),
+            present.data_ptr(), ids.data_ptr(), cuda_lib.stream(table_t))
+    cuda_lib.launched(counts, "unified_features", rc)
     return feat, code, ids
 
 
-def pair_order(code, ids, ka, kb):
+def pair_order(code, ids, ka, kb, launch_counts=None):
     """[K] int64 permutation that lists the pairs class by class, each
     class in table order (see ``pair_order_plain``); on CUDA a counting
-    sort."""
+    sort. Integers only, so one entry point serves both scalar types: its
+    launches count in ``launch_counts`` (default ``LAUNCHES``; the wrapper
+    passes ``LAUNCHES_F64`` for the pairs of a float64 table)."""
     if cuda_lib.on_cpu(code, ids, ka, kb):
         return pair_order_plain(code, ids, ka, kb)
     K = ka.shape[0]
@@ -766,7 +799,9 @@ def pair_order(code, ids, ka, kb):
             code.data_ptr(), ids.data_ptr(), ka.data_ptr(), kb.data_ptr(), K,
             bins.data_ptr(), counts.data_ptr(), perm.data_ptr(),
             cuda_lib.stream(code))
-        cuda_lib.launched(LAUNCHES, "pair_order", rc)
+        cuda_lib.launched(
+            LAUNCHES if launch_counts is None else launch_counts,
+            "pair_order", rc)
     return perm
 
 
@@ -775,16 +810,17 @@ def collide_ordered(feat, ka, kb, perm, dims, threshold: float,
     """K4's per-pair kernel on CUDA tensors: the pairs in the order
     ``perm``, each written to its own row of the [K, 48] output."""
     K = ka.shape[0]
-    cuda_lib.check(feat, "feat", (feat.shape[0], feature_row(dims)))
+    fn, counts = _entry("collide_support", feat.dtype)
+    cuda_lib.check(feat, "feat", (feat.shape[0], feature_row(dims)),
+                   feat.dtype)
     for name, t in (("ka", ka), ("kb", kb), ("perm", perm)):
         cuda_lib.check(t, name, (K,), torch.int64)
-    out = torch.empty((K, OUT_ROWS), dtype=torch.float32, device=feat.device)
+    out = torch.empty((K, OUT_ROWS), dtype=feat.dtype, device=feat.device)
     if K:
-        rc = _lib().edyn_collide_support(
-            feat.data_ptr(), *dims, ka.data_ptr(), kb.data_ptr(),
-            perm.data_ptr(), K, float(threshold), int(bool(rim_axes)),
-            out.data_ptr(), cuda_lib.stream(feat))
-        cuda_lib.launched(LAUNCHES, "collide_support", rc)
+        rc = fn(feat.data_ptr(), *dims, ka.data_ptr(), kb.data_ptr(),
+                perm.data_ptr(), K, float(threshold), int(bool(rim_axes)),
+                out.data_ptr(), cuda_lib.stream(feat))
+        cuda_lib.launched(counts, "collide_support", rc)
     return out.reshape(K, 4, 12)
 
 
@@ -801,5 +837,5 @@ def collide_support_unified(table_t, ka, kb, dims, threshold: float,
     cuda_lib.check(ka, "ka", (K,), torch.int64)
     cuda_lib.check(kb, "kb", (K,), torch.int64)
     feat, code, ids = world_features(table_t, dims)
-    perm = pair_order(code, ids, ka, kb)
+    perm = pair_order(code, ids, ka, kb, _counts(table_t.dtype))
     return collide_ordered(feat, ka, kb, perm, dims, threshold, rim_axes)

@@ -166,7 +166,7 @@ def merge_points(man: ContactTable, new_pivot_a, new_pivot_b,
                     torch.zeros_like(winner_o[:, None, :])), dim=-1)
     matched = claims & (winner_at_nearest == ar_o[None, :])
 
-    f = lambda x: x.to(torch.float32)[..., None]
+    f = lambda x: x.to(new_pivot_a.dtype)[..., None]
     new_geom = torch.cat([
         new_pivot_a, new_pivot_b, new_local_normal,
         f(new_attachment), f(new_distance), scales], dim=-1)     # [M,N,13]

@@ -211,8 +211,8 @@ def bucket_points(bucket, state, man, s, swap, threshold: float,
             pv, pa, pb, nr, at = (res.point_valid, res.pivot_a,
                                   res.pivot_b, res.normal, res.attachment)
         parts.append(torch.cat([
-            pa, pb, nr, at.to(torch.float32)[..., None],
-            res.distance[..., None], pv.to(torch.float32)[..., None],
+            pa, pb, nr, at.to(pa.dtype)[..., None],
+            res.distance[..., None], pv.to(pa.dtype)[..., None],
             res.friction_scale[..., None],
             res.restitution_scale[..., None]], dim=-1))
     return torch.cat(parts)
@@ -240,7 +240,7 @@ def update_contacts(state, man, threshold: float, types_present: frozenset,
     # packed fresh points [M+1,4,14] (row M is the scratch row of dropped
     # writes): pivot_a 0:3 | pivot_b 3:6 | normal 6:9 | attachment 9 |
     # distance 10 | point_valid 11 | friction_scale 12 | restitution_scale 13
-    new_pts = torch.zeros((M + 1, 4, 14), device=dev)
+    new_pts = torch.zeros((M + 1, 4, 14), dtype=state.dtype, device=dev)
     dropped = 0
     packed, dims = pack_side_table(state)
     has_cyl = S.CYLINDER in types_present
@@ -261,6 +261,7 @@ def update_contacts(state, man, threshold: float, types_present: frozenset,
                                               threshold, rim_axes=has_cyl)
                 new_pts[s] = torch.cat([
                     out[..., :12], torch.ones(out.shape[:2] + (2,),
+                                              dtype=out.dtype,
                                               device=dev)], dim=-1)
             continue
         # padded bucket rows produce nothing the JAX path keeps, so only the

@@ -19,6 +19,7 @@ import torch
 from ..math import geom, quat, vec
 from ..shapes.mesh import candidate_tris
 from ..shapes.params import ShapeType
+from .kernels.common import axis_onehot
 
 BIG = geom.BIG
 
@@ -33,12 +34,6 @@ FEAT_NONE, FEAT_FACE, FEAT_SIDE, FEAT_HEMISPHERE, FEAT_TRIANGLE = 0, 1, 2, 3, 4
 RAY_CELLS = 32  # grid cells sampled along a ray through a mesh
 
 
-def _axis_onehot(axis_f):
-    """Float axis index (0, 1, 2) -> one-hot unit vector [..., 3]."""
-    idx = torch.arange(3, dtype=axis_f.dtype, device=axis_f.device)
-    return (torch.abs(idx - axis_f[..., None]) < 0.5).to(axis_f.dtype)
-
-
 def _ray_shape_local(stype, params, verts, vert_mask, face_normals,
                      face_mask, p0, d):
     """Ray against shape in the shape's object space, masked over shape
@@ -46,13 +41,13 @@ def _ray_shape_local(stype, params, verts, vert_mask, face_normals,
     sub_index)."""
     C = p0.shape[0]
     dev = p0.device
-    t_out = torch.full((C,), BIG, device=dev)
-    n_out = torch.zeros((C, 3), device=dev)
+    t_out = torch.full((C,), BIG, dtype=p0.dtype, device=dev)
+    n_out = torch.zeros((C, 3), dtype=p0.dtype, device=dev)
     f_out = torch.zeros((C,), dtype=torch.int32, device=dev)
     s_out = torch.zeros((C,), dtype=torch.int32, device=dev)
     zi = torch.zeros((C,), dtype=torch.int32, device=dev)
     full_i = lambda v: torch.full((C,), v, dtype=torch.int32, device=dev)
-    big = torch.full((C,), BIG, device=dev)
+    big = torch.full((C,), BIG, dtype=p0.dtype, device=dev)
 
     def merge(mask, t, n, feat=None, sub=None):
         nonlocal t_out, n_out, f_out, s_out
@@ -84,7 +79,7 @@ def _ray_shape_local(stype, params, verts, vert_mask, face_normals,
     ratio = torch.abs(p_hit) / torch.clamp(h, min=1e-9)
     ax = torch.argmax(ratio, dim=-1)
     sign_ax = torch.sign(torch.gather(p_hit, 1, ax[:, None]))
-    n_b = _axis_onehot(ax.to(torch.float32)) * sign_ax
+    n_b = axis_onehot(ax.to(p0.dtype)) * sign_ax
     face_b = (ax.to(torch.int32) * 2 + (sign_ax[:, 0] < 0).to(torch.int32))
     merge((st == ShapeType.BOX) & hit_b, torch.where(hit_b, t_enter, big),
           n_b, full_i(FEAT_FACE), face_b)
@@ -92,7 +87,7 @@ def _ray_shape_local(stype, params, verts, vert_mask, face_normals,
     # CAPSULE: the cylinder side and two sphere caps
     rc = params[:, 0]
     hl = params[:, 1]
-    axis = _axis_onehot(params[:, 2])
+    axis = axis_onehot(params[:, 2])
     p0p = p0 - axis * vec.dot(p0, axis)[:, None]
     dp = d - axis * vec.dot(d, axis)[:, None]
     a_q = vec.length_sqr(dp)
@@ -186,7 +181,7 @@ def _mesh_hits(state, flat, p0_l, d_l):
     dlen = torch.clamp(vec.length(d_l), min=1e-9)
     step_t = torch.clamp(cell / dlen, max=1.0 / RAY_CELLS)
     ar = torch.arange(RAY_CELLS + 1, device=flat.device,
-                      dtype=torch.float32)
+                      dtype=d_l.dtype)
     ts = torch.clamp(step_t[:, None] * ar[None, :], max=1.0)    # [C,S+1]
     pts = p0_l[:, None, :] + d_l[:, None, :] * ts[..., None]    # [C,S+1,3]
     S1 = RAY_CELLS + 1
@@ -278,9 +273,9 @@ def _raycast_block(state, p0, p1, H):
         fnorm = poly.face_normals[si]
         fmask = poly.face_mask[si] & (stype == ShapeType.POLYHEDRON)[:, None]
     else:
-        verts = torch.zeros((C, 0, 3), device=dev)
+        verts = torch.zeros((C, 0, 3), dtype=p0_l.dtype, device=dev)
         vmask = torch.zeros((C, 0), dtype=torch.bool, device=dev)
-        fnorm = torch.zeros((C, 0, 3), device=dev)
+        fnorm = torch.zeros((C, 0, 3), dtype=p0_l.dtype, device=dev)
         fmask = torch.zeros((C, 0), dtype=torch.bool, device=dev)
     t_l, n_l, f_l, s_l = _ray_shape_local(
         stype, state.shape_params[flat], verts, vmask, fnorm, fmask, p0_l,

@@ -2,15 +2,22 @@
 
 Same tiers and values as ``edyn_tpu/config.py``: hard constants
 (reference: include/edyn/config/constants.hpp) and the frozen runtime
-``Settings`` (reference: include/edyn/context/settings.hpp:21-58). The port
-runs in float32 only; ``DTYPE`` is the one scalar type of every float
-tensor it builds.
+``Settings`` (reference: include/edyn/context/settings.hpp:21-58).
+
+The scalar type is ``scalar_dtype()``: float64 while PyTorch's default
+dtype is float64 (``torch.set_default_dtype(torch.float64)`` before a
+world is built), float32 otherwise, the counterpart of the JAX package's
+``jax_enable_x64`` switch and of the reference's EDYN_DOUBLE_PRECISION
+(include/edyn/math/scalar.hpp:9-15). Construction and every host-to-device
+cast go through it; inside the step every float follows the state's own
+dtype.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 # --- hard constants (reference: include/edyn/config/constants.hpp) ---
@@ -35,7 +42,15 @@ PAIR_SEPARATION_MARGIN = 0.65 * CONTACT_BREAKING_THRESHOLD
 GRAVITY_EARTH = (0.0, -9.8, 0.0)  # reference: include/edyn/math/constants.hpp
 LARGE_SCALAR = 1e9  # stiffness above this => rigid contact
 
-DTYPE = torch.float32
+def scalar_dtype() -> torch.dtype:
+    """float64 when it is PyTorch's default dtype, else float32."""
+    return (torch.float64 if torch.get_default_dtype() == torch.float64
+            else torch.float32)
+
+
+def numpy_dtype(dtype: torch.dtype):
+    """The numpy scalar type of a torch float dtype."""
+    return np.float64 if dtype == torch.float64 else np.float32
 
 
 @dataclasses.dataclass(frozen=True)

@@ -95,10 +95,12 @@ class JointRows:
 # host-side packing
 # ---------------------------------------------------------------------------
 
-def pack_joints(joint_dicts: list, J: int, device) -> JointTable:
+def pack_joints(joint_dicts: list, J: int, device,
+                dtype=None) -> JointTable:
     """The JointTable of the builder's joint dicts (see
     ``constraints.api``), staged in float32 numpy as the JAX package stages
-    it, then moved to ``device``."""
+    it, then moved to ``device`` at ``dtype`` (default the scalar
+    dtype)."""
     jtype = np.zeros((J,), np.int32)
     body_a = np.zeros((J,), np.int32)
     body_b = np.zeros((J,), np.int32)
@@ -121,8 +123,13 @@ def pack_joints(joint_dicts: list, J: int, device) -> JointTable:
         frame_b[i] = jd.get("frame_b", (0, 0, 0, 1))
         p = jd.get("params", ())
         params[i, :len(p)] = p
-    t = JointTable.zeros(J, device)
-    d = lambda x: torch.as_tensor(x, device=device)
+    t = JointTable.zeros(J, device, dtype)
+    ft = t.params.dtype
+
+    def d(x):
+        x = torch.as_tensor(x, device=device)
+        return x.to(ft) if x.is_floating_point() else x
+
     return dataclasses.replace(
         t, jtype=d(jtype), body_a=d(body_a), body_b=d(body_b),
         valid=d(valid), pivot_a=d(pivot_a), pivot_b=d(pivot_b),
@@ -133,11 +140,12 @@ def pack_joints(joint_dicts: list, J: int, device) -> JointTable:
 # row building
 # ---------------------------------------------------------------------------
 
-def _where(c, x, y):
-    """torch.where with either branch a Python number."""
+def _where(c, x, y, dtype=None):
+    """torch.where with either branch a Python number (both: a tensor of
+    ``dtype``, the state's)."""
     if not isinstance(x, torch.Tensor):
         x = torch.full_like(y, x) if isinstance(y, torch.Tensor) else \
-            torch.full(c.shape, x, dtype=torch.float32, device=c.device)
+            torch.full(c.shape, x, dtype=dtype, device=c.device)
     if not isinstance(y, torch.Tensor):
         y = torch.full_like(x, y)
     return torch.where(c, x, y)
@@ -180,12 +188,13 @@ def build_joint_rows(state, dt: float, mass_splitting: bool = True, *,
     ax_a, ay_a, az_a = Ma[..., :, 0], Ma[..., :, 1], Ma[..., :, 2]
     ax_b = Mb[..., :, 0]
 
-    z = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
+    fdt = state.dtype
+    z = lambda *s: torch.zeros(s, dtype=fdt, device=dev)
     JlA, JaA = z(Jn, MAX_JOINT_ROWS, 3), z(Jn, MAX_JOINT_ROWS, 3)
     JlB, JaB = z(Jn, MAX_JOINT_ROWS, 3), z(Jn, MAX_JOINT_ROWS, 3)
     rhs = z(Jn, MAX_JOINT_ROWS)
-    lower = torch.full((Jn, MAX_JOINT_ROWS), -BIG, device=dev)
-    upper = torch.full((Jn, MAX_JOINT_ROWS), BIG, device=dev)
+    lower = torch.full((Jn, MAX_JOINT_ROWS), -BIG, dtype=fdt, device=dev)
+    upper = torch.full((Jn, MAX_JOINT_ROWS), BIG, dtype=fdt, device=dev)
     rvalid = torch.zeros((Jn, MAX_JOINT_ROWS), dtype=torch.bool, device=dev)
 
     is_ = lambda t: jt.jtype == int(t)
@@ -218,7 +227,7 @@ def build_joint_rows(state, dt: float, mass_splitting: bool = True, *,
     if present & POINT_LIKE:
         point_like = is_(JointType.POINT) | is_(JointType.HINGE) \
             | is_(JointType.CVJOINT)
-        eye = torch.eye(3, device=dev)
+        eye = torch.eye(3, dtype=fdt, device=dev)
         for k in range(3):
             d = eye[k].expand(Jn, 3)
             r = -(vec.dot(err, d) / dt * ERP + relvel_at(d))
@@ -290,8 +299,8 @@ def build_joint_rows(state, dt: float, mass_splitting: bool = True, *,
         near_min_h = angle < mid_h
         lim_err = torch.where(near_min_h, lim_min - angle, lim_max - angle)
         r_lim = -(lim_err / dt * ERP + relw * (1.0 + lim_rest))
-        lo_lim = _where(near_min_h, -BIG, 0.0)
-        hi_lim = _where(near_min_h, 0.0, BIG)
+        lo_lim = _where(near_min_h, -BIG, 0.0, fdt)
+        hi_lim = _where(near_min_h, 0.0, BIG, fdt)
         set_row(5, hinge & has_limit, zero3, ax_a, zero3, -ax_a,
                 r_lim, lo=lo_lim, hi=hi_lim)
         # friction + damping torque about the axis
@@ -385,9 +394,9 @@ def build_joint_rows(state, dt: float, mass_splitting: bool = True, *,
             lim_err = torch.where(near_min, p_min - coord, p_max - coord)
             inside = (coord > p_min) & (coord < p_max)
             # one-sided limit with a real range, a full lock otherwise
-            lo_l = torch.where(nz_lim, _where(near_min, -BIG, 0.0),
+            lo_l = torch.where(nz_lim, _where(near_min, -BIG, 0.0, fdt),
                                torch.full_like(coord, -BIG))
-            hi_l = torch.where(nz_lim, _where(near_min, 0.0, BIG),
+            hi_l = torch.where(nz_lim, _where(near_min, 0.0, BIG, fdt),
                                torch.full_like(coord, BIG))
             # speculative stop inside the range (erp 0.9 for linear
             # limits), nothing when a linear limit is violated (the position
@@ -395,7 +404,7 @@ def build_joint_rows(state, dt: float, mass_splitting: bool = True, *,
             error_v = torch.where(
                 nz_lim, _where(inside, lim_err / dt, 0.0),
                 -coord / dt if d >= 3 else torch.zeros_like(coord))
-            erp = (_where(nz_lim, 0.9, ERP) if d < 3
+            erp = (_where(nz_lim, 0.9, ERP, fdt) if d < 3
                    else torch.full_like(coord, ERP))
             r_l = -(error_v * erp
                     + relv * (1.0 + _where(nz_lim, p_rst, 0.0)))
@@ -449,9 +458,9 @@ def build_joint_rows(state, dt: float, mass_splitting: bool = True, *,
             -(_where(tw_inside, tw_err / dt, 0.0) * ERP
               + relw_cv * (1.0 + tw_rst)),
             -relw_cv)
-        lo_tw = torch.where(tw_nz, _where(tw_below, -BIG, 0.0),
+        lo_tw = torch.where(tw_nz, _where(tw_below, -BIG, 0.0, fdt),
                             torch.full_like(angle, -BIG))
-        hi_tw = torch.where(tw_nz, _where(tw_below, 0.0, BIG),
+        hi_tw = torch.where(tw_nz, _where(tw_below, 0.0, BIG, fdt),
                             torch.full_like(angle, BIG))
         set_row(3, cv, zero3, ax_a, zero3, -ax_b, r_tw, lo=lo_tw, hi=hi_tw)
 
@@ -526,12 +535,13 @@ def build_joint_rows(state, dt: float, mass_splitting: bool = True, *,
         # degree = incident JOINTS per body per solve group: within a group
         # one joint's rows are orthogonal (or impulse-bounded), so only
         # same-group rows of different joints split the mass
-        degA = torch.ones((R,), device=dev)
-        degB = torch.ones((R,), device=dev)
+        degA = torch.ones((R,), dtype=fdt, device=dev)
+        degB = torch.ones((R,), dtype=fdt, device=dev)
         for g in range(N_GROUPS):
             in_g = slot_groups == g
             jhas = torch.any(rvalid & in_g[None, :], dim=1) & jvalid
-            deg_g = degree_counts(state.capacity, [a, b], [jhas, jhas])
+            deg_g = degree_counts(state.capacity, [a, b], [jhas, jhas],
+                                  fdt)
             sel = in_g.repeat(Jn)
             degA = torch.where(sel, deg_g[a_r], degA)
             degB = torch.where(sel, deg_g[b_r], degB)
@@ -633,10 +643,11 @@ def solve_joint_positions(state, num_iterations: int = 3,
                          0.0)
         lam = (error * correction_rate * em)[:, None]
         lam = torch.where(active[:, None], lam, 0.0)
-        dpos = index_sum(torch.zeros((N, 3), device=dev), ab,
+        zn3 = torch.zeros((N, 3), dtype=pos.dtype, device=dev)
+        dpos = index_sum(zn3, ab,
                          torch.cat([ima[:, None] * d_a * lam,
                                     imb[:, None] * d_b * lam]))
-        dang = index_sum(torch.zeros((N, 3), device=dev), ab,
+        dang = index_sum(zn3.clone(), ab,
                          torch.cat([tA * lam, tB * lam]))
         return pos + dpos, quat.integrate(orn, dang, 1.0)
 
@@ -647,14 +658,15 @@ def solve_joint_positions(state, num_iterations: int = 3,
     align = bool(present & {JointType.HINGE, JointType.CVJOINT})
     pivots = bool(present & POINT_LIKE)
     generic = JointType.GENERIC in present
-    ident = torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev).expand(N, 4)
+    ident = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=state.dtype,
+                         device=dev).expand(N, 4)
 
     def unmoved(pos, orn, rows: int):
         for _ in range(rows):
             pos, orn = pos + 0.0, quat.normalize(quat.mul(ident, orn))
         return pos, orn
 
-    z3 = torch.zeros((Jn, 3), device=dev)
+    z3 = torch.zeros((Jn, 3), dtype=state.dtype, device=dev)
     for _ in range(num_iterations):
         if align:
             orn_ab = orn[ab]

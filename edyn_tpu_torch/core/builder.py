@@ -2,8 +2,9 @@
 
 Counterpart of ``edyn_tpu/core/builder.py`` (reference:
 include/edyn/util/rigidbody.hpp rigidbody_def, make_rigidbody): bodies are
-staged host-side in float32 numpy, as the JAX builder stages them, and
-``finalize`` builds the tensors on the target device. Supports every
+staged host-side in numpy at the scalar dtype (``config.scalar_dtype``), as
+the JAX builder stages them, and ``finalize`` builds the tensors on the
+target device, every float at the scalar dtype. Supports every
 shape type (static triangle meshes only, as in the JAX package) and every
 joint type (``constraints.api``).
 """
@@ -15,6 +16,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..config import numpy_dtype, scalar_dtype
 from ..shapes.params import (
     CompoundShape, MeshShape, PagedMeshShape, PolyhedronShape, ShapeType,
     pack_polyhedra, preprocess_polyhedron, shape_roll_direction,
@@ -67,9 +69,10 @@ class RigidBodyDef:
 
 
 def torch_dtype(dtype) -> torch.dtype:
-    """A torch dtype from a torch or numpy dtype (None: float32)."""
+    """A torch dtype from a torch or numpy dtype (None: the scalar
+    dtype)."""
     if dtype is None:
-        return torch.float32
+        return scalar_dtype()
     if isinstance(dtype, torch.dtype):
         return dtype
     return torch.from_numpy(np.zeros(0, np.dtype(dtype))).dtype
@@ -108,7 +111,7 @@ class WorldBuilder:
         state through the step, replicates in snapshots and can take
         input-history writes (reference: register_external_components,
         include/edyn/replication/register_external.hpp:28-67). ``dtype`` is
-        a torch or numpy dtype (default float32).
+        a torch or numpy dtype (default the scalar dtype).
 
         ``replicate``: None (local only) or a ``replication.exporter``
         policy: "transient", "reliable" or "input"."""
@@ -178,7 +181,8 @@ class WorldBuilder:
             raise ValueError(f"max_joints {J} < {len(self.joints)} joints")
 
         poly_np = pack_polyhedra(self._polyhedra)
-        f = np.float32  # staged in float32 exactly as the JAX builder does
+        sdt = scalar_dtype()
+        f = numpy_dtype(sdt)  # staged as the JAX builder stages
         pos = np.zeros((N, 3), f)
         orn = np.zeros((N, 4), f)
         orn[:, 3] = 1
@@ -203,7 +207,7 @@ class WorldBuilder:
         mask = np.full((N,), ALL_GROUPS, np.int64)
         excl = np.full((N, MAX_EXCLUSIONS), -1, np.int32)
         stype = np.zeros((N,), np.int32)
-        sparams = np.zeros((N, 4), np.float32)
+        sparams = np.zeros((N, 4), f)
         sindex = np.zeros((N,), np.int32)
         com = np.zeros((N, 3), f)
         roll_axis = np.zeros((N, 3), f)
@@ -295,8 +299,8 @@ class WorldBuilder:
 
         def t(x):
             x = np.asarray(x)
-            if x.dtype == np.float64:
-                x = x.astype(np.float32)
+            if x.dtype.kind == "f":
+                x = x.astype(f)
             return torch.as_tensor(x, device=device)
 
         poly = PolyTable(t(poly_np.verts), t(poly_np.vert_mask),
@@ -325,23 +329,24 @@ class WorldBuilder:
                 child_data.append(data)
             comp_rows.append(rows)
         convex = build_convex_table(stype, sparams, sindex, poly_np,
-                                    extra_data=child_data, device=device)
+                                    extra_data=child_data, device=device,
+                                    dtype=sdt)
         for i, d in enumerate(self.defs):
             if isinstance(d.shape, CompoundShape):
                 convex.radius[i] = compound_aabb_extent(d.shape)
-        compound = self._compound_table(comp_rows, device)
+        compound = self._compound_table(comp_rows, device, f)
         if self.material_mixes:
             ids = np.array([[ia, ib] for ia, ib, _ in self.material_mixes],
                            np.int32)
             vals = np.array([[m.restitution, m.friction, m.spin_friction,
                               m.roll_friction, m.stiffness, m.damping]
-                             for _, _, m in self.material_mixes], np.float32)
+                             for _, _, m in self.material_mixes], f)
             mix = MixTable(ids=t(ids), vals=t(vals))
         else:
-            mix = MixTable.empty(device)
+            mix = MixTable.empty(device, sdt)
 
         def zf(*s):
-            return torch.zeros(s, dtype=torch.float32, device=device)
+            return torch.zeros(s, dtype=sdt, device=device)
 
         scalar = lambda v, dt: torch.tensor(v, dtype=dt, device=device)
         ws = WorldState(
@@ -357,8 +362,8 @@ class WorldBuilder:
             shape_type=t(stype), shape_params=t(sparams),
             shape_index=t(sindex),
             aabb_min=zf(N, 3), aabb_max=zf(N, 3),
-            bp_aabb_min=torch.full((N, 3), 1e30, device=device),
-            bp_aabb_max=torch.full((N, 3), -1e30, device=device),
+            bp_aabb_min=torch.full((N, 3), 1e30, dtype=sdt, device=device),
+            bp_aabb_max=torch.full((N, 3), -1e30, dtype=sdt, device=device),
             roll_axis=t(roll_axis),
             island_id=torch.full((N,), -1, dtype=torch.int32, device=device),
             sleep_timer=zf(N),
@@ -367,12 +372,13 @@ class WorldBuilder:
             labels_stable=scalar(False, torch.bool),
             island_stable_steps=scalar(0, torch.int32),
             bp_carry_ok=scalar(False, torch.bool),
-            contacts=ContactTable.zeros(M, device),
-            joints=pack_joints(self.joints, J, device),
-            poly=poly, mesh=pack_meshes(self._meshes, device), convex=convex,
+            contacts=ContactTable.zeros(M, device, sdt),
+            joints=pack_joints(self.joints, J, device, sdt),
+            poly=poly, mesh=pack_meshes(self._meshes, device, sdt),
+            convex=convex,
             compound=compound, mix_table=mix,
             step_count=scalar(0, torch.int32),
-            sim_time=scalar(0.0, torch.float32),
+            sim_time=scalar(0.0, sdt),
             overflow=torch.zeros((5,), dtype=torch.int32, device=device),
             user={name: torch.full((N,) + shape, default, dtype=dt,
                                    device=device)
@@ -382,20 +388,20 @@ class WorldBuilder:
                                    ws.convex, ws.shape_index, ws.mesh)
         return dataclasses.replace(ws, aabb_min=amin, aabb_max=amax)
 
-    def _compound_table(self, comp_rows, device) -> CompoundTable:
-        """The padded child lists of the compounds; ``comp_rows`` are their
-        children's convex-table rows."""
+    def _compound_table(self, comp_rows, device, f) -> CompoundTable:
+        """The padded child lists of the compounds, staged at numpy dtype
+        ``f``; ``comp_rows`` are their children's convex-table rows."""
         if not self._compounds:
-            return CompoundTable.empty(device)
+            return CompoundTable.empty(device, torch_dtype(f))
         CH = max(len(r) for r in comp_rows)
         NC = len(self._compounds)
         c_row = np.full((NC, CH), -1, np.int32)
-        c_pos = np.zeros((NC, CH, 3), np.float32)
-        c_orn = np.zeros((NC, CH, 4), np.float32)
+        c_pos = np.zeros((NC, CH, 3), f)
+        c_orn = np.zeros((NC, CH, 4), f)
         c_orn[..., 3] = 1
         c_mask = np.zeros((NC, CH), bool)
         c_type = np.zeros((NC, CH), np.int32)
-        c_prm = np.zeros((NC, CH, 4), np.float32)
+        c_prm = np.zeros((NC, CH, 4), f)
         for ci, (comp, rows) in enumerate(zip(self._compounds, comp_rows)):
             for k, ((shape, lpos, lorn), row) in enumerate(
                     zip(comp.children, rows)):

@@ -5,8 +5,11 @@
 ``poly``, ``mesh``, ``convex``, ``compound``, ``mix_table`` as nested
 dicts, and ``user``, the user components by name), in the JAX package's
 dtypes: pair keys uint32 with uint32 max as the invalid key, collision
-group/mask uint32, float32 floats. The caller flattens the JAX state; this
-module never sees a JAX type.
+group/mask uint32, floats at the world's scalar dtype (float32, or float64
+from the JAX package's x64 mode, which keeps some tables at float32). A
+state built from a tree takes one float dtype, that of its ``pos`` leaf, for
+every float leaf. The caller flattens the JAX state; this module never sees
+a JAX type.
 """
 from __future__ import annotations
 
@@ -14,6 +17,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from ..config import numpy_dtype
 
 from ..shapes.compound import CompoundTable
 from ..shapes.convex import ConvexTable
@@ -31,10 +36,11 @@ _KEY_FIELDS = ("key", "sort_key")
 _BIT_FIELDS = ("group", "mask")
 
 
-def leaf_to_tensor(name, x, device):
+def leaf_to_tensor(name, x, device, dtype=None):
     """One leaf of the tree as the port's tensor: ``name`` is its field
     name (the key and bit fields change representation; None for a user
-    component)."""
+    component). A float leaf takes ``dtype`` when one is given, else keeps
+    its own."""
     x = np.asarray(x)
     if name in _KEY_FIELDS:
         k = x.astype(np.int64)
@@ -42,8 +48,8 @@ def leaf_to_tensor(name, x, device):
         x = k
     elif name in _BIT_FIELDS:
         x = x.astype(np.int64)
-    elif x.dtype == np.float64:
-        x = x.astype(np.float32)
+    elif dtype is not None and x.dtype.kind == "f":
+        x = x.astype(numpy_dtype(dtype))
     return torch.as_tensor(np.array(x, order="C"), device=device)
 
 
@@ -72,9 +78,12 @@ def _check_keys(cls, tree):
 def state_from_numpy(tree: dict, device=None) -> WorldState:
     """Build a WorldState on ``device`` from a numpy tree: ``cuda`` unless
     the caller names a device (raises without a GPU, as ``make_world``
-    does)."""
+    does). Every float leaf but the user components takes the dtype of
+    ``tree["pos"]``: a float64 tree is a float64 world."""
     device = resolve_device(device)
     _check_keys(WorldState, tree)
+    fdt = (torch.float64 if np.asarray(tree["pos"]).dtype == np.float64
+           else torch.float32)
     kw = {}
     for name, val in tree.items():
         if name == "user":
@@ -83,10 +92,10 @@ def state_from_numpy(tree: dict, device=None) -> WorldState:
         elif name in _SUBTABLES:
             cls = _SUBTABLES[name]
             _check_keys(cls, val)
-            kw[name] = cls(**{k: leaf_to_tensor(k, v, device)
+            kw[name] = cls(**{k: leaf_to_tensor(k, v, device, fdt)
                               for k, v in val.items()})
         else:
-            kw[name] = leaf_to_tensor(name, val, device)
+            kw[name] = leaf_to_tensor(name, val, device, fdt)
     return WorldState(**kw)
 
 

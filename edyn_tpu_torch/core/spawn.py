@@ -15,6 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..config import numpy_dtype
 from ..shapes.inertia import moment_of_inertia, polyhedron_inertia
 from ..shapes.params import PolyhedronShape, ShapeType, shape_roll_direction
 from .builder import RigidBodyDef
@@ -109,16 +110,17 @@ def spawn_rigidbody(state: WorldState, d: RigidBodyDef,
             inertia_inv = np.linalg.inv(np.linalg.inv(inertia_inv)
                                         + d.mass * (sk.T @ sk))
 
-    f32 = lambda x: np.asarray(x, np.float64).astype(np.float32)
+    f = numpy_dtype(state.dtype)  # staged at the world's scalar dtype
+    host = lambda x: np.asarray(x, np.float64).astype(f)
     st = set_rows(
         state, i,
         valid=True, kind=int(d.kind),
         # unseat the carried broadphase box of a recycled slot so the next
         # step seats it at the new body's AABB
         bp_aabb_min=1e30, bp_aabb_max=-1e30,
-        pos=f32(pos_w), com=f32(com), orn=f32(orn), linvel=f32(linvel),
-        angvel=f32(d.angvel), mass_inv=float(mass_inv),
-        inertia_inv=f32(inertia_inv), gravity=f32(grav),
+        pos=host(pos_w), com=host(com), orn=host(orn), linvel=host(linvel),
+        angvel=host(d.angvel), mass_inv=float(mass_inv),
+        inertia_inv=host(inertia_inv), gravity=host(grav),
         restitution=m.restitution if m else 0.0,
         friction=m.friction if m else 0.5,
         spin_friction=m.spin_friction if m else 0.0,
@@ -127,9 +129,9 @@ def spawn_rigidbody(state: WorldState, d: RigidBodyDef,
         damping=m.damping if m else 1e10,
         has_material=m is not None, material_id=m.id if m else -1,
         group=int(d.collision_group), mask=int(d.collision_mask),
-        shape_type=int(stype), shape_params=f32(sparams),
+        shape_type=int(stype), shape_params=host(sparams),
         shape_index=int(sindex),
-        roll_axis=f32(shape_roll_direction(int(stype), sparams)),
+        roll_axis=host(shape_roll_direction(int(stype), sparams)),
         sleeping_disabled=bool(d.sleeping_disabled),
         networked=bool(d.networked), asleep=False, sleep_timer=0.0)
     data = None

@@ -13,7 +13,7 @@ import dataclasses
 
 import torch
 
-from ..config import DTYPE, MAX_CONTACTS
+from ..config import MAX_CONTACTS, scalar_dtype
 
 KIND_DYNAMIC = 0
 KIND_KINEMATIC = 1
@@ -51,9 +51,10 @@ class ContactTable:
     restitution_scale: torch.Tensor  # [M,4]
 
     @staticmethod
-    def zeros(M: int, device) -> "ContactTable":
+    def zeros(M: int, device, dtype=None) -> "ContactTable":
         P = MAX_CONTACTS
-        f = lambda *s: torch.zeros(s, dtype=DTYPE, device=device)
+        dtype = dtype or scalar_dtype()
+        f = lambda *s: torch.zeros(s, dtype=dtype, device=device)
         i = lambda *s: torch.zeros(s, dtype=torch.int32, device=device)
         b = lambda *s: torch.zeros(s, dtype=torch.bool, device=device)
         inv = lambda: torch.full((M,), INVALID_KEY, dtype=torch.int64,
@@ -67,8 +68,8 @@ class ContactTable:
             normal_attachment=i(M, P), distance=f(M, P), lifetime=i(M, P),
             normal_impulse=f(M, P), friction_impulse=f(M, P, 2),
             spin_impulse=f(M, P), roll_impulse=f(M, P, 2),
-            friction_scale=torch.ones((M, P), dtype=DTYPE, device=device),
-            restitution_scale=torch.ones((M, P), dtype=DTYPE, device=device))
+            friction_scale=torch.ones((M, P), dtype=dtype, device=device),
+            restitution_scale=torch.ones((M, P), dtype=dtype, device=device))
 
 
 def grow_contact_table(tab: ContactTable, newM: int) -> ContactTable:
@@ -124,8 +125,9 @@ class JointTable:
     angle: torch.Tensor     # [J]
 
     @staticmethod
-    def zeros(J: int, device) -> "JointTable":
-        f = lambda *s: torch.zeros(s, dtype=DTYPE, device=device)
+    def zeros(J: int, device, dtype=None) -> "JointTable":
+        dtype = dtype or scalar_dtype()
+        f = lambda *s: torch.zeros(s, dtype=dtype, device=device)
         i = lambda *s: torch.zeros(s, dtype=torch.int32, device=device)
         ident = f(J, 4)
         ident[:, 3] = 1.0
@@ -144,10 +146,11 @@ class MixTable:
     vals: torch.Tensor  # [P,6] restitution, friction, spin, roll, stiff, damp
 
     @staticmethod
-    def empty(device) -> "MixTable":
+    def empty(device, dtype=None) -> "MixTable":
         return MixTable(
             ids=torch.full((0, 2), -1, dtype=torch.int32, device=device),
-            vals=torch.zeros((0, 6), dtype=DTYPE, device=device))
+            vals=torch.zeros((0, 6), dtype=dtype or scalar_dtype(),
+                             device=device))
 
 
 @dataclasses.dataclass
@@ -213,7 +216,7 @@ class WorldState:
     compound: object            # shapes.compound.CompoundTable
     mix_table: MixTable
     step_count: torch.Tensor    # [] int32
-    sim_time: torch.Tensor      # [] float32
+    sim_time: torch.Tensor      # [] scalar dtype
     overflow: torch.Tensor      # [5] int32: broadphase pairs, narrowphase
                                 # candidates, contact rows, sweep alarms,
                                 # manifold slots
@@ -229,6 +232,11 @@ class WorldState:
     @property
     def device(self):
         return self.pos.device
+
+    @property
+    def dtype(self):
+        """The scalar dtype of the world's floats."""
+        return self.pos.dtype
 
     @property
     def is_dynamic(self):

@@ -10,7 +10,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..config import ISLAND_TIME_TO_SLEEP, Settings
+from ..config import ISLAND_TIME_TO_SLEEP, Settings, numpy_dtype
 from ..constraints.joints import JointType, types_present
 from ..simulation.stepper import SceneMeta, physics_step
 from .builder import WorldBuilder
@@ -169,8 +169,7 @@ class World:
         body i's angular velocity and wake it (reference:
         rigidbody_apply_torque_impulse)."""
         st = self.state
-        t = torch.as_tensor(np.asarray(torque_impulse, np.float32),
-                            device=st.device)
+        t = self._host(torque_impulse)
         angvel = st.angvel.clone()
         angvel[i] += st.inertia_world_inv()[i] @ t
         asleep = st.asleep.clone()
@@ -188,9 +187,11 @@ class World:
             torch.cuda.synchronize(self.device)
         return self
 
-    def _f32(self, x):
-        return torch.as_tensor(np.asarray(x, np.float64).astype(np.float32),
-                               device=self.device)
+    def _host(self, x):
+        """A host value as a tensor at the world's scalar dtype."""
+        return torch.as_tensor(
+            np.asarray(x, np.float64).astype(numpy_dtype(self.state.dtype)),
+            device=self.device)
 
     def set_center_of_mass(self, i, com):
         """Move the body's COM keeping the shape's world pose: the stored
@@ -199,7 +200,7 @@ class World:
         apply_center_of_mass, src/edyn/util/rigidbody.cpp:364-543)."""
         from ..math import quat, vec
         st = self.state
-        com = self._f32(com)
+        com = self._host(com)
         orn = st.orn[i]
         origin = st.pos[i] - quat.rotate(orn, st.com[i])
         com_w = origin + quat.rotate(orn, com)
@@ -212,7 +213,7 @@ class World:
     def set_roll_direction(self, i, direction):
         """Override the object-space rolling axis (reference:
         comp/roll_direction.hpp; a zero vector rolls isotropically)."""
-        self.state = set_rows(self.state, i, roll_axis=self._f32(direction))
+        self.state = set_rows(self.state, i, roll_axis=self._host(direction))
         return self
 
     # -- mutators (reference: util/rigidbody.cpp) -----------------------
@@ -220,8 +221,8 @@ class World:
         """reference: rigidbody_apply_impulse."""
         from ..math import vec
         st = self.state
-        imp = self._f32(impulse)
-        rel = self._f32(rel_location)
+        imp = self._host(impulse)
+        rel = self._host(rel_location)
         Iw = st.inertia_world_inv()[i]
         self.state = set_rows(
             st, i, linvel=st.linvel[i] + st.mass_inv[i] * imp,
@@ -232,9 +233,9 @@ class World:
     def set_position(self, i, position, orientation=None):
         """Kinematic or teleport move (reference:
         update_kinematic_position)."""
-        kw = {"pos": self._f32(position)}
+        kw = {"pos": self._host(position)}
         if orientation is not None:
-            kw["orn"] = self._f32(orientation)
+            kw["orn"] = self._host(orientation)
         self.state = set_rows(self.state, i, **kw)
         # a teleported PLANE keeps its world-slab AABB (no box escape
         # fires), so the pair carry is invalidated here
@@ -244,9 +245,9 @@ class World:
     def set_velocity(self, i, linvel=None, angvel=None):
         kw = {"asleep": False, "sleep_timer": 0.0}
         if linvel is not None:
-            kw["linvel"] = self._f32(linvel)
+            kw["linvel"] = self._host(linvel)
         if angvel is not None:
-            kw["angvel"] = self._f32(angvel)
+            kw["angvel"] = self._host(angvel)
         self.state = set_rows(self.state, i, **kw)
         return self
 
@@ -284,7 +285,7 @@ class World:
         if I.ndim == 1:
             I = np.diag(I)
         self.state = set_rows(self.state, i,
-                              inertia_inv=self._f32(np.linalg.inv(I)))
+                              inertia_inv=self._host(np.linalg.inv(I)))
         return self
 
     def set_friction(self, i, friction: float):
@@ -306,11 +307,11 @@ class World:
         body still on it (reference: set_gravity,
         util/gravity_util.hpp:23)."""
         st = self.state
-        g = self._f32(g)
+        g = self._host(g)
         if i is not None:
             self.state = set_rows(st, i, gravity=g)
             return self
-        old = self._f32(self.settings.gravity)
+        old = self._host(self.settings.gravity)
         on_default = (st.kind == KIND_DYNAMIC) & torch.all(
             st.gravity == old[None, :], dim=-1)
         self.settings = dataclasses.replace(
@@ -334,8 +335,8 @@ class World:
             params = st.shape_params[i].cpu().numpy()
             I = np.diag(moment_of_inertia(stype, params, mass))
             kw.update(mass_inv=1.0 / mass,
-                      inertia_inv=self._f32(np.linalg.inv(I)),
-                      gravity=self._f32(self.settings.gravity))
+                      inertia_inv=self._host(np.linalg.inv(I)),
+                      gravity=self._host(self.settings.gravity))
         else:
             kw.update(mass_inv=0.0, inertia_inv=0.0, gravity=0.0)
             if kind == KIND_STATIC:
@@ -355,15 +356,15 @@ class World:
         from .spawn import update_convex_row
         st = self.state
         stype, params = shape.pack()
-        kw = {"shape_type": int(stype), "shape_params": self._f32(params),
+        kw = {"shape_type": int(stype), "shape_params": self._host(params),
               # the roll direction follows the shape (rigidbody.cpp:450-466)
-              "roll_axis": self._f32(shape_roll_direction(int(stype),
+              "roll_axis": self._host(shape_roll_direction(int(stype),
                                                           params))}
         # host read: the body's mass
         minv = float(st.mass_inv[i])
         if minv > 0:
             I = np.diag(moment_of_inertia(int(stype), params, 1.0 / minv))
-            kw["inertia_inv"] = self._f32(np.linalg.inv(I))
+            kw["inertia_inv"] = self._host(np.linalg.inv(I))
         st = set_rows(st, i, **kw)
         # this body's contact points are invalid for the new shape
         # (rigidbody.cpp:488-495)
@@ -472,8 +473,9 @@ class World:
         (``raycast.FEAT_*``, sub index, compound child index); arrays for a
         batch, scalars for one ray."""
         from ..collision.raycast import raycast as _raycast
-        p0 = np.atleast_2d(np.asarray(p0, np.float32))
-        p1 = np.atleast_2d(np.asarray(p1, np.float32))
+        f = numpy_dtype(self.state.dtype)
+        p0 = np.atleast_2d(np.asarray(p0, f))
+        p1 = np.atleast_2d(np.asarray(p1, f))
         out = _raycast(self.state, torch.as_tensor(p0, device=self.device),
                        torch.as_tensor(p1, device=self.device))
         out = {k: v.cpu().numpy() for k, v in out.items()}
@@ -543,10 +545,6 @@ class World:
         p = np.asarray(kw.get("params", ()), np.float64)
         params[:len(p)] = p
 
-        def f32(x):
-            return torch.as_tensor(np.asarray(x, np.float64).astype(
-                np.float32), device=self.device)
-
         # a new table: earlier states keep theirs
         jt = dataclasses.replace(jt, **{f.name: getattr(jt, f.name).clone()
                                         for f in dataclasses.fields(jt)})
@@ -554,11 +552,11 @@ class World:
         jt.body_a[i] = int(kw["body_a"])
         jt.body_b[i] = int(kw["body_b"])
         jt.valid[i] = True
-        jt.pivot_a[i] = f32(kw.get("pivot_a", (0, 0, 0)))
-        jt.pivot_b[i] = f32(kw.get("pivot_b", (0, 0, 0)))
-        jt.frame_a[i] = f32(kw.get("frame_a", (0, 0, 0, 1)))
-        jt.frame_b[i] = f32(kw.get("frame_b", (0, 0, 0, 1)))
-        jt.params[i] = f32(params)
+        jt.pivot_a[i] = self._host(kw.get("pivot_a", (0, 0, 0)))
+        jt.pivot_b[i] = self._host(kw.get("pivot_b", (0, 0, 0)))
+        jt.frame_a[i] = self._host(kw.get("frame_a", (0, 0, 0, 1)))
+        jt.frame_b[i] = self._host(kw.get("frame_b", (0, 0, 0, 1)))
+        jt.params[i] = self._host(params)
         jt.impulses[i] = 0.0
         jt.angle[i] = 0.0
         self.state = dataclasses.replace(self.state, joints=jt)

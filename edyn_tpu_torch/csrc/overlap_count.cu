@@ -9,8 +9,11 @@
 // takes one tile pair of the upper triangle, reduces its own count and adds
 // it once to a 64-bit total with an atomic.
 //
-// Input: aabb_min, aabb_max [N, 3] float32 and valid [N] bool, as the state
-// holds them.
+// Input: aabb_min, aabb_max [N, 3] and valid [N] bool, as the state holds
+// them. The kernel is a template on the boxes' scalar type: a float entry
+// (edyn_count_overlaps) and a double one (edyn_count_overlaps_f64, the
+// port's float64 mode); the staged tiles hold the same type (32 KB of
+// shared memory a block at double).
 //
 // Bound: operations (6 compares, the validity test and the count per
 // candidate pair, N(N-1)/2 pairs, against 25 bytes a box). The first version
@@ -32,22 +35,49 @@
 
 namespace {
 
+// a staged box: min xyz with the validity flag, or max xyz
+template <typename T>
+struct Box4;
+template <>
+struct Box4<float> {
+  using type = float4;
+};
+struct __align__(16) double4x {
+  double x, y, z, w;
+};
+template <>
+struct Box4<double> {
+  using type = double4x;
+};
+template <typename T>
+using B4 = typename Box4<T>::type;
+
+template <typename T>
+__device__ __forceinline__ B4<T> box4(T x, T y, T z, T w) {
+  B4<T> r;
+  r.x = x;
+  r.y = y;
+  r.z = z;
+  r.w = w;
+  return r;
+}
+
 constexpr int THREADS = 128;
 constexpr int R = 4;                 // i-boxes per thread
 constexpr int TILE = THREADS * R;    // boxes per i-tile and per j-tile
 
 // i-box q of a thread is box t + q * THREADS of the i-tile
-template <bool DIAG>
-__device__ __forceinline__ void count_tile(const float4* jmin,
-                                           const float4* jmax,
-                                           const float (&lo)[R][3],
-                                           const float (&hi)[R][3], int t,
+template <typename T, bool DIAG>
+__device__ __forceinline__ void count_tile(const B4<T>* jmin,
+                                           const B4<T>* jmax,
+                                           const T (&lo)[R][3],
+                                           const T (&hi)[R][3], int t,
                                            unsigned (&cnt)[R]) {
 #pragma unroll 4
   for (int u = 0; u < TILE; ++u) {
-    const float4 bl = jmin[u];
-    const float4 bh = jmax[u];
-    const bool vj = bl.w != 0.0f;
+    const B4<T> bl = jmin[u];
+    const B4<T> bh = jmax[u];
+    const bool vj = bl.w != T(0);
 #pragma unroll
     for (int q = 0; q < R; ++q) {
       bool o = vj & (lo[q][0] <= bh.x) & (hi[q][0] >= bl.x) &
@@ -59,9 +89,9 @@ __device__ __forceinline__ void count_tile(const float4* jmin,
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-    overlap_kernel(const float* __restrict__ amin,
-                   const float* __restrict__ amax,
+    overlap_kernel(const T* __restrict__ amin, const T* __restrict__ amax,
                    const bool* __restrict__ valid, int n,
                    unsigned long long* __restrict__ total) {
   // block b -> tile pair (ti, tj), ti <= tj, rows of the triangle tj:
@@ -73,7 +103,7 @@ __global__ void __launch_bounds__(THREADS)
   const int tj = (int)r;
   const int ti = (int)(b - r * (r + 1) / 2);
 
-  __shared__ float4 jmin[TILE], jmax[TILE];
+  __shared__ B4<T> jmin[TILE], jmax[TILE];
   __shared__ unsigned int warp_sum[THREADS / 32];
   const int t = threadIdx.x;
 #pragma unroll
@@ -81,16 +111,16 @@ __global__ void __launch_bounds__(THREADS)
     const int u = t + q * THREADS;
     const int g = tj * TILE + u;
     if (g < n) {
-      const float* a = amin + (long long)g * 3;
-      const float* c = amax + (long long)g * 3;
-      jmin[u] = make_float4(a[0], a[1], a[2], valid[g] ? 1.0f : 0.0f);
-      jmax[u] = make_float4(c[0], c[1], c[2], 0.0f);
+      const T* a = amin + (long long)g * 3;
+      const T* c = amax + (long long)g * 3;
+      jmin[u] = box4(a[0], a[1], a[2], valid[g] ? T(1) : T(0));
+      jmax[u] = box4(c[0], c[1], c[2], T(0));
     } else {
-      jmin[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      jmax[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      jmin[u] = box4(T(0), T(0), T(0), T(0));
+      jmax[u] = box4(T(0), T(0), T(0), T(0));
     }
   }
-  float lo[R][3], hi[R][3];
+  T lo[R][3], hi[R][3];
   bool vi[R];
 #pragma unroll
   for (int q = 0; q < R; ++q) {
@@ -98,8 +128,8 @@ __global__ void __launch_bounds__(THREADS)
     vi[q] = g < n && valid[g];
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      lo[q][c] = g < n ? amin[(long long)g * 3 + c] : 0.0f;
-      hi[q][c] = g < n ? amax[(long long)g * 3 + c] : 0.0f;
+      lo[q][c] = g < n ? amin[(long long)g * 3 + c] : T(0);
+      hi[q][c] = g < n ? amax[(long long)g * 3 + c] : T(0);
     }
   }
   __syncthreads();
@@ -108,9 +138,9 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
   for (int q = 0; q < R; ++q) cnt[q] = 0u;
   if (ti == tj)
-    count_tile<true>(jmin, jmax, lo, hi, t, cnt);
+    count_tile<T, true>(jmin, jmax, lo, hi, t, cnt);
   else
-    count_tile<false>(jmin, jmax, lo, hi, t, cnt);
+    count_tile<T, false>(jmin, jmax, lo, hi, t, cnt);
   unsigned count = 0u;
 #pragma unroll
   for (int q = 0; q < R; ++q) count += vi[q] ? cnt[q] : 0u;
@@ -128,6 +158,19 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+template <typename T>
+int count_overlaps(const T* amin, const T* amax, const bool* valid, int n,
+                   unsigned long long* total, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(total, 0, sizeof(*total), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long nb = (n + TILE - 1) / TILE;
+  if (nb == 0) return 0;
+  overlap_kernel<T><<<(unsigned)(nb * (nb + 1) / 2), THREADS, 0, s>>>(
+      amin, amax, valid, n, total);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // amin, amax [n, 3] float32, valid [n] bool; total: one int64 on the
@@ -135,12 +178,13 @@ __global__ void __launch_bounds__(THREADS)
 extern "C" int edyn_count_overlaps(const float* amin, const float* amax,
                                    const bool* valid, int n,
                                    unsigned long long* total, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(total, 0, sizeof(*total), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long nb = (n + TILE - 1) / TILE;
-  if (nb == 0) return 0;
-  overlap_kernel<<<(unsigned)(nb * (nb + 1) / 2), THREADS, 0, s>>>(
-      amin, amax, valid, n, total);
-  return static_cast<int>(cudaGetLastError());
+  return count_overlaps(amin, amax, valid, n, total, stream);
+}
+
+// the same at float64
+extern "C" int edyn_count_overlaps_f64(const double* amin,
+                                       const double* amax, const bool* valid,
+                                       int n, unsigned long long* total,
+                                       void* stream) {
+  return count_overlaps(amin, amax, valid, n, total, stream);
 }

@@ -13,6 +13,12 @@
 // writes per-row outputs. The gather and the scatter-add stay in PyTorch
 // around the kernel.
 //
+// Each kernel is a template on the scalar type T with a float and a double
+// instantiation: the entry points edyn_* take float tensors, edyn_*_f64
+// double ones (the port's float64 mode, which the TPU build never had:
+// Pallas on a TPU has no float64). Constants are T(...) and the math goes
+// through the overloads below, so no float operation rounds a double.
+//
 // Bound: memory. The arithmetic is ~100-300 float operations per row, far
 // below the card's float32 rate, while each row moves 4 bytes per table
 // row it reads plus its impulses and deltas (K1 at Rp = 160,128 with the
@@ -49,34 +55,51 @@ enum : int {
 
 constexpr int THREADS = 256;
 
+__device__ __forceinline__ float sqrt_(float x) { return sqrtf(x); }
+__device__ __forceinline__ double sqrt_(double x) { return sqrt(x); }
+__device__ __forceinline__ float fmin_(float a, float b) {
+  return fminf(a, b);
+}
+__device__ __forceinline__ double fmin_(double a, double b) {
+  return fmin(a, b);
+}
+__device__ __forceinline__ float fmax_(float a, float b) {
+  return fmaxf(a, b);
+}
+__device__ __forceinline__ double fmax_(double a, double b) {
+  return fmax(a, b);
+}
+
+template <typename T>
 struct Row {
-  const float* __restrict__ t;
+  const T* __restrict__ t;
   long long rp;
   long long j;
-  __device__ float operator()(int r) const { return t[r * rp + j]; }
-  __device__ void vec(int r, float v[3]) const {
+  __device__ T operator()(int r) const { return t[r * rp + j]; }
+  __device__ void vec(int r, T v[3]) const {
     v[0] = t[r * rp + j];
     v[1] = t[(r + 1) * rp + j];
     v[2] = t[(r + 2) * rp + j];
   }
 };
 
-__device__ __forceinline__ float dot3(const float a[3], const float b[3]) {
+template <typename T>
+__device__ __forceinline__ T dot3(const T a[3], const T b[3]) {
   return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
 }
 
 // relative velocity of a row direction against the gathered deltas
-__device__ __forceinline__ float drel(const float d[3], const float ja[3],
-                                      const float jb[3], const float va[3],
-                                      const float wa[3], const float vb[3],
-                                      const float wb[3]) {
+template <typename T>
+__device__ __forceinline__ T drel(const T d[3], const T ja[3], const T jb[3],
+                                  const T va[3], const T wa[3],
+                                  const T vb[3], const T wb[3]) {
   return dot3(d, va) + dot3(ja, wa) - dot3(d, vb) + dot3(jb, wb);
 }
 
-__device__ __forceinline__ void load_g(const float* __restrict__ g,
-                                       long long rp, long long j, float va[3],
-                                       float wa[3], float vb[3],
-                                       float wb[3]) {
+template <typename T>
+__device__ __forceinline__ void load_g(const T* __restrict__ g,
+                                       long long rp, long long j, T va[3],
+                                       T wa[3], T vb[3], T wb[3]) {
   const long long w = 2 * rp;
   for (int c = 0; c < 3; ++c) {
     va[c] = g[c * w + j];
@@ -87,18 +110,20 @@ __device__ __forceinline__ void load_g(const float* __restrict__ g,
 }
 
 // project (i1, i2) onto the circle of radius max_len
-__device__ __forceinline__ void circle(float& i1, float& i2, float max_len) {
-  float ln = sqrtf(i1 * i1 + i2 * i2);
-  float sc = ln > fmaxf(max_len, 1e-12f) ? max_len / fmaxf(ln, 1e-12f) : 1.f;
+template <typename T>
+__device__ __forceinline__ void circle(T& i1, T& i2, T max_len) {
+  T ln = sqrt_(i1 * i1 + i2 * i2);
+  T sc = ln > fmax_(max_len, T(1e-12)) ? max_len / fmax_(ln, T(1e-12))
+                                       : T(1);
   i1 = i1 * sc;
   i2 = i2 * sc;
 }
 
-__device__ __forceinline__ void store_upd(float* __restrict__ o, long long rp,
-                                          long long j, const float ual[3],
-                                          const float uaa[3],
-                                          const float ubl[3],
-                                          const float uba[3]) {
+template <typename T>
+__device__ __forceinline__ void store_upd(T* __restrict__ o, long long rp,
+                                          long long j, const T ual[3],
+                                          const T uaa[3], const T ubl[3],
+                                          const T uba[3]) {
   for (int c = 0; c < 3; ++c) {
     o[c * rp + j] = ual[c];
     o[(c + 3) * rp + j] = uaa[c];
@@ -107,22 +132,22 @@ __device__ __forceinline__ void store_upd(float* __restrict__ o, long long rp,
   }
 }
 
-__global__ void vel_kernel(const float* __restrict__ tbl,
-                           const float* __restrict__ imp,
-                           const float* __restrict__ g,
-                           float* __restrict__ oimp,
-                           float* __restrict__ oupd, int rp_, int with_sr) {
+template <typename F>
+__global__ void vel_kernel(const F* __restrict__ tbl,
+                           const F* __restrict__ imp,
+                           const F* __restrict__ g, F* __restrict__ oimp,
+                           F* __restrict__ oupd, int rp_, int with_sr) {
   const long long rp = rp_;
   const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= rp) return;
-  Row T{tbl, rp, j};
-  float va[3], wa[3], vb[3], wb[3];
+  Row<F> T{tbl, rp, j};
+  F va[3], wa[3], vb[3], wb[3];
   load_g(g, rp, j, va, wa, vb, wb);
-  const float n_imp = imp[j], f1 = imp[rp + j], f2 = imp[2 * rp + j];
-  const float s_imp = imp[3 * rp + j], ri1 = imp[4 * rp + j],
-              ri2 = imp[5 * rp + j];
+  const F n_imp = imp[j], f1 = imp[rp + j], f2 = imp[2 * rp + j];
+  const F s_imp = imp[3 * rp + j], ri1 = imp[4 * rp + j],
+          ri2 = imp[5 * rp + j];
 
-  float n[3], t1[3], t2[3], ja[3], jb[3];
+  F n[3], t1[3], t2[3], ja[3], jb[3];
   T.vec(N_, n);
   T.vec(T1, t1);
   T.vec(T2, t2);
@@ -130,28 +155,28 @@ __global__ void vel_kernel(const float* __restrict__ tbl,
   // normal
   T.vec(JAA_N, ja);
   T.vec(JAB_N, jb);
-  float dlam = (T(RHS_N) - drel(n, ja, jb, va, wa, vb, wb)) * T(EM_N);
-  float new_n = fminf(fmaxf(n_imp + dlam, 0.f), T(UPPER_N));
-  float dn = new_n - n_imp;
+  F dlam = (T(RHS_N) - drel(n, ja, jb, va, wa, vb, wb)) * T(EM_N);
+  F new_n = fmin_(fmax_(n_imp + dlam, F(0)), T(UPPER_N));
+  F dn = new_n - n_imp;
 
   // friction circle against the updated normal impulse
   T.vec(JAA_1, ja);
   T.vec(JAB_1, jb);
-  float d1 = (T(RHS_1) - drel(t1, ja, jb, va, wa, vb, wb)) * T(EM_1);
+  F d1 = (T(RHS_1) - drel(t1, ja, jb, va, wa, vb, wb)) * T(EM_1);
   T.vec(JAA_2, ja);
   T.vec(JAB_2, jb);
-  float d2 = (T(RHS_2) - drel(t2, ja, jb, va, wa, vb, wb)) * T(EM_2);
-  float imp1 = f1 + d1, imp2 = f2 + d2;
+  F d2 = (T(RHS_2) - drel(t2, ja, jb, va, wa, vb, wb)) * T(EM_2);
+  F imp1 = f1 + d1, imp2 = f2 + d2;
   circle(imp1, imp2, T(FRICTION) * new_n);
 
-  const bool ok = T(VALID) > 0.5f;
-  const float dn_ = ok ? dn : 0.f;
-  const float df1_ = ok ? imp1 - f1 : 0.f;
-  const float df2_ = ok ? imp2 - f2 : 0.f;
+  const bool ok = T(VALID) > F(0.5);
+  const F dn_ = ok ? dn : F(0);
+  const F df1_ = ok ? imp1 - f1 : F(0);
+  const F df2_ = ok ? imp2 - f2 : F(0);
 
-  float ual[3], ubl[3], uaa[3], uba[3];
-  const float inv_ma = T(INV_MA), inv_mb = T(INV_MB);
-  float tan[3], tbn[3], ta1[3], tb1[3], ta2[3], tb2[3];
+  F ual[3], ubl[3], uaa[3], uba[3];
+  const F inv_ma = T(INV_MA), inv_mb = T(INV_MB);
+  F tan[3], tbn[3], ta1[3], tb1[3], ta2[3], tb2[3];
   T.vec(TA_N, tan);
   T.vec(TB_N, tbn);
   T.vec(TA_1, ta1);
@@ -159,34 +184,34 @@ __global__ void vel_kernel(const float* __restrict__ tbl,
   T.vec(TA_2, ta2);
   T.vec(TB_2, tb2);
   for (int c = 0; c < 3; ++c) {
-    float lin = n[c] * dn_ + t1[c] * df1_ + t2[c] * df2_;
+    F lin = n[c] * dn_ + t1[c] * df1_ + t2[c] * df2_;
     ual[c] = inv_ma * lin;
     ubl[c] = -inv_mb * lin;
     uaa[c] = tan[c] * dn_ + ta1[c] * df1_ + ta2[c] * df2_;
     uba[c] = tbn[c] * dn_ + tb1[c] * df1_ + tb2[c] * df2_;
   }
 
-  float s_out = s_imp, r1_out = ri1, r2_out = ri2;
+  F s_out = s_imp, r1_out = ri1, r2_out = ri2;
   if (with_sr) {
     const int B = C_BASE;
-    float rel_s = dot3(n, wa) - dot3(n, wb);
-    float max_s = T(B + SPIN_F) * new_n;
-    float new_s = fminf(fmaxf(s_imp + (T(B + RHS_SPIN) - rel_s) *
+    F rel_s = dot3(n, wa) - dot3(n, wb);
+    F max_s = T(B + SPIN_F) * new_n;
+    F new_s = fmin_(fmax_(s_imp + (T(B + RHS_SPIN) - rel_s) *
                                           T(B + EM_SPIN), -max_s), max_s);
-    float ds = new_s - s_imp;
-    float rt1[3], rt2[3];
+    F ds = new_s - s_imp;
+    F rt1[3], rt2[3];
     T.vec(B + ROLL_T1, rt1);
     T.vec(B + ROLL_T2, rt2);
-    float dr1 = (T(B + RHS_ROLL1) - (dot3(rt1, wa) - dot3(rt1, wb))) *
+    F dr1 = (T(B + RHS_ROLL1) - (dot3(rt1, wa) - dot3(rt1, wb))) *
                 T(B + EM_ROLL1);
-    float dr2 = (T(B + RHS_ROLL2) - (dot3(rt2, wa) - dot3(rt2, wb))) *
+    F dr2 = (T(B + RHS_ROLL2) - (dot3(rt2, wa) - dot3(rt2, wb))) *
                 T(B + EM_ROLL2);
-    float r1n = ri1 + dr1, r2n = ri2 + dr2;
+    F r1n = ri1 + dr1, r2n = ri2 + dr2;
     circle(r1n, r2n, T(B + ROLL_F) * new_n);
-    const float ds_ = ok ? ds : 0.f;
-    const float dr1_ = ok ? r1n - ri1 : 0.f;
-    const float dr2_ = ok ? r2n - ri2 : 0.f;
-    float san[3], sbn[3], sa1[3], sb1[3], sa2[3], sb2[3];
+    const F ds_ = ok ? ds : F(0);
+    const F dr1_ = ok ? r1n - ri1 : F(0);
+    const F dr2_ = ok ? r2n - ri2 : F(0);
+    F san[3], sbn[3], sa1[3], sb1[3], sa2[3], sb2[3];
     T.vec(B + SA_N, san);
     T.vec(B + SB_N, sbn);
     T.vec(B + SA_T1, sa1);
@@ -211,46 +236,46 @@ __global__ void vel_kernel(const float* __restrict__ tbl,
   store_upd(oupd, rp, j, ual, uaa, ubl, uba);
 }
 
-__global__ void rest_kernel(const float* __restrict__ tbl,
-                            const float* __restrict__ dyn,
-                            const float* __restrict__ imp,
-                            const float* __restrict__ g,
-                            float* __restrict__ oimp,
-                            float* __restrict__ oupd, int rp_) {
+template <typename F>
+__global__ void rest_kernel(const F* __restrict__ tbl,
+                            const F* __restrict__ dyn,
+                            const F* __restrict__ imp,
+                            const F* __restrict__ g, F* __restrict__ oimp,
+                            F* __restrict__ oupd, int rp_) {
   const long long rp = rp_;
   const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= rp) return;
-  Row T{tbl, rp, j};
-  float va[3], wa[3], vb[3], wb[3];
+  Row<F> T{tbl, rp, j};
+  F va[3], wa[3], vb[3], wb[3];
   load_g(g, rp, j, va, wa, vb, wb);
-  const float rhs_n = dyn[j];
-  const bool active = dyn[rp + j] > 0.5f;
-  const float n_i = imp[j], f1 = imp[rp + j], f2 = imp[2 * rp + j];
+  const F rhs_n = dyn[j];
+  const bool active = dyn[rp + j] > F(0.5);
+  const F n_i = imp[j], f1 = imp[rp + j], f2 = imp[2 * rp + j];
 
-  float n[3], t1[3], t2[3], ja[3], jb[3];
+  F n[3], t1[3], t2[3], ja[3], jb[3];
   T.vec(N_, n);
   T.vec(T1, t1);
   T.vec(T2, t2);
   T.vec(JAA_N, ja);
   T.vec(JAB_N, jb);
-  float dlam = (rhs_n - drel(n, ja, jb, va, wa, vb, wb)) * T(EM_N);
-  float new_n = fmaxf(n_i + dlam, 0.f);
-  float dn = new_n - n_i;
+  F dlam = (rhs_n - drel(n, ja, jb, va, wa, vb, wb)) * T(EM_N);
+  F new_n = fmax_(n_i + dlam, F(0));
+  F dn = new_n - n_i;
   T.vec(JAA_1, ja);
   T.vec(JAB_1, jb);
-  float d1 = -drel(t1, ja, jb, va, wa, vb, wb) * T(EM_1);
+  F d1 = -drel(t1, ja, jb, va, wa, vb, wb) * T(EM_1);
   T.vec(JAA_2, ja);
   T.vec(JAB_2, jb);
-  float d2 = -drel(t2, ja, jb, va, wa, vb, wb) * T(EM_2);
-  float imp1 = f1 + d1, imp2 = f2 + d2;
+  F d2 = -drel(t2, ja, jb, va, wa, vb, wb) * T(EM_2);
+  F imp1 = f1 + d1, imp2 = f2 + d2;
   circle(imp1, imp2, T(FRICTION) * new_n);
 
-  const float dn_ = active ? dn : 0.f;
-  const float df1_ = active ? imp1 - f1 : 0.f;
-  const float df2_ = active ? imp2 - f2 : 0.f;
-  float ual[3], ubl[3], uaa[3], uba[3];
-  const float inv_ma = T(INV_MA), inv_mb = T(INV_MB);
-  float tan[3], tbn[3], ta1[3], tb1[3], ta2[3], tb2[3];
+  const F dn_ = active ? dn : F(0);
+  const F df1_ = active ? imp1 - f1 : F(0);
+  const F df2_ = active ? imp2 - f2 : F(0);
+  F ual[3], ubl[3], uaa[3], uba[3];
+  const F inv_ma = T(INV_MA), inv_mb = T(INV_MB);
+  F tan[3], tbn[3], ta1[3], tb1[3], ta2[3], tb2[3];
   T.vec(TA_N, tan);
   T.vec(TB_N, tbn);
   T.vec(TA_1, ta1);
@@ -258,7 +283,7 @@ __global__ void rest_kernel(const float* __restrict__ tbl,
   T.vec(TA_2, ta2);
   T.vec(TB_2, tb2);
   for (int c = 0; c < 3; ++c) {
-    float lin = n[c] * dn_ + t1[c] * df1_ + t2[c] * df2_;
+    F lin = n[c] * dn_ + t1[c] * df1_ + t2[c] * df2_;
     ual[c] = inv_ma * lin;
     ubl[c] = -inv_mb * lin;
     uaa[c] = tan[c] * dn_ + ta1[c] * df1_ + ta2[c] * df2_;
@@ -270,53 +295,55 @@ __global__ void rest_kernel(const float* __restrict__ tbl,
   store_upd(oupd, rp, j, ual, uaa, ubl, uba);
 }
 
-__global__ void relvel_kernel(const float* __restrict__ tbl,
-                              const float* __restrict__ g,
-                              float* __restrict__ out, int rp_) {
+template <typename F>
+__global__ void relvel_kernel(const F* __restrict__ tbl,
+                              const F* __restrict__ g, F* __restrict__ out,
+                              int rp_) {
   const long long rp = rp_;
   const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= rp) return;
-  Row T{tbl, rp, j};
-  float va[3], wa[3], vb[3], wb[3];
+  Row<F> T{tbl, rp, j};
+  F va[3], wa[3], vb[3], wb[3];
   load_g(g, rp, j, va, wa, vb, wb);
-  float n[3], ja[3], jb[3];
+  F n[3], ja[3], jb[3];
   T.vec(N_, n);
   T.vec(JAA_N, ja);
   T.vec(JAB_N, jb);
   out[j] = drel(n, ja, jb, va, wa, vb, wb);
 }
 
-__global__ void ngs_kernel(const float* __restrict__ tbl,
-                           const float* __restrict__ g,
-                           float* __restrict__ oupd, float* __restrict__ oerr,
-                           int rp_, float rate, float max_corr) {
+template <typename F>
+__global__ void ngs_kernel(const F* __restrict__ tbl,
+                           const F* __restrict__ g, F* __restrict__ oupd,
+                           F* __restrict__ oerr, int rp_, F rate,
+                           F max_corr) {
   const long long rp = rp_;
   const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= rp) return;
-  Row T{tbl, rp, j};
-  float dpa[3], daa[3], dpb[3], dab[3];
+  Row<F> T{tbl, rp, j};
+  F dpa[3], daa[3], dpb[3], dab[3];
   load_g(g, rp, j, dpa, daa, dpb, dab);
-  float n[3], ra[3], rb[3];
+  F n[3], ra[3], rb[3];
   T.vec(N_, n);
   T.vec(RA, ra);
   T.vec(RB, rb);
-  float ca[3] = {daa[1] * ra[2] - daa[2] * ra[1],
+  F ca[3] = {daa[1] * ra[2] - daa[2] * ra[1],
                  daa[2] * ra[0] - daa[0] * ra[2],
                  daa[0] * ra[1] - daa[1] * ra[0]};
-  float cb[3] = {dab[1] * rb[2] - dab[2] * rb[1],
+  F cb[3] = {dab[1] * rb[2] - dab[2] * rb[1],
                  dab[2] * rb[0] - dab[0] * rb[2],
                  dab[0] * rb[1] - dab[1] * rb[0]};
-  float corr[3];
+  F corr[3];
   for (int c = 0; c < 3; ++c) corr[c] = dpa[c] + ca[c] - dpb[c] - cb[c];
-  float dist = T(BASE_DIST) + dot3(corr, n);
-  float error = fminf(fmaxf(-dist, 0.f), max_corr);
-  error = T(NGS_VALID) > 0.5f ? error : 0.f;
-  float lam = error * rate * T(EM_N);
-  const float inv_ma = T(INV_MA), inv_mb = T(INV_MB);
-  float tan[3], tbn[3];
+  F dist = T(BASE_DIST) + dot3(corr, n);
+  F error = fmin_(fmax_(-dist, F(0)), max_corr);
+  error = T(NGS_VALID) > F(0.5) ? error : F(0);
+  F lam = error * rate * T(EM_N);
+  const F inv_ma = T(INV_MA), inv_mb = T(INV_MB);
+  F tan[3], tbn[3];
   T.vec(TA_N, tan);
   T.vec(TB_N, tbn);
-  float ual[3], uaa[3], ubl[3], uba[3];
+  F ual[3], uaa[3], ubl[3], uba[3];
   for (int c = 0; c < 3; ++c) {
     ual[c] = inv_ma * n[c] * lam;
     uaa[c] = tan[c] * lam;
@@ -329,6 +356,42 @@ __global__ void ngs_kernel(const float* __restrict__ tbl,
 
 inline dim3 grid_for(int rp) { return dim3((rp + THREADS - 1) / THREADS); }
 
+template <typename F>
+int solve_iteration(const F* tbl, const F* imp, const F* g, F* oimp,
+                    F* oupd, int Rp, int with_sr, void* stream) {
+  if (Rp > 0)
+    vel_kernel<F><<<grid_for(Rp), THREADS, 0, (cudaStream_t)stream>>>(
+        tbl, imp, g, oimp, oupd, Rp, with_sr);
+  return (int)cudaGetLastError();
+}
+
+template <typename F>
+int restitution_iteration(const F* tbl, const F* dyn, const F* imp,
+                          const F* g, F* oimp, F* oupd, int Rp,
+                          void* stream) {
+  if (Rp > 0)
+    rest_kernel<F><<<grid_for(Rp), THREADS, 0, (cudaStream_t)stream>>>(
+        tbl, dyn, imp, g, oimp, oupd, Rp);
+  return (int)cudaGetLastError();
+}
+
+template <typename F>
+int relvel(const F* tbl, const F* g, F* out, int Rp, void* stream) {
+  if (Rp > 0)
+    relvel_kernel<F><<<grid_for(Rp), THREADS, 0, (cudaStream_t)stream>>>(
+        tbl, g, out, Rp);
+  return (int)cudaGetLastError();
+}
+
+template <typename F>
+int ngs_iteration(const F* tbl, const F* g, F* oupd, F* oerr, int Rp,
+                  F rate, F max_corr, void* stream) {
+  if (Rp > 0)
+    ngs_kernel<F><<<grid_for(Rp), THREADS, 0, (cudaStream_t)stream>>>(
+        tbl, g, oupd, oerr, Rp, rate, max_corr);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -336,36 +399,48 @@ extern "C" {
 int edyn_solve_iteration(const float* tbl, const float* imp, const float* g,
                          float* oimp, float* oupd, int Rp, int with_sr,
                          void* stream) {
-  if (Rp > 0)
-    vel_kernel<<<grid_for(Rp), THREADS, 0, (cudaStream_t)stream>>>(
-        tbl, imp, g, oimp, oupd, Rp, with_sr);
-  return (int)cudaGetLastError();
+  return solve_iteration(tbl, imp, g, oimp, oupd, Rp, with_sr, stream);
 }
 
 int edyn_restitution_iteration(const float* tbl, const float* dyn,
                                const float* imp, const float* g, float* oimp,
                                float* oupd, int Rp, void* stream) {
-  if (Rp > 0)
-    rest_kernel<<<grid_for(Rp), THREADS, 0, (cudaStream_t)stream>>>(
-        tbl, dyn, imp, g, oimp, oupd, Rp);
-  return (int)cudaGetLastError();
+  return restitution_iteration(tbl, dyn, imp, g, oimp, oupd, Rp, stream);
 }
 
 int edyn_relvel(const float* tbl, const float* g, float* out, int Rp,
                 void* stream) {
-  if (Rp > 0)
-    relvel_kernel<<<grid_for(Rp), THREADS, 0, (cudaStream_t)stream>>>(
-        tbl, g, out, Rp);
-  return (int)cudaGetLastError();
+  return relvel(tbl, g, out, Rp, stream);
 }
 
 int edyn_ngs_iteration(const float* tbl, const float* g, float* oupd,
                        float* oerr, int Rp, float rate, float max_corr,
                        void* stream) {
-  if (Rp > 0)
-    ngs_kernel<<<grid_for(Rp), THREADS, 0, (cudaStream_t)stream>>>(
-        tbl, g, oupd, oerr, Rp, rate, max_corr);
-  return (int)cudaGetLastError();
+  return ngs_iteration(tbl, g, oupd, oerr, Rp, rate, max_corr, stream);
+}
+
+int edyn_solve_iteration_f64(const double* tbl, const double* imp,
+                             const double* g, double* oimp, double* oupd,
+                             int Rp, int with_sr, void* stream) {
+  return solve_iteration(tbl, imp, g, oimp, oupd, Rp, with_sr, stream);
+}
+
+int edyn_restitution_iteration_f64(const double* tbl, const double* dyn,
+                                   const double* imp, const double* g,
+                                   double* oimp, double* oupd, int Rp,
+                                   void* stream) {
+  return restitution_iteration(tbl, dyn, imp, g, oimp, oupd, Rp, stream);
+}
+
+int edyn_relvel_f64(const double* tbl, const double* g, double* out, int Rp,
+                    void* stream) {
+  return relvel(tbl, g, out, Rp, stream);
+}
+
+int edyn_ngs_iteration_f64(const double* tbl, const double* g, double* oupd,
+                           double* oerr, int Rp, double rate,
+                           double max_corr, void* stream) {
+  return ngs_iteration(tbl, g, oupd, oerr, Rp, rate, max_corr, stream);
 }
 
 }  // extern "C"

@@ -53,6 +53,15 @@
 // later division or comparison sees). The arithmetic otherwise follows
 // collide_support_plain operation by operation (unified_math.cuh), built
 // with -fmad=false and without fast math.
+//
+// Scalar type: every kernel that touches floats is a template on T, with a
+// float instantiation (edyn_unified_features, edyn_collide_support) and a
+// double one (the *_f64 entries, the port's float64 mode; the TPU kernel
+// never had one, Pallas on a TPU has no float64). At double a row's lanes
+// are 8 bytes, a lane group 32 bytes loaded as two 16-byte halves, the
+// header's counts int64 bits (Quad<double> in unified_math.cuh), and the
+// pre-pass's shared tile twice the bytes. The pair order reads integers
+// only and serves both.
 
 #include <cuda_runtime.h>
 
@@ -75,16 +84,6 @@ constexpr int WARP_PAIRS = 128;  // pairs of one warp in the counting sort
 constexpr int CHUNK = SORT_WARPS * WARP_PAIRS;  // pairs of one block
 constexpr int PRE_WARPS = 4;     // warps per block of the pre-pass
 
-// non-caching, non-mergeable load of a row float4: the post-SAT passes
-// reload a side's vertices instead of keeping both sides' in registers
-__device__ __forceinline__ float4 ld_row(const float4* p) {
-  float4 r;
-  asm volatile("ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];"
-               : "=f"(r.x), "=f"(r.y), "=f"(r.z), "=f"(r.w)
-               : "l"(p));
-  return r;
-}
-
 // ---------------------------------------------------------------------------
 // 1. per-body pre-pass
 // ---------------------------------------------------------------------------
@@ -95,11 +94,13 @@ __device__ __forceinline__ float4 ld_row(const float4* p) {
 // 8 bodies, lane l rotating feature l (vertices, then faces, then edges)
 // and storing its float4, so a row is written by contiguous 16-byte
 // stores. The real counts are warp maxima of the unmasked indices.
+template <typename T>
 __global__ void __launch_bounds__(32 * PRE_WARPS)
-    features_kernel(const float* __restrict__ tbl, int N, int V, int F,
-                    int E, float4* __restrict__ feat,
+    features_kernel(const T* __restrict__ tbl, int N, int V, int F,
+                    int E, Q4<T>* __restrict__ feat,
                     int* __restrict__ code, int* __restrict__ present) {
-  extern __shared__ float tile[];  // [C][33]
+  extern __shared__ __align__(16) unsigned char tile_raw[];
+  T* tile = reinterpret_cast<T*>(tile_raw);  // [C][33]
   __shared__ int codes[32];
   const int C = 12 + 4 * (V + F + E);
   const int j0 = blockIdx.x * 32;
@@ -107,7 +108,7 @@ __global__ void __launch_bounds__(32 * PRE_WARPS)
   for (int i = threadIdx.x; i < C * 32; i += 32 * PRE_WARPS) {
     const int r = i >> 5, b = i & 31;
     tile[r * 33 + b] = j0 + b < N ? __ldg(tbl + (long long)r * N + j0 + b)
-                                  : 0.0f;
+                                  : T(0.0);
   }
   __syncthreads();
   const int lane = threadIdx.x & 31;
@@ -115,45 +116,45 @@ __global__ void __launch_bounds__(32 * PRE_WARPS)
     const int j = j0 + b;
     if (j >= N) break;  // the whole warp
     const auto c = [&](int r) { return tile[r * 33 + b]; };
-    const F3 pos = mk(c(0), c(1), c(2));
-    const float q[4] = {c(3), c(4), c(5), c(6)};
-    const float disc_r = c(8);
-    float4* row = feat + (long long)j * (HDR + V + F + E);
+    const V3<T> pos = mk(c(0), c(1), c(2));
+    const T q[4] = {c(3), c(4), c(5), c(6)};
+    const T disc_r = c(8);
+    Q4<T>* row = feat + (long long)j * (HDR + V + F + E);
     const int ov = 12, of = ov + 4 * V, oe = of + 4 * F;
     int lv = -1, lf = -1, le = -1;  // last unmasked index seen by this lane
     for (int f = lane; f < V + F + E; f += 32) {
-      F3 x;
+      V3<T> x;
       bool m;
       if (f < V) {
         x = world_point(q, pos, mk(c(ov + f), c(ov + V + f),
                                    c(ov + 2 * V + f)));
-        m = c(ov + 3 * V + f) > 0.5f;
+        m = c(ov + 3 * V + f) > T(0.5);
         if (m) lv = f;
       } else if (f < V + F) {
         const int i = f - V;
         x = world_dir(q, mk(c(of + i), c(of + F + i), c(of + 2 * F + i)));
-        m = c(of + 3 * F + i) > 0.5f;
+        m = c(of + 3 * F + i) > T(0.5);
         if (m) lf = i;
       } else {
         const int i = f - V - F;
         x = world_dir(q, mk(c(oe + i), c(oe + E + i), c(oe + 2 * E + i)));
-        m = c(oe + 3 * E + i) > 0.5f;
+        m = c(oe + 3 * E + i) > T(0.5);
         if (m) le = i;
       }
-      row[HDR + f] = make_float4(x.x, x.y, x.z, m ? 1.0f : 0.0f);
+      row[HDR + f] = Quad<T>::make(x.x, x.y, x.z, m ? T(1.0) : T(0.0));
     }
     const int nv = max(__reduce_max_sync(0xffffffffu, lv) + 1, 1);
     const int nf = __reduce_max_sync(0xffffffffu, lf) + 1;
     const int ne = __reduce_max_sync(0xffffffffu, le) + 1;
     if (lane == 0) {
-      const F3 w = world_dir(q, mk(c(9), c(10), c(11)));
+      const V3<T> w = world_dir(q, mk(c(9), c(10), c(11)));
       const int cd = min(nv, 15) | (min(nf, 15) << 4) | (min(ne, 15) << 8) |
-                     ((disc_r > 1e-9f ? 1 : 0) << 12);
-      row[0] = make_float4(pos.x, pos.y, pos.z, c(7));
-      row[1] = make_float4(q[0], q[1], q[2], q[3]);
-      row[2] = make_float4(w.x, w.y, w.z, disc_r);
-      row[3] = make_float4(__int_as_float(nv), __int_as_float(nf),
-                           __int_as_float(ne), __int_as_float(cd));
+                     ((disc_r > T(1e-9) ? 1 : 0) << 12);
+      row[0] = Quad<T>::make(pos.x, pos.y, pos.z, c(7));
+      row[1] = Quad<T>::make(q[0], q[1], q[2], q[3]);
+      row[2] = Quad<T>::make(w.x, w.y, w.z, disc_r);
+      row[3] = Quad<T>::make(Quad<T>::from_int(nv), Quad<T>::from_int(nf),
+                           Quad<T>::from_int(ne), Quad<T>::from_int(cd));
       code[j] = cd;
       codes[b] = cd;
     }
@@ -348,27 +349,30 @@ __global__ void __launch_bounds__(32 * SORT_WARPS)
 // ---------------------------------------------------------------------------
 
 // One side of a pair: its row and header.
+template <typename T>
 struct Side {
-  const float4* row;
-  F3 pos;
-  float orn[4];
-  float radius, disc_r;
-  F3 w;            // world disc axis
+  const Q4<T>* row;
+  V3<T> pos;
+  T orn[4];
+  T radius, disc_r;
+  V3<T> w;            // world disc axis
   int nv, nf, ne;  // real counts
   unsigned vm;     // mask bits of vertices 0..nv-1
 };
 
 // World vertices of a side, in registers (indexed by unrolled loops only).
+template <typename T>
 struct Verts {
-  F3 v[VMAX];
+  V3<T> v[VMAX];
 };
 
-__device__ __forceinline__ Side load_side(const float4* feat, long long body,
+template <typename T>
+__device__ __forceinline__ Side<T> load_side(const Q4<T>* feat, long long body,
                                           int rs4) {
-  Side S;
+  Side<T> S;
   S.row = feat + body * rs4;
-  const float4 h0 = __ldg(S.row), h1 = __ldg(S.row + 1),
-               h2 = __ldg(S.row + 2), h3 = __ldg(S.row + 3);
+  const Q4<T> h0 = Quad<T>::ldg(S.row), h1 = Quad<T>::ldg(S.row + 1),
+               h2 = Quad<T>::ldg(S.row + 2), h3 = Quad<T>::ldg(S.row + 3);
   S.pos = mk(h0.x, h0.y, h0.z);
   S.radius = h0.w;
   S.orn[0] = h1.x;
@@ -377,26 +381,26 @@ __device__ __forceinline__ Side load_side(const float4* feat, long long body,
   S.orn[3] = h1.w;
   S.w = mk(h2.x, h2.y, h2.z);
   S.disc_r = h2.w;
-  S.nv = __float_as_int(h3.x);
-  S.nf = __float_as_int(h3.y);
-  S.ne = __float_as_int(h3.z);
+  S.nv = Quad<T>::to_int(h3.x);
+  S.nf = Quad<T>::to_int(h3.y);
+  S.ne = Quad<T>::to_int(h3.z);
   S.vm = 0u;
   return S;
 }
 
 // the side's vertices from its row into registers, and their mask bits
-template <bool RELOAD>
-__device__ __forceinline__ void load_verts(Side& S, Verts& X) {
+template <typename T, bool RELOAD>
+__device__ __forceinline__ void load_verts(Side<T>& S, Verts<T>& X) {
   unsigned vm = 0u;
 #pragma unroll
   for (int v = 0; v < VMAX; ++v) {
     if (v < S.nv) {
-      const float4 q =
-          RELOAD ? ld_row(S.row + HDR + v) : __ldg(S.row + HDR + v);
+      const Q4<T> q =
+          RELOAD ? Quad<T>::ld_nc(S.row + HDR + v) : Quad<T>::ldg(S.row + HDR + v);
       X.v[v] = mk(q.x, q.y, q.z);
-      if (q.w > 0.5f) vm |= 1u << v;
+      if (q.w > T(0.5)) vm |= 1u << v;
     } else {
-      X.v[v] = mk(0.0f, 0.0f, 0.0f);
+      X.v[v] = mk(T(0.0), T(0.0), T(0.0));
     }
   }
   S.vm = vm;
@@ -404,27 +408,30 @@ __device__ __forceinline__ void load_verts(Side& S, Verts& X) {
 
 // a side's header and vertices loaded again from its row, for one of the
 // passes after the SAT (nothing of a side stays live between passes)
-__device__ __forceinline__ void reload_side(const float4* row, Side& S,
-                                            Verts& X) {
+template <typename T>
+__device__ __forceinline__ void reload_side(const Q4<T>* row, Side<T>& S,
+                                            Verts<T>& X) {
   S.row = row;
-  const float4 h0 = ld_row(row), h2 = ld_row(row + 2), h3 = ld_row(row + 3);
+  const Q4<T> h0 = Quad<T>::ld_nc(row), h2 = Quad<T>::ld_nc(row + 2), h3 = Quad<T>::ld_nc(row + 3);
   S.pos = mk(h0.x, h0.y, h0.z);
   S.radius = h0.w;
   S.w = mk(h2.x, h2.y, h2.z);
   S.disc_r = h2.w;
-  S.nv = __float_as_int(h3.x);
-  load_verts<true>(S, X);
+  S.nv = Quad<T>::to_int(h3.x);
+  load_verts<T, true>(S, X);
 }
 
 // masked projection of vertex v on d
-__device__ __forceinline__ float vproj(const Side& S, const Verts& X, int v,
-                                       F3 d) {
-  return ((S.vm >> v) & 1u) ? dot(d, X.v[v]) : -BIG;
+template <typename T>
+__device__ __forceinline__ T vproj(const Side<T>& S, const Verts<T>& X, int v,
+                                       V3<T> d) {
+  return ((S.vm >> v) & 1u) ? dot(d, X.v[v]) : -kbig<T>();
 }
 
-__device__ __forceinline__ float max_proj(const Side& S, const Verts& X,
-                                          F3 d) {
-  float m = vproj(S, X, 0, d);
+template <typename T>
+__device__ __forceinline__ T max_proj(const Side<T>& S, const Verts<T>& X,
+                                          V3<T> d) {
+  T m = vproj(S, X, 0, d);
 #pragma unroll
   for (int v = 1; v < VMAX; ++v)
     if (v < S.nv) m = maxf(m, vproj(S, X, v, d));
@@ -434,15 +441,16 @@ __device__ __forceinline__ float max_proj(const Side& S, const Verts& X,
 // first vertex of largest masked projection: its index, and the vertex,
 // carried through the scan (an index-equality select over the array would
 // let the compiler turn the register array into an indexed local array)
-__device__ __forceinline__ F3 deepest(const Side& S, const Verts& X, F3 d,
+template <typename T>
+__device__ __forceinline__ V3<T> deepest(const Side<T>& S, const Verts<T>& X, V3<T> d,
                                       int* index = nullptr) {
-  float m = vproj(S, X, 0, d);
-  F3 r = X.v[0];
+  T m = vproj(S, X, 0, d);
+  V3<T> r = X.v[0];
   int best = 0;
 #pragma unroll
   for (int v = 1; v < VMAX; ++v) {
     if (v < S.nv) {
-      const float p = vproj(S, X, v, d);
+      const T p = vproj(S, X, v, d);
       if (p > m) {
         m = p;
         best = v;
@@ -454,169 +462,179 @@ __device__ __forceinline__ F3 deepest(const Side& S, const Verts& X, F3 d,
   return r;
 }
 
-__device__ __forceinline__ float support_projection(const Side& S,
-                                                    const Verts& X, F3 d) {
-  const float base = max_proj(S, X, d);
-  const float dw = dot(d, S.w);
-  const float perp2 = maxf(dot(d, d) - dw * dw, 0.0f);
-  return base + S.radius + S.disc_r * sqrtf(perp2);
+template <typename T>
+__device__ __forceinline__ T support_projection(const Side<T>& S,
+                                                    const Verts<T>& X, V3<T> d) {
+  const T base = max_proj(S, X, d);
+  const T dw = dot(d, S.w);
+  const T perp2 = maxf(dot(d, d) - dw * dw, T(0.0));
+  return base + S.radius + S.disc_r * sqrt_(perp2);
 }
 
-__device__ __forceinline__ F3 support_point(const Side& S, const Verts& X,
-                                            F3 d) {
-  const F3 base = deepest(S, X, d);
-  const float dw = dot(d, S.w);
-  const F3 perp = sub(d, scale(S.w, dw));
-  const float plen = length(perp);
-  const F3 disc = scale(perp, S.disc_r / maxf(plen, EPS));
+template <typename T>
+__device__ __forceinline__ V3<T> support_point(const Side<T>& S, const Verts<T>& X,
+                                            V3<T> d) {
+  const V3<T> base = deepest(S, X, d);
+  const T dw = dot(d, S.w);
+  const V3<T> perp = sub(d, scale(S.w, dw));
+  const T plen = length(perp);
+  const V3<T> disc = scale(perp, S.disc_r / maxf(plen, keps<T>()));
   return add(add(base, scale(d, S.radius)), disc);
 }
 
-__device__ __forceinline__ F3 closest_on_circle(F3 c, F3 w, float r, F3 x) {
-  const F3 u = sub(x, c);
-  const F3 perp = sub(u, scale(w, dot(u, w)));
-  F3 t1, t2;
+template <typename T>
+__device__ __forceinline__ V3<T> closest_on_circle(V3<T> c, V3<T> w, T r, V3<T> x) {
+  const V3<T> u = sub(x, c);
+  const V3<T> perp = sub(u, scale(w, dot(u, w)));
+  V3<T> t1, t2;
   ortho_basis(w, t1, t2);
   return add(c, scale(normalize_or(perp, t1), r));
 }
 
-__device__ __forceinline__ F3 closest_on_segment(F3 q0, F3 q1, F3 x) {
-  const F3 d = sub(q1, q0);
-  const float dd = dot(d, d);
-  const float t =
-      minf(maxf(dot(sub(x, q0), d) / maxf(dd, EPS), 0.0f), 1.0f);
+template <typename T>
+__device__ __forceinline__ V3<T> closest_on_segment(V3<T> q0, V3<T> q1, V3<T> x) {
+  const V3<T> d = sub(q1, q0);
+  const T dd = dot(d, d);
+  const T t =
+      minf(maxf(dot(sub(x, q0), d) / maxf(dd, keps<T>()), T(0.0)), T(1.0));
   return add(q0, scale(d, t));
 }
 
 // rim candidate axis of side C (which has a disc) against side D
 // (pallas_unified._rim_axes)
-__device__ __forceinline__ F3 rim_axis(const Side& C, const Verts& XC,
-                                       const Side& D, const Verts& XD,
-                                       F3 seed, bool& ok) {
-  const F3 cC = deepest(C, XC, neg(seed));
-  const float rC = C.disc_r;
-  const bool d_is_disc = D.disc_r > 1e-9f;
+template <typename T>
+__device__ __forceinline__ V3<T> rim_axis(const Side<T>& C, const Verts<T>& XC,
+                                       const Side<T>& D, const Verts<T>& XD,
+                                       V3<T> seed, bool& ok) {
+  const V3<T> cC = deepest(C, XC, neg(seed));
+  const T rC = C.disc_r;
+  const bool d_is_disc = D.disc_r > T(1e-9);
   int i0;
-  const F3 cD = deepest(D, XD, seed, &i0);
+  const V3<T> cD = deepest(D, XD, seed, &i0);
   // the two highest-projection vertices of D along seed
-  float m2 = i0 == 0 ? -BIG : vproj(D, XD, 0, seed);
-  F3 q1 = XD.v[0];
+  T m2 = i0 == 0 ? -kbig<T>() : vproj(D, XD, 0, seed);
+  V3<T> q1 = XD.v[0];
 #pragma unroll
   for (int v = 1; v < VMAX; ++v) {
     if (v < D.nv) {
-      const float p = v == i0 ? -BIG : vproj(D, XD, v, seed);
+      const T p = v == i0 ? -kbig<T>() : vproj(D, XD, v, seed);
       if (p > m2) {
         m2 = p;
         q1 = XD.v[v];
       }
     }
   }
-  const F3 q0 = cD;
-  if (!(m2 > -1e29f)) q1 = q0;
+  const V3<T> q0 = cD;
+  if (!(m2 > -T(1e29))) q1 = q0;
 
-  F3 p = closest_on_circle(cC, C.w, rC, cD);
-  F3 q = p;
+  V3<T> p = closest_on_circle(cC, C.w, rC, cD);
+  V3<T> q = p;
   for (int it = 0; it < 8; ++it) {
     q = d_is_disc ? closest_on_circle(cD, D.w, D.disc_r, p)
                   : closest_on_segment(q0, q1, p);
     p = closest_on_circle(cC, C.w, rC, q);
   }
-  const F3 ax = sub(p, q);
-  ok = length(ax) > 1e-7f;
+  const V3<T> ax = sub(p, q);
+  ok = length(ax) > T(1e-7);
   return normalize_or(ax, seed);
 }
 
 // direction of the supporting feature along d when it is a line (2 verts)
-__device__ __forceinline__ F3 line_feature_dir(const Side& S, const Verts& X,
-                                               F3 d, bool& line) {
-  const float thr = max_proj(S, X, d) - 1e-3f;
+template <typename T>
+__device__ __forceinline__ V3<T> line_feature_dir(const Side<T>& S, const Verts<T>& X,
+                                               V3<T> d, bool& line) {
+  const T thr = max_proj(S, X, d) - T(1e-3);
   bool feat[VMAX];
 #pragma unroll
   for (int v = 0; v < VMAX; ++v)
     feat[v] = v < S.nv && ((S.vm >> v) & 1u) && vproj(S, X, v, d) >= thr;
-  float cnt = feat[0] ? 1.0f : 0.0f;
-  F3 acc = scale(X.v[0], cnt);
+  T cnt = feat[0] ? T(1.0) : T(0.0);
+  V3<T> acc = scale(X.v[0], cnt);
 #pragma unroll
   for (int v = 1; v < VMAX; ++v) {
     if (v < S.nv) {
-      const float f = feat[v] ? 1.0f : 0.0f;
+      const T f = feat[v] ? T(1.0) : T(0.0);
       cnt = cnt + f;
       acc = add(acc, scale(X.v[v], f));
     }
   }
-  const float div = maxf(cnt, 1.0f);
-  const F3 cen = mk(acc.x / div, acc.y / div, acc.z / div);
-  F3 best = feat[0] ? sub(X.v[0], cen) : mk(0.0f, 0.0f, 0.0f);
-  float bd = dot(best, best);
+  const T div = maxf(cnt, T(1.0));
+  const V3<T> cen = mk(acc.x / div, acc.y / div, acc.z / div);
+  V3<T> best = feat[0] ? sub(X.v[0], cen) : mk(T(0.0), T(0.0), T(0.0));
+  T bd = dot(best, best);
 #pragma unroll
   for (int v = 1; v < VMAX; ++v) {
     if (v < S.nv) {
-      const F3 df = feat[v] ? sub(X.v[v], cen) : mk(0.0f, 0.0f, 0.0f);
-      const float d2 = dot(df, df);
+      const V3<T> df = feat[v] ? sub(X.v[v], cen) : mk(T(0.0), T(0.0), T(0.0));
+      const T d2 = dot(df, df);
       if (d2 > bd) {
         bd = d2;
         best = df;
       }
     }
   }
-  line = cnt == 2.0f;
+  line = cnt == T(2.0);
   return best;
 }
 
-__device__ __forceinline__ bool flat_feature(const Side& S, const Verts& X,
-                                             F3 d) {
-  const float thr = max_proj(S, X, d) - 1e-3f;
-  float cnt = vproj(S, X, 0, d) >= thr ? 1.0f : 0.0f;
+template <typename T>
+__device__ __forceinline__ bool flat_feature(const Side<T>& S, const Verts<T>& X,
+                                             V3<T> d) {
+  const T thr = max_proj(S, X, d) - T(1e-3);
+  T cnt = vproj(S, X, 0, d) >= thr ? T(1.0) : T(0.0);
 #pragma unroll
   for (int v = 1; v < VMAX; ++v)
-    if (v < S.nv) cnt = cnt + (vproj(S, X, v, d) >= thr ? 1.0f : 0.0f);
-  const bool cap = (S.disc_r > 1e-9f) && (fabsf(dot(d, S.w)) > 0.99f);
-  return (S.radius < 1e-9f) && ((cnt >= 2.0f) || cap);
+    if (v < S.nv) cnt = cnt + (vproj(S, X, v, d) >= thr ? T(1.0) : T(0.0));
+  const bool cap = (S.disc_r > T(1e-9)) && (fabs_(dot(d, S.w)) > T(0.99));
+  return (S.radius < T(1e-9)) && ((cnt >= T(2.0)) || cap);
 }
 
 // extent [lo, hi] along t of the supporting feature along d
-__device__ __forceinline__ void feature_slab(const Side& S, const Verts& X,
-                                             F3 d, F3 t, float& lo,
-                                             float& hi) {
-  const float thr = max_proj(S, X, d) - 1e-3f;
-  lo = BIG;
-  hi = -BIG;
+template <typename T>
+__device__ __forceinline__ void feature_slab(const Side<T>& S, const Verts<T>& X,
+                                             V3<T> d, V3<T> t, T& lo,
+                                             T& hi) {
+  const T thr = max_proj(S, X, d) - T(1e-3);
+  lo = kbig<T>();
+  hi = -kbig<T>();
 #pragma unroll
   for (int v = 0; v < VMAX; ++v) {
     if (v < S.nv) {
       const bool feat = vproj(S, X, v, d) >= thr;
-      const float vt = dot(t, X.v[v]);
-      lo = minf(lo, feat ? vt : BIG);
-      hi = maxf(hi, feat ? vt : -BIG);
+      const T vt = dot(t, X.v[v]);
+      lo = minf(lo, feat ? vt : kbig<T>());
+      hi = maxf(hi, feat ? vt : -kbig<T>());
     }
   }
-  const float off = S.radius * dot(d, t);
-  const float dw = dot(d, S.w);
-  const F3 perp = sub(d, scale(S.w, dw));
-  const float plen = length(perp);
-  const bool cap = fabsf(dw) > 0.99f;
-  const F3 tw = sub(t, scale(S.w, dot(t, S.w)));
-  const float disc_span = S.disc_r * length(tw);
-  const float rim_off = S.disc_r * dot(perp, t) / maxf(plen, EPS);
+  const T off = S.radius * dot(d, t);
+  const T dw = dot(d, S.w);
+  const V3<T> perp = sub(d, scale(S.w, dw));
+  const T plen = length(perp);
+  const bool cap = fabs_(dw) > T(0.99);
+  const V3<T> tw = sub(t, scale(S.w, dot(t, S.w)));
+  const T disc_span = S.disc_r * length(tw);
+  const T rim_off = S.disc_r * dot(perp, t) / maxf(plen, keps<T>());
   lo = lo + off + (cap ? -disc_span : rim_off);
   hi = hi + off + (cap ? disc_span : rim_off);
 }
 
 // Running first-index argmax over the unmasked candidate axes.
+template <typename T>
 struct Best {
   bool any;
-  float sep, plane_a, plane_b;
-  F3 n;
+  T sep, plane_a, plane_b;
+  V3<T> n;
 };
 
-__device__ __forceinline__ void consider(const Side& A, const Verts& XA,
-                                         const Side& B, const Verts& XB,
-                                         F3 delta, F3 axis, Best& b) {
-  const float sgn = dot(axis, delta) >= 0.0f ? 1.0f : -1.0f;
+template <typename T>
+__device__ __forceinline__ void consider(const Side<T>& A, const Verts<T>& XA,
+                                         const Side<T>& B, const Verts<T>& XB,
+                                         V3<T> delta, V3<T> axis, Best<T>& b) {
+  const T sgn = dot(axis, delta) >= T(0.0) ? T(1.0) : -T(1.0);
   axis = scale(axis, sgn);
-  const float pa = -support_projection(A, XA, neg(axis));
-  const float pb = support_projection(B, XB, axis);
-  const float sep = pa - pb;
+  const T pa = -support_projection(A, XA, neg(axis));
+  const T pb = support_projection(B, XB, axis);
+  const T sep = pa - pb;
   if (!b.any || sep > b.sep) {
     b.any = true;
     b.sep = sep;
@@ -626,25 +644,31 @@ __device__ __forceinline__ void consider(const Side& A, const Verts& XA,
   }
 }
 
-__device__ __forceinline__ F3 xyz(float4 q) { return mk(q.x, q.y, q.z); }
+__device__ __forceinline__ V3<float> xyz(float4 q) {
+  return mk(q.x, q.y, q.z);
+}
+__device__ __forceinline__ V3<double> xyz(double4x q) {
+  return mk(q.x, q.y, q.z);
+}
 
 // the face, centre-delta and cylinder-side axes of side S (A or B)
-__device__ __forceinline__ void side_axes(const Side& A, const Verts& XA,
-                                          const Side& B, const Verts& XB,
-                                          const Side& S, F3 other, F3 delta,
-                                          int of, Best& best) {
-  const F3 ydef = mk(0.0f, 1.0f, 0.0f);
+template <typename T>
+__device__ __forceinline__ void side_axes(const Side<T>& A, const Verts<T>& XA,
+                                          const Side<T>& B, const Verts<T>& XB,
+                                          const Side<T>& S, V3<T> other, V3<T> delta,
+                                          int of, Best<T>& best) {
+  const V3<T> ydef = mk(T(0.0), T(1.0), T(0.0));
   for (int f = 0; f < S.nf; ++f) {
-    const float4 fq = __ldg(S.row + of + f);
-    if (fq.w > 0.5f) consider(A, XA, B, XB, delta, xyz(fq), best);
+    const Q4<T> fq = Quad<T>::ldg(S.row + of + f);
+    if (fq.w > T(0.5)) consider(A, XA, B, XB, delta, xyz(fq), best);
   }
-  const F3 d = sub(other, S.pos);
+  const V3<T> d = sub(other, S.pos);
   consider(A, XA, B, XB, delta, normalize_or(d, ydef), best);
-  if (S.disc_r > 1e-9f) {
-    const F3 perp = sub(d, scale(S.w, dot(d, S.w)));
-    const float plen = length(perp);
-    if (plen > 1e-9f)
-      consider(A, XA, B, XB, delta, scale(perp, 1.0f / maxf(plen, EPS)),
+  if (S.disc_r > T(1e-9)) {
+    const V3<T> perp = sub(d, scale(S.w, dot(d, S.w)));
+    const T plen = length(perp);
+    if (plen > T(1e-9))
+      consider(A, XA, B, XB, delta, scale(perp, T(1.0) / maxf(plen, keps<T>())),
                best);
   }
 }
@@ -652,24 +676,24 @@ __device__ __forceinline__ void side_axes(const Side& A, const Verts& XA,
 // the 5 tilted support samples of side A (candidates 0-4) or B (5-9): the
 // support point pt and its depth against the other side's plane (the
 // images on the other side follow from these two, see on_sides)
-template <bool IS_A>
-__device__ __forceinline__ void side_samples(const Side& S, const Verts& X,
-                                             F3 base, F3 n, F3 t1, F3 t2,
-                                             float plane, F3 (&pt)[10],
-                                             float (&depth)[10]) {
+template <typename T, bool IS_A>
+__device__ __forceinline__ void side_samples(const Side<T>& S, const Verts<T>& X,
+                                             V3<T> base, V3<T> n, V3<T> t1, V3<T> t2,
+                                             T plane, V3<T> (&pt)[10],
+                                             T (&depth)[10]) {
   constexpr int o = IS_A ? 0 : 5;
 #pragma unroll
   for (int i = 0; i < 5; ++i) {
-    F3 tilt = mk(0.0f, 0.0f, 0.0f);
+    V3<T> tilt = mk(T(0.0), T(0.0), T(0.0));
     if (i == 1 || i == 2) tilt = t1;
     if (i == 3 || i == 4) tilt = t2;
-    const float sg = (i == 1 || i == 3) ? 1.0f : -1.0f;
-    F3 d = base;
+    const T sg = (i == 1 || i == 3) ? T(1.0) : -T(1.0);
+    V3<T> d = base;
     if (i > 0) {
-      const F3 tt = scale(tilt, TILT);
-      d = sg > 0.0f ? add(base, tt) : sub(base, tt);
+      const V3<T> tt = scale(tilt, ktilt<T>());
+      d = sg > T(0.0) ? add(base, tt) : sub(base, tt);
     }
-    const F3 p = support_point(S, X, normalize(d));
+    const V3<T> p = support_point(S, X, normalize(d));
     pt[o + i] = p;
     depth[o + i] = IS_A ? dot(p, n) - plane : plane - dot(p, n);
   }
@@ -677,8 +701,9 @@ __device__ __forceinline__ void side_samples(const Side& S, const Verts& X,
 
 // candidate i's point on A and on B before the slab shift: a sample of A
 // and its image on B's plane, or the image on A's plane of a sample of B
-__device__ __forceinline__ void on_sides(int i, F3 p, float dep, F3 n,
-                                         F3& on_a, F3& on_b) {
+template <typename T>
+__device__ __forceinline__ void on_sides(int i, V3<T> p, T dep, V3<T> n,
+                                         V3<T>& on_a, V3<T>& on_b) {
   if (i < 5) {
     on_a = p;
     on_b = sub(p, scale(n, dep));
@@ -688,106 +713,107 @@ __device__ __forceinline__ void on_sides(int i, F3 p, float dep, F3 n,
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 4)
-    unified_kernel(const float4* __restrict__ feat, int V, int F, int E,
+    unified_kernel(const Q4<T>* __restrict__ feat, int V, int F, int E,
                    const long long* __restrict__ ka,
                    const long long* __restrict__ kb,
                    const long long* __restrict__ perm, int K,
-                   float threshold, int rim, float4* __restrict__ out) {
+                   T threshold, int rim, Q4<T>* __restrict__ out) {
   const int k = blockIdx.x * THREADS + threadIdx.x;
   if (k >= K) return;
   const long long pi = perm[k];
   const int rs4 = HDR + V + F + E;
   const int of = HDR + V, oe = HDR + V + F;  // face, edge float4s
-  const float4* rowA = feat + ka[pi] * rs4;
-  const float4* rowB = feat + kb[pi] * rs4;
+  const Q4<T>* rowA = feat + ka[pi] * rs4;
+  const Q4<T>* rowB = feat + kb[pi] * rs4;
 
   // --- SAT over the unmasked candidate axes, in the TPU kernel's order ---
-  Best best;
+  Best<T> best;
   {
-    Side A = load_side(feat, ka[pi], rs4);
-    Side B = load_side(feat, kb[pi], rs4);
-    const F3 delta = sub(A.pos, B.pos);
-    const F3 seed = normalize_or(delta, mk(0.0f, 1.0f, 0.0f));
-    Verts XA, XB;
-    load_verts<false>(A, XA);
-    load_verts<false>(B, XB);
+    Side<T> A = load_side<T>(feat, ka[pi], rs4);
+    Side<T> B = load_side<T>(feat, kb[pi], rs4);
+    const V3<T> delta = sub(A.pos, B.pos);
+    const V3<T> seed = normalize_or(delta, mk(T(0.0), T(1.0), T(0.0)));
+    Verts<T> XA, XB;
+    load_verts<T, false>(A, XA);
+    load_verts<T, false>(B, XB);
     best.any = false;
     side_axes(A, XA, B, XB, A, B.pos, delta, of, best);
     side_axes(A, XA, B, XB, B, A.pos, delta, of, best);
     for (int i = 0; i < A.ne; ++i) {
-      const float4 qa = __ldg(A.row + oe + i);
-      if (!(qa.w > 0.5f)) continue;
-      const F3 ea = xyz(qa);
+      const Q4<T> qa = Quad<T>::ldg(A.row + oe + i);
+      if (!(qa.w > T(0.5))) continue;
+      const V3<T> ea = xyz(qa);
       for (int j = 0; j < B.ne; ++j) {
-        const float4 qb = __ldg(B.row + oe + j);
-        F3 cr = cross(ea, xyz(qb));
-        const float crl = length(cr);
-        cr = scale(cr, 1.0f / maxf(crl, EPS));
-        if ((qb.w > 0.5f) && (crl > 1e-6f))
+        const Q4<T> qb = Quad<T>::ldg(B.row + oe + j);
+        V3<T> cr = cross(ea, xyz(qb));
+        const T crl = length(cr);
+        cr = scale(cr, T(1.0) / maxf(crl, keps<T>()));
+        if ((qb.w > T(0.5)) && (crl > T(1e-6)))
           consider(A, XA, B, XB, delta, cr, best);
       }
     }
     if (rim) {
       bool ok;
-      if (A.disc_r > 1e-9f) {
-        const F3 ra = rim_axis(A, XA, B, XB, seed, ok);
+      if (A.disc_r > T(1e-9)) {
+        const V3<T> ra = rim_axis(A, XA, B, XB, seed, ok);
         if (ok) consider(A, XA, B, XB, delta, ra, best);
       }
-      if (B.disc_r > 1e-9f) {
-        const F3 rb = rim_axis(B, XB, A, XA, seed, ok);
+      if (B.disc_r > T(1e-9)) {
+        const V3<T> rb = rim_axis(B, XB, A, XA, seed, ok);
         if (ok) consider(A, XA, B, XB, delta, rb, best);
       }
     }
   }
-  const F3 n = best.n;
-  const float best_sep = best.sep;
-  const F3 nn = neg(n);
+  const V3<T> n = best.n;
+  const T best_sep = best.sep;
+  const V3<T> nn = neg(n);
 
   // --- tangent basis aligned to line features ---
   bool lineA, lineB;
-  F3 eA, eB;
+  V3<T> eA, eB;
   {
-    Side S;
-    Verts X;
+    Side<T> S;
+    Verts<T> X;
     reload_side(rowA, S, X);
     eA = line_feature_dir(S, X, nn, lineA);
   }
   {
-    Side S;
-    Verts X;
+    Side<T> S;
+    Verts<T> X;
     reload_side(rowB, S, X);
     eB = line_feature_dir(S, X, n, lineB);
   }
-  const F3 e = sel(lineB, eB, eA);
-  const F3 e_t = sub(e, scale(n, dot(e, n)));
-  const bool use_line = (lineA || lineB) && (length(e_t) > 1e-6f);
-  F3 t1d, t2d;
+  const V3<T> e = sel(lineB, eB, eA);
+  const V3<T> e_t = sub(e, scale(n, dot(e, n)));
+  const bool use_line = (lineA || lineB) && (length(e_t) > T(1e-6));
+  V3<T> t1d, t2d;
   ortho_basis(n, t1d, t2d);
-  const F3 e_tn = normalize_or(e_t, t1d);
-  const F3 t1 = sel(use_line, e_tn, t1d);
-  const F3 t2 = sel(use_line, cross(n, t1), t2d);
+  const V3<T> e_tn = normalize_or(e_t, t1d);
+  const V3<T> t1 = sel(use_line, e_tn, t1d);
+  const V3<T> t2 = sel(use_line, cross(n, t1), t2d);
 
   // --- patch sampling (5 tilted directions per side -> 10 candidates),
   //     flat features and feature slabs, one side at a time ---
-  F3 pt[10];
-  float depth[10];
+  V3<T> pt[10];
+  T depth[10];
   bool flat_a, flat_b;
-  float lo_a[2], hi_a[2], lo_b[2], hi_b[2];
+  T lo_a[2], hi_a[2], lo_b[2], hi_b[2];
   {
-    Side S;
-    Verts X;
+    Side<T> S;
+    Verts<T> X;
     reload_side(rowA, S, X);
-    side_samples<true>(S, X, nn, n, t1, t2, best.plane_b, pt, depth);
+    side_samples<T, true>(S, X, nn, n, t1, t2, best.plane_b, pt, depth);
     flat_a = flat_feature(S, X, nn);
     feature_slab(S, X, nn, t1, lo_a[0], hi_a[0]);
     feature_slab(S, X, nn, t2, lo_a[1], hi_a[1]);
   }
   {
-    Side S;
-    Verts X;
+    Side<T> S;
+    Verts<T> X;
     reload_side(rowB, S, X);
-    side_samples<false>(S, X, n, n, t1, t2, best.plane_a, pt, depth);
+    side_samples<T, false>(S, X, n, n, t1, t2, best.plane_a, pt, depth);
     flat_b = flat_feature(S, X, n);
     feature_slab(S, X, n, t1, lo_b[0], hi_b[0]);
     feature_slab(S, X, n, t2, lo_b[1], hi_b[1]);
@@ -795,49 +821,49 @@ __global__ void __launch_bounds__(THREADS, 4)
   const bool both_flat = flat_a && flat_b;
 
   // --- feature-slab containment / clamp ---
-  float lo[2], hi[2];
+  T lo[2], hi[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     lo[r] = maxf(lo_a[r], lo_b[r]);
     hi[r] = maxf(minf(hi_a[r], hi_b[r]), lo[r]);
   }
-  F3 on_a[10], on_b[10];
+  V3<T> on_a[10], on_b[10];
   unsigned valid = 0u, shifted = 0u;
 #pragma unroll
   for (int i = 0; i < 10; ++i) {
     on_sides(i, pt[i], depth[i], n, on_a[i], on_b[i]);
     bool ok = (depth[i] < threshold) && (best_sep < threshold);
-    F3 shift = mk(0.0f, 0.0f, 0.0f);
+    V3<T> shift = mk(T(0.0), T(0.0), T(0.0));
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const F3 t = r == 0 ? t1 : t2;
-      const float proj = dot(on_a[i], t);
-      const bool inside = (proj >= lo[r] - 5e-3f) && (proj <= hi[r] + 5e-3f);
+      const V3<T> t = r == 0 ? t1 : t2;
+      const T proj = dot(on_a[i], t);
+      const bool inside = (proj >= lo[r] - T(5e-3)) && (proj <= hi[r] + T(5e-3));
       ok = ok && (inside || both_flat);
-      const float clipped = minf(maxf(proj, lo[r]), hi[r]);
-      const float dmove = both_flat ? clipped - proj : 0.0f;
+      const T clipped = minf(maxf(proj, lo[r]), hi[r]);
+      const T dmove = both_flat ? clipped - proj : T(0.0);
       shift = add(shift, scale(t, dmove));
     }
     if (ok) valid |= 1u << i;
     on_a[i] = add(on_a[i], shift);
     on_b[i] = add(on_b[i], shift);
-    if ((shift.x * shift.x + shift.y * shift.y + shift.z * shift.z) > EPS)
+    if ((shift.x * shift.x + shift.y * shift.y + shift.z * shift.z) > keps<T>())
       shifted |= 1u << i;
   }
   // selection depth: shifted candidates rank 1e-5 deeper
   const auto sel_depth = [&](int i) {
-    return depth[i] + (((shifted >> i) & 1u) ? 1e-5f : 0.0f);
+    return depth[i] + (((shifted >> i) & 1u) ? T(1e-5) : T(0.0));
   };
 
   // --- reduce to <= 4 (insertion heuristic); each scan carries its
   //     pick's point on A, point on B and depth ---
   int i0 = 0;
-  float m0 = (valid & 1u) ? sel_depth(0) : BIG;
-  F3 p0 = on_a[0], b0 = on_b[0];
-  float dd0 = depth[0];
+  T m0 = (valid & 1u) ? sel_depth(0) : kbig<T>();
+  V3<T> p0 = on_a[0], b0 = on_b[0];
+  T dd0 = depth[0];
 #pragma unroll
   for (int i = 1; i < 10; ++i) {
-    const float d0 = ((valid >> i) & 1u) ? sel_depth(i) : BIG;
+    const T d0 = ((valid >> i) & 1u) ? sel_depth(i) : kbig<T>();
     if (d0 < m0) {
       m0 = d0;
       i0 = i;
@@ -846,21 +872,21 @@ __global__ void __launch_bounds__(THREADS, 4)
       dd0 = depth[i];
     }
   }
-  const bool v0 = m0 < BIG * 0.5f;
+  const bool v0 = m0 < kbig<T>() * T(0.5);
   unsigned taken = 1u << i0;
 
-  float dist0[10];
+  T dist0[10];
 #pragma unroll
   for (int i = 0; i < 10; ++i)
     dist0[i] = sq(on_a[i].x - p0.x) + sq(on_a[i].y - p0.y) +
                sq(on_a[i].z - p0.z);
   int i1 = 0;
-  float m1 = -BIG;
-  F3 p1 = on_a[0], b1 = on_b[0];
-  float dd1 = depth[0];
+  T m1 = -kbig<T>();
+  V3<T> p1 = on_a[0], b1 = on_b[0];
+  T dd1 = depth[0];
 #pragma unroll
   for (int i = 0; i < 10; ++i) {
-    const float c1 = (((valid & ~taken) >> i) & 1u) ? dist0[i] : -BIG;
+    const T c1 = (((valid & ~taken) >> i) & 1u) ? dist0[i] : -kbig<T>();
     if (i == 0 || c1 > m1) {
       m1 = c1;
       i1 = i;
@@ -869,19 +895,19 @@ __global__ void __launch_bounds__(THREADS, 4)
       dd1 = depth[i];
     }
   }
-  const bool v1 = v0 && (m1 > 0.0f);
+  const bool v1 = v0 && (m1 > T(0.0));
   taken |= 1u << i1;
 
-  const F3 e01 = sub(p1, p0);
+  const V3<T> e01 = sub(p1, p0);
   int i2 = 0;
-  float m2 = -BIG;
-  F3 p2 = on_a[0], b2 = on_b[0];
-  float dd2 = depth[0];
+  T m2 = -kbig<T>();
+  V3<T> p2 = on_a[0], b2 = on_b[0];
+  T dd2 = depth[0];
 #pragma unroll
   for (int i = 0; i < 10; ++i) {
-    const F3 crs = cross(sub(on_a[i], p0), e01);
-    const float area = dot(crs, crs);
-    const float c2 = (((valid & ~taken) >> i) & 1u) ? area : -BIG;
+    const V3<T> crs = cross(sub(on_a[i], p0), e01);
+    const T area = dot(crs, crs);
+    const T c2 = (((valid & ~taken) >> i) & 1u) ? area : -kbig<T>();
     if (i == 0 || c2 > m2) {
       m2 = c2;
       i2 = i;
@@ -890,19 +916,19 @@ __global__ void __launch_bounds__(THREADS, 4)
       dd2 = depth[i];
     }
   }
-  const bool v2 = v1 && (m2 > EPS);
+  const bool v2 = v1 && (m2 > keps<T>());
   taken |= 1u << i2;
 
-  float m3 = -BIG;
-  F3 p3 = on_a[0], b3 = on_b[0];
-  float dd3 = depth[0];
+  T m3 = -kbig<T>();
+  V3<T> p3 = on_a[0], b3 = on_b[0];
+  T dd3 = depth[0];
 #pragma unroll
   for (int i = 0; i < 10; ++i) {
-    const F3 a = on_a[i];
-    const float d_all = dist0[i] + sq(a.x - p1.x) + sq(a.y - p1.y) +
+    const V3<T> a = on_a[i];
+    const T d_all = dist0[i] + sq(a.x - p1.x) + sq(a.y - p1.y) +
                         sq(a.z - p1.z) + sq(a.x - p2.x) + sq(a.y - p2.y) +
                         sq(a.z - p2.z);
-    const float c3 = (((valid & ~taken) >> i) & 1u) ? d_all : -BIG;
+    const T c3 = (((valid & ~taken) >> i) & 1u) ? d_all : -kbig<T>();
     if (i == 0 || c3 > m3) {
       m3 = c3;
       p3 = on_a[i];
@@ -910,22 +936,22 @@ __global__ void __launch_bounds__(THREADS, 4)
       dd3 = depth[i];
     }
   }
-  const bool v3 = v2 && (m3 > 0.0f);
+  const bool v3 = v2 && (m3 > T(0.0));
 
   // --- output: row pi of [K, 48], 12 floats (3 float4s) per point ---
-  const float4 pa4 = ld_row(rowA), qa4 = ld_row(rowA + 1);
-  const float4 pb4 = ld_row(rowB), qb4 = ld_row(rowB + 1);
-  const F3 posA = xyz(pa4), posB = xyz(pb4);
-  const float ornA[4] = {qa4.x, qa4.y, qa4.z, qa4.w};
-  const float ornB[4] = {qb4.x, qb4.y, qb4.z, qb4.w};
-  float4* o = out + pi * 12;
-  const auto write = [&](int p, F3 pa_w, F3 pb_w, float dd, bool pv) {
+  const Q4<T> pa4 = Quad<T>::ld_nc(rowA), qa4 = Quad<T>::ld_nc(rowA + 1);
+  const Q4<T> pb4 = Quad<T>::ld_nc(rowB), qb4 = Quad<T>::ld_nc(rowB + 1);
+  const V3<T> posA = xyz(pa4), posB = xyz(pb4);
+  const T ornA[4] = {qa4.x, qa4.y, qa4.z, qa4.w};
+  const T ornB[4] = {qb4.x, qb4.y, qb4.z, qb4.w};
+  Q4<T>* o = out + pi * 12;
+  const auto write = [&](int p, V3<T> pa_w, V3<T> pb_w, T dd, bool pv) {
     const bool vv = pv && (dd < threshold);
-    const F3 piv_a = qrotate_inv(ornA, sub(pa_w, posA));
-    const F3 piv_b = qrotate_inv(ornB, sub(pb_w, posB));
-    o[3 * p] = make_float4(piv_a.x, piv_a.y, piv_a.z, piv_b.x);
-    o[3 * p + 1] = make_float4(piv_b.y, piv_b.z, n.x, n.y);
-    o[3 * p + 2] = make_float4(n.z, 0.0f, dd, vv ? 1.0f : 0.0f);
+    const V3<T> piv_a = qrotate_inv(ornA, sub(pa_w, posA));
+    const V3<T> piv_b = qrotate_inv(ornB, sub(pb_w, posB));
+    o[3 * p] = Quad<T>::make(piv_a.x, piv_a.y, piv_a.z, piv_b.x);
+    o[3 * p + 1] = Quad<T>::make(piv_b.y, piv_b.z, n.x, n.y);
+    o[3 * p + 2] = Quad<T>::make(n.z, T(0.0), dd, vv ? T(1.0) : T(0.0));
   };
   write(0, p0, b0, dd0, v0);
   write(1, p1, b1, dd1, v1);
@@ -933,31 +959,61 @@ __global__ void __launch_bounds__(THREADS, 4)
   write(3, p3, b3, dd3, v3);
 }
 
-}  // namespace
-
-// tbl [C, N] float32 side table of widths (V, F, E); feat [N, 4 (4 + V + F
-// + E)] float32 body-major world features; code [N] int32 class codes;
-// present [NCODES] int32 scratch; ids [NCODES + 1] int32 class numbers.
-extern "C" int edyn_unified_features(const float* tbl, int N, int V, int F,
-                                     int E, float* feat, int* code,
-                                     int* present, int* ids, void* stream) {
+template <typename T>
+int unified_features(const T* tbl, int N, int V, int F, int E, T* feat,
+                     int* code, int* present, int* ids, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (V > VMAX) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaMemsetAsync(present, 0, NCODES * sizeof(int), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t tile = sizeof(float) * 33 * (12 + 4 * (V + F + E));
+  // the staged [C][33] tile, sized by the scalar type (84 rows: ~11 KB at
+  // float, ~22 KB at double)
+  const size_t tile = sizeof(T) * 33 * (12 + 4 * (V + F + E));
   if (tile > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   if (N > 0)
-    features_kernel<<<(N + 31) / 32, 32 * PRE_WARPS, tile, s>>>(
-        tbl, N, V, F, E, reinterpret_cast<float4*>(feat), code, present);
+    features_kernel<T><<<(N + 31) / 32, 32 * PRE_WARPS, tile, s>>>(
+        tbl, N, V, F, E, reinterpret_cast<Q4<T>*>(feat), code, present);
   class_ids_kernel<<<1, 1024, 0, s>>>(present, ids);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int collide_support(const T* feat, int V, int F, int E, const long long* ka,
+                    const long long* kb, const long long* perm, int K,
+                    T threshold, int rim, T* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (V > VMAX) return static_cast<int>(cudaErrorInvalidValue);
+  if (K == 0) return 0;
+  unified_kernel<T><<<(K + THREADS - 1) / THREADS, THREADS, 0, s>>>(
+      reinterpret_cast<const Q4<T>*>(feat), V, F, E, ka, kb, perm, K,
+      threshold, rim, reinterpret_cast<Q4<T>*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// tbl [C, N] side table of widths (V, F, E); feat [N, 4 (4 + V + F + E)]
+// body-major world features; code [N] int32 class codes; present [NCODES]
+// int32 scratch; ids [NCODES + 1] int32 class numbers. float32 tables here,
+// float64 in edyn_unified_features_f64.
+extern "C" int edyn_unified_features(const float* tbl, int N, int V, int F,
+                                     int E, float* feat, int* code,
+                                     int* present, int* ids, void* stream) {
+  return unified_features(tbl, N, V, F, E, feat, code, present, ids, stream);
+}
+
+extern "C" int edyn_unified_features_f64(const double* tbl, int N, int V,
+                                         int F, int E, double* feat,
+                                         int* code, int* present, int* ids,
+                                         void* stream) {
+  return unified_features(tbl, N, V, F, E, feat, code, present, ids, stream);
 }
 
 // code, ids from edyn_unified_features; ka, kb [K] int64 body indices;
 // bins [K] int32 and counts [MAX_BINS * ceil(K / CHUNK)] int32 scratch
 // (CHUNK = 1,024);
-// perm [K] int64: the pairs stably sorted by class.
+// perm [K] int64: the pairs stably sorted by class. Integers only: one
+// entry point for both scalar types.
 extern "C" int edyn_unified_pair_order(const int* code, const int* ids,
                                        const long long* ka,
                                        const long long* kb, int K, int* bins,
@@ -975,17 +1031,22 @@ extern "C" int edyn_unified_pair_order(const int* code, const int* ids,
 }
 
 // feat from edyn_unified_features; ka, kb [K] int64; perm [K] int64 (pairs
-// in class order); out [K, 48] float32.
+// in class order); out [K, 48] of the features' scalar type.
 extern "C" int edyn_collide_support(const float* feat, int V, int F, int E,
                                     const long long* ka, const long long* kb,
                                     const long long* perm, int K,
                                     float threshold, int rim, float* out,
                                     void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (V > VMAX) return static_cast<int>(cudaErrorInvalidValue);
-  if (K == 0) return 0;
-  unified_kernel<<<(K + THREADS - 1) / THREADS, THREADS, 0, s>>>(
-      reinterpret_cast<const float4*>(feat), V, F, E, ka, kb, perm, K,
-      threshold, rim, reinterpret_cast<float4*>(out));
-  return static_cast<int>(cudaGetLastError());
+  return collide_support(feat, V, F, E, ka, kb, perm, K, threshold, rim, out,
+                         stream);
+}
+
+extern "C" int edyn_collide_support_f64(const double* feat, int V, int F,
+                                        int E, const long long* ka,
+                                        const long long* kb,
+                                        const long long* perm, int K,
+                                        double threshold, int rim,
+                                        double* out, void* stream) {
+  return collide_support(feat, V, F, E, ka, kb, perm, K, threshold, rim, out,
+                         stream);
 }

@@ -25,7 +25,7 @@ def solve_positions(state, tbl, ab_p, num_iterations: int):
     if num_iterations <= 0:
         return state
     N = state.capacity
-    dpq_t = torch.zeros((6, N), device=tbl.device)
+    dpq_t = torch.zeros((6, N), dtype=tbl.dtype, device=tbl.device)
     for _ in range(num_iterations):
         upd, err = sk.ngs_iteration(tbl, dpq_t[:, ab_p],
                                     float(CONTACT_POSITION_CORRECTION_RATE),

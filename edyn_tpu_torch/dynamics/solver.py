@@ -91,7 +91,7 @@ def pack_solver_view(state):
     roll_axis 32:35."""
     N = state.capacity
     Iw = state.inertia_world_inv().reshape(N, 9)
-    f = lambda x: x.to(torch.float32)[:, None]
+    f = lambda x: x.to(state.dtype)[:, None]
     return torch.cat([
         state.orn, state.linvel, state.angvel, f(state.mass_inv), Iw,
         f(state.friction), f(state.restitution), f(state.spin_friction),
@@ -105,7 +105,7 @@ def pack_manifold_points(man):
     """[M,4,14]: pivot_a 0:3 | pivot_b 3:6 | local_normal 6:9 |
     attachment 9 | distance 10 | point_valid 11 | friction_scale 12 |
     restitution_scale 13."""
-    f = lambda x: x.to(torch.float32)[..., None]
+    f = lambda x: x.to(man.pivot_a.dtype)[..., None]
     return torch.cat([
         man.pivot_a, man.pivot_b, man.local_normal,
         f(man.normal_attachment), f(man.distance), f(man.point_valid),
@@ -199,9 +199,10 @@ def build_contact_rows(state, man, dt: float, use_restitution_solver: bool,
     rB = quat.rotate(orn_b, pb_l - gb[:, 29:32])
 
     if mass_splitting:
-        v2 = valid.to(torch.float32)
+        v2 = valid.to(state.dtype)
         # counts of 0 and 1 are exact in any order of summation
-        deg = torch.ones((state.capacity,), device=dev).index_add(
+        deg = torch.ones((state.capacity,), dtype=state.dtype,
+                         device=dev).index_add(
             0, ab, torch.cat([v2, v2]))
         dg = torch.clamp(deg[ab] - 1.0, min=1.0)
         degA, degB = dg[:R], dg[R:]
@@ -424,12 +425,12 @@ def scatter_add_ab(dvw, ab, lin_a, ang_a, lin_b, ang_b):
     return index_sum(dvw, ab, torch.cat([ua, ub]))
 
 
-def degree_counts(N: int, idx_list, valid_list):
+def degree_counts(N: int, idx_list, valid_list, dtype=torch.float32):
     """Constraint degree per body (for mass splitting), >= 1 (counts of 0
     and 1, exact in any order of summation)."""
-    deg = torch.zeros((N,), dtype=torch.float32, device=idx_list[0].device)
+    deg = torch.zeros((N,), dtype=dtype, device=idx_list[0].device)
     for idx, valid in zip(idx_list, valid_list):
-        deg = deg.index_add(0, idx.long(), valid.to(torch.float32))
+        deg = deg.index_add(0, idx.long(), valid.to(dtype))
     return torch.clamp(deg, min=1.0)
 
 
@@ -473,9 +474,9 @@ def solve_restitution(state, tbl, ab_p, num_iterations: int,
         if not bool(torch.any(active)):
             break
         rhs = -relvel * (1.0 + restit_p)
-        dyn = torch.cat([rhs, active.to(torch.float32)], dim=0)
-        dvw_t = torch.zeros((6, N), device=dev)
-        imp3_t = torch.zeros((3, Rp), device=dev)
+        dyn = torch.cat([rhs, active.to(tbl.dtype)], dim=0)
+        dvw_t = torch.zeros((6, N), dtype=tbl.dtype, device=dev)
+        imp3_t = torch.zeros((3, Rp), dtype=tbl.dtype, device=dev)
         for _ in range(num_individual_iterations):
             g = dvw_t[:, ab_p]
             imp3_t, upd = sk.restitution_iteration(tbl, dyn, imp3_t, g)

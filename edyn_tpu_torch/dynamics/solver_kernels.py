@@ -3,8 +3,8 @@ packed row table they read.
 
 Counterpart of ``edyn_tpu/dynamics/pallas_solver.py``. The contact-row
 constants are packed once per solve phase into ONE component-major
-``[C, Rp]`` float32 table (``pack_rows_t``, the same layout as the JAX
-package's), and every iteration runs as
+``[C, Rp]`` table at the rows' scalar dtype (``pack_rows_t``, the same
+layout as the JAX package's), and every iteration runs as
 
     gather (index_select) -> kernel -> scatter-add (index_add_)
 
@@ -22,9 +22,12 @@ nvcc for sm_90a at first use and loaded with ctypes by ``utils/cuda_lib``):
 - ``relvel``: normal relative velocity per row (K3b, replaces
   ``relvel_pallas``).
 
-Each wrapper takes the plain version for tensors on the CPU; for CUDA
-tensors it launches the kernel, or raises. It never falls back.
-``LAUNCHES`` counts kernel launches per wrapper.
+Each kernel is one CUDA source templated on the scalar type, with a float
+and a double entry point (``edyn_*`` and ``edyn_*_f64``). Each wrapper takes
+the plain version for tensors on the CPU; for CUDA tensors it launches the
+entry of the tensors' dtype (float32 or float64), or raises. It never
+falls back and never casts. ``LAUNCHES`` counts the float entries'
+launches per wrapper, ``LAUNCHES_F64`` the double entries'.
 """
 from __future__ import annotations
 
@@ -84,11 +87,13 @@ def rows_read(name: str, with_sr: bool = False) -> int:
 
 LAUNCHES = {"solve_iteration": 0, "ngs_iteration": 0,
             "restitution_iteration": 0, "relvel": 0}
+LAUNCHES_F64 = dict.fromkeys(LAUNCHES, 0)
 
 
 def reset_launch_counts():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, LAUNCHES_F64):
+        for k in counts:
+            counts[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -96,19 +101,20 @@ def reset_launch_counts():
 # ---------------------------------------------------------------------------
 
 def pack_rows_t(rows):
-    """Pack the per-row solve constants into ONE [C, Rp] float32 table (Rp
-    padded to a BLK multiple) and the padded endpoint indices. Returns
-    (tbl, a_p, b_p, Rp)."""
+    """Pack the per-row solve constants into ONE [C, Rp] table at the rows'
+    scalar dtype (Rp padded to a BLK multiple) and the padded endpoint
+    indices. Returns (tbl, a_p, b_p, Rp)."""
     R = rows.valid.shape[0]
     Rp = -(-R // BLK) * BLK
     pad = Rp - R
+    dt = rows.n.dtype
 
     def p1(x):
-        x = x.to(torch.float32)
+        x = x.to(dt)
         return torch.nn.functional.pad(x, (0, pad))[None, :]
 
     def p3(x):
-        x = x.to(torch.float32)
+        x = x.to(dt)
         return torch.nn.functional.pad(x, (0, 0, 0, pad)).T
 
     parts = [
@@ -308,17 +314,30 @@ def ngs_iteration_plain(tbl, g, rate: float, max_corr: float):
 # load
 # ---------------------------------------------------------------------------
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_F, _D = ctypes.c_float, ctypes.c_double
 SIGNATURES = {
     "edyn_solve_iteration": [_P, _P, _P, _P, _P, _I, _I, _P],
     "edyn_restitution_iteration": [_P, _P, _P, _P, _P, _P, _I, _P],
     "edyn_relvel": [_P, _P, _P, _I, _P],
     "edyn_ngs_iteration": [_P, _P, _P, _P, _I, _F, _F, _P],
+    "edyn_solve_iteration_f64": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "edyn_restitution_iteration_f64": [_P, _P, _P, _P, _P, _P, _I, _P],
+    "edyn_relvel_f64": [_P, _P, _P, _I, _P],
+    "edyn_ngs_iteration_f64": [_P, _P, _P, _P, _I, _D, _D, _P],
 }
 
 
-def _load():
-    return cuda_lib.load("solver_kernels", SIGNATURES)
+def _entry(name: str, dtype):
+    """(the entry point of kernel ``name`` for ``dtype``, its launch
+    counts)."""
+    lib = cuda_lib.load("solver_kernels", SIGNATURES)
+    if dtype == torch.float32:
+        return getattr(lib, f"edyn_{name}"), LAUNCHES
+    if dtype == torch.float64:
+        return getattr(lib, f"edyn_{name}_f64"), LAUNCHES_F64
+    raise TypeError(f"{name}: float32 or float64 tensors expected, got "
+                    f"{dtype}")
 
 
 def _table_dims(tbl, with_sr):
@@ -338,15 +357,16 @@ def solve_iteration(tbl, imp_t, g, with_sr: bool):
     if cuda_lib.on_cpu(tbl, imp_t, g):
         return solve_iteration_plain(tbl, imp_t, g, with_sr)
     C, Rp = _table_dims(tbl, with_sr)
-    cuda_lib.check(tbl, "tbl", (C, Rp))
-    cuda_lib.check(imp_t, "imp_t", (6, Rp))
-    cuda_lib.check(g, "g", (6, 2 * Rp))
-    oimp = torch.empty((6, Rp), dtype=torch.float32, device=tbl.device)
-    oupd = torch.empty((12, Rp), dtype=torch.float32, device=tbl.device)
-    rc = _load().edyn_solve_iteration(
-        tbl.data_ptr(), imp_t.data_ptr(), g.data_ptr(), oimp.data_ptr(),
-        oupd.data_ptr(), Rp, int(bool(with_sr)), cuda_lib.stream(tbl))
-    cuda_lib.launched(LAUNCHES, "solve_iteration", rc)
+    fn, counts = _entry("solve_iteration", tbl.dtype)
+    dt = tbl.dtype
+    cuda_lib.check(tbl, "tbl", (C, Rp), dt)
+    cuda_lib.check(imp_t, "imp_t", (6, Rp), dt)
+    cuda_lib.check(g, "g", (6, 2 * Rp), dt)
+    oimp = torch.empty((6, Rp), dtype=dt, device=tbl.device)
+    oupd = torch.empty((12, Rp), dtype=dt, device=tbl.device)
+    rc = fn(tbl.data_ptr(), imp_t.data_ptr(), g.data_ptr(), oimp.data_ptr(),
+            oupd.data_ptr(), Rp, int(bool(with_sr)), cuda_lib.stream(tbl))
+    cuda_lib.launched(counts, "solve_iteration", rc)
     return oimp, oupd
 
 
@@ -355,16 +375,17 @@ def restitution_iteration(tbl, dyn, imp3_t, g):
     if cuda_lib.on_cpu(tbl, dyn, imp3_t, g):
         return restitution_iteration_plain(tbl, dyn, imp3_t, g)
     C, Rp = _table_dims(tbl, False)
-    cuda_lib.check(tbl, "tbl", (C, Rp))
-    cuda_lib.check(dyn, "dyn", (2, Rp))
-    cuda_lib.check(imp3_t, "imp3_t", (3, Rp))
-    cuda_lib.check(g, "g", (6, 2 * Rp))
-    oimp = torch.empty((3, Rp), dtype=torch.float32, device=tbl.device)
-    oupd = torch.empty((12, Rp), dtype=torch.float32, device=tbl.device)
-    rc = _load().edyn_restitution_iteration(
-        tbl.data_ptr(), dyn.data_ptr(), imp3_t.data_ptr(), g.data_ptr(),
-        oimp.data_ptr(), oupd.data_ptr(), Rp, cuda_lib.stream(tbl))
-    cuda_lib.launched(LAUNCHES, "restitution_iteration", rc)
+    fn, counts = _entry("restitution_iteration", tbl.dtype)
+    dt = tbl.dtype
+    cuda_lib.check(tbl, "tbl", (C, Rp), dt)
+    cuda_lib.check(dyn, "dyn", (2, Rp), dt)
+    cuda_lib.check(imp3_t, "imp3_t", (3, Rp), dt)
+    cuda_lib.check(g, "g", (6, 2 * Rp), dt)
+    oimp = torch.empty((3, Rp), dtype=dt, device=tbl.device)
+    oupd = torch.empty((12, Rp), dtype=dt, device=tbl.device)
+    rc = fn(tbl.data_ptr(), dyn.data_ptr(), imp3_t.data_ptr(), g.data_ptr(),
+            oimp.data_ptr(), oupd.data_ptr(), Rp, cuda_lib.stream(tbl))
+    cuda_lib.launched(counts, "restitution_iteration", rc)
     return oimp, oupd
 
 
@@ -373,12 +394,13 @@ def relvel(tbl, g):
     if cuda_lib.on_cpu(tbl, g):
         return relvel_plain(tbl, g)
     C, Rp = _table_dims(tbl, False)
-    cuda_lib.check(tbl, "tbl", (C, Rp))
-    cuda_lib.check(g, "g", (6, 2 * Rp))
-    out = torch.empty((1, Rp), dtype=torch.float32, device=tbl.device)
-    rc = _load().edyn_relvel(tbl.data_ptr(), g.data_ptr(), out.data_ptr(),
-                             Rp, cuda_lib.stream(tbl))
-    cuda_lib.launched(LAUNCHES, "relvel", rc)
+    fn, counts = _entry("relvel", tbl.dtype)
+    cuda_lib.check(tbl, "tbl", (C, Rp), tbl.dtype)
+    cuda_lib.check(g, "g", (6, 2 * Rp), tbl.dtype)
+    out = torch.empty((1, Rp), dtype=tbl.dtype, device=tbl.device)
+    rc = fn(tbl.data_ptr(), g.data_ptr(), out.data_ptr(), Rp,
+            cuda_lib.stream(tbl))
+    cuda_lib.launched(counts, "relvel", rc)
     return out
 
 
@@ -387,12 +409,12 @@ def ngs_iteration(tbl, g, rate: float, max_corr: float):
     if cuda_lib.on_cpu(tbl, g):
         return ngs_iteration_plain(tbl, g, rate, max_corr)
     C, Rp = _table_dims(tbl, False)
-    cuda_lib.check(tbl, "tbl", (C, Rp))
-    cuda_lib.check(g, "g", (6, 2 * Rp))
-    upd = torch.empty((12, Rp), dtype=torch.float32, device=tbl.device)
-    err = torch.empty((1, Rp), dtype=torch.float32, device=tbl.device)
-    rc = _load().edyn_ngs_iteration(
-        tbl.data_ptr(), g.data_ptr(), upd.data_ptr(), err.data_ptr(), Rp,
-        float(rate), float(max_corr), cuda_lib.stream(tbl))
-    cuda_lib.launched(LAUNCHES, "ngs_iteration", rc)
+    fn, counts = _entry("ngs_iteration", tbl.dtype)
+    cuda_lib.check(tbl, "tbl", (C, Rp), tbl.dtype)
+    cuda_lib.check(g, "g", (6, 2 * Rp), tbl.dtype)
+    upd = torch.empty((12, Rp), dtype=tbl.dtype, device=tbl.device)
+    err = torch.empty((1, Rp), dtype=tbl.dtype, device=tbl.device)
+    rc = fn(tbl.data_ptr(), g.data_ptr(), upd.data_ptr(), err.data_ptr(), Rp,
+            float(rate), float(max_corr), cuda_lib.stream(tbl))
+    cuda_lib.launched(counts, "ngs_iteration", rc)
     return upd, err

@@ -6,7 +6,20 @@ from __future__ import annotations
 import torch
 
 from . import vec
-from .vec import EPS
+
+# the JAX module's own epsilon (``edyn_tpu/math/geom.py``), tighter than
+# ``vec.EPS``
+EPS = 1e-10
+
+
+def closest_point_segment(a, b, p):
+    """Closest point on segment [a,b] to point p. Returns (t, c,
+    dist_sqr)."""
+    ab = b - a
+    t = vec.dot(p - a, ab) / torch.clamp(vec.length_sqr(ab), min=EPS)
+    t = torch.clamp(t, 0.0, 1.0)
+    c = a + ab * t[..., None]
+    return t, c, vec.length_sqr(p - c)
 
 
 def closest_point_segment_segment(p1, q1, p2, q2):

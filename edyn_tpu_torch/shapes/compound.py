@@ -30,16 +30,20 @@ class CompoundTable:
     child_params: torch.Tensor  # [NC, CH, 4]
 
     @staticmethod
-    def empty(device) -> "CompoundTable":
-        orn = torch.zeros((0, 1, 4), device=device)
+    def empty(device, dtype=None) -> "CompoundTable":
+        from ..config import scalar_dtype
+        dtype = dtype or scalar_dtype()
+        orn = torch.zeros((0, 1, 4), dtype=dtype, device=device)
         orn[..., 3] = 1.0
         return CompoundTable(
             child_row=torch.full((0, 1), -1, dtype=torch.int32,
                                  device=device),
-            child_pos=torch.zeros((0, 1, 3), device=device), child_orn=orn,
+            child_pos=torch.zeros((0, 1, 3), dtype=dtype, device=device),
+            child_orn=orn,
             child_mask=torch.zeros((0, 1), dtype=torch.bool, device=device),
             child_type=torch.zeros((0, 1), dtype=torch.int32, device=device),
-            child_params=torch.zeros((0, 1, 4), device=device))
+            child_params=torch.zeros((0, 1, 4), dtype=dtype,
+                                     device=device))
 
 
 def _quat_to_matrix_f32(q):

@@ -11,6 +11,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..config import scalar_dtype
 from ..core.device import resolve_device
 from .params import ShapeType
 
@@ -75,12 +76,17 @@ def shape_convex_data(stype: int, params, poly_np=None, poly_index: int = 0):
 
 
 def build_convex_table(shape_types, shape_params, shape_index, poly_np=None,
-                       extra_data=None, device=None) -> ConvexTable:
+                       extra_data=None, device=None,
+                       dtype=None) -> ConvexTable:
     """Bake the per-body table host-side and place it on ``device``
     (default ``cuda``; raises without a GPU, see ``resolve_device``).
     ``extra_data`` appends rows (compound children, each a
-    ``shape_convex_data`` tuple) past the N body rows."""
+    ``shape_convex_data`` tuple) past the N body rows. Staged in float32,
+    as the JAX package stages it (its x64 mode keeps this table at
+    float32); placed at ``dtype`` (default the scalar dtype), so a float64
+    world holds the same values at float64 and one dtype runs the step."""
     device = resolve_device(device)
+    dtype = dtype or scalar_dtype()
     data = [shape_convex_data(int(shape_types[i]), shape_params[i], poly_np,
                               int(shape_index[i]))
             for i in range(len(shape_types))] + list(extra_data or ())
@@ -112,7 +118,8 @@ def build_convex_table(shape_types, shape_params, shape_index, poly_np=None,
         disc_ax[i] = da
 
     def t(x):
-        return torch.as_tensor(x, device=device)
+        x = torch.as_tensor(x, device=device)
+        return x.to(dtype) if x.is_floating_point() else x
 
     return ConvexTable(
         verts=t(verts), vert_mask=t(vmask), radius=t(radius),

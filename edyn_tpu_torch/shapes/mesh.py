@@ -16,6 +16,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..config import scalar_dtype
+
 CAP = 64  # candidate triangles per grid cell
 
 
@@ -35,8 +37,9 @@ class MeshTable:
     grid_axes: torch.Tensor    # [NM, 2] int32 coordinate axes of the grid
 
     @staticmethod
-    def empty(device) -> "MeshTable":
-        f = lambda *s: torch.zeros(s, dtype=torch.float32, device=device)
+    def empty(device, dtype=None) -> "MeshTable":
+        dtype = dtype or scalar_dtype()
+        f = lambda *s: torch.zeros(s, dtype=dtype, device=device)
         i = lambda *s: torch.zeros(s, dtype=torch.int32, device=device)
         return MeshTable(
             tri_verts=f(0, 1, 3, 3), tri_normal=f(0, 1, 3),
@@ -114,10 +117,14 @@ def build_grid(tv, cell_size: float | None = None, cap: int = CAP,
         (lo, hi), overflow
 
 
-def pack_meshes(mesh_shapes: list, device, cap: int = CAP) -> MeshTable:
-    """The padded MeshTable of MeshShape descriptors, on ``device``."""
+def pack_meshes(mesh_shapes: list, device, dtype=None,
+                cap: int = CAP) -> MeshTable:
+    """The padded MeshTable of MeshShape descriptors, on ``device``: staged
+    in float32 as the JAX package stages it, placed at ``dtype`` (default
+    the scalar dtype)."""
+    dtype = dtype or scalar_dtype()
     if not mesh_shapes:
-        return MeshTable.empty(device)
+        return MeshTable.empty(device, dtype)
     pre = []
     for m in mesh_shapes:
         tv, n, adj, fr, re = preprocess_trimesh(
@@ -154,7 +161,10 @@ def pack_meshes(mesh_shapes: list, device, cap: int = CAP) -> MeshTable:
         gorigin[i] = origin
         gcell[i] = cell
         gaxes[i] = axes
-    t = lambda x: torch.as_tensor(x, device=device)
+    def t(x):
+        x = torch.as_tensor(x, device=device)
+        return x.to(dtype) if x.is_floating_point() else x
+
     return MeshTable(
         tri_verts=t(tri_verts), tri_normal=t(tri_normal),
         adj_normal=t(adj_normal), tri_mask=t(tri_mask),

@@ -177,22 +177,25 @@ class PagedTerrain:
         d = np.load(os.path.join(self.cache_dir, f"tile_{k}.npz"))
         return {n: d[n] for n in d.files}
 
-    def make_pool_table(self, device):
+    def make_pool_table(self, device, dtype=None):
         """An empty pool: ``pool_slots`` mesh-table rows sized to the
-        largest tile (``shapes.mesh.MeshTable`` layout)."""
+        largest tile (``shapes.mesh.MeshTable`` layout), floats at
+        ``dtype`` (default the scalar dtype); tiles are staged in float32,
+        as the JAX package stages them."""
+        from ..config import scalar_dtype
         from .mesh import MeshTable
         K, T = self.pool_slots, self._maxt
-        z = lambda *s, dtype=torch.float32: torch.zeros(s, dtype=dtype,
-                                                        device=device)
+        fdt = dtype or scalar_dtype()
+        z = lambda *s, dtype=fdt: torch.zeros(s, dtype=dtype, device=device)
+        one = lambda *s: torch.ones(s, dtype=fdt, device=device)
         return MeshTable(
             tri_verts=z(K, T, 3, 3), tri_normal=z(K, T, 3),
             adj_normal=z(K, T, 3, 3), tri_mask=z(K, T, dtype=torch.bool),
-            tri_friction=torch.ones((K, T), device=device),
-            tri_restitution=torch.ones((K, T), device=device),
+            tri_friction=one(K, T), tri_restitution=one(K, T),
             aabb=z(K, 2, 3),
             grid=torch.full((K, self._gx, self._gy, self._gcap), -1,
                             dtype=torch.int32, device=device),
-            grid_origin=z(K, 2), grid_cell=torch.ones((K,), device=device),
+            grid_origin=z(K, 2), grid_cell=one(K),
             grid_axes=z(K, 2, dtype=torch.int32))
 
     def tile_rows(self, k: int) -> dict:
@@ -307,7 +310,7 @@ class PagedTerrain:
         stype = st.shape_type.clone()
         stype[idx] = int(ShapeType.MESH)
         world.state = dataclasses.replace(
-            st, mesh=self.make_pool_table(st.device), valid=valid,
+            st, mesh=self.make_pool_table(st.device, st.dtype), valid=valid,
             shape_type=stype)
         world.meta = dataclasses.replace(
             world.meta,

@@ -18,7 +18,9 @@ import dataclasses
 
 import torch
 
-from ..collision.broadphase import decode_keys, find_pairs
+from ..collision.broadphase import (
+    DENSE_LIMIT, decode_keys, find_pairs, find_pairs_sweep,
+)
 from ..collision.manifold import set_drop, update_slots
 from ..collision.narrowphase import update_contacts
 from ..config import PAIR_SEPARATION_MARGIN, Settings
@@ -41,6 +43,11 @@ class SceneMeta:
     max_pairs: int
     bucket_cap: int | None = None
     island_iters: int = 4
+    # "auto": dense up to DENSE_LIMIT bodies, sweep above (the JAX
+    # package's rule); "dense"; "sweep" (find_pairs_sweep, sweep_window
+    # bodies a window)
+    broadphase_mode: str = "auto"
+    sweep_window: int = 192
     wide_cap: int = 64
     max_rows: int | None = None
     has_spin_roll: bool = True
@@ -48,6 +55,11 @@ class SceneMeta:
     # a superset of the valid joints' types (the joint passes skip the rest)
     joint_types: frozenset = frozenset()
     sleep_gating: bool = True
+    # optional user pair filter fn(state, i_idx, j_idx) -> bool tensor on
+    # broadcastable index tensors, ANDed into the broadphase masks
+    # (reference: settings.should_collide_func); it may read any state, so
+    # it turns the pair-list carry off
+    should_collide_fn: object = None
 
 
 def apply_gravity(state, dt: float):
@@ -118,7 +130,8 @@ def _solve_phase(state, man, rows, settings: Settings, meta: SceneMeta,
         man.spin_impulse[..., None], man.roll_impulse], dim=-1)
     imp6 = imp_packed.reshape(M * P, 6)[slot]
     dvw = solver_mod.warm_start_contacts(
-        rows, imp6, torch.zeros((N, 6), device=state.device))
+        rows, imp6, torch.zeros((N, 6), dtype=state.dtype,
+                                device=state.device))
     j_imp = state.joints.impulses
     if meta.has_joints:
         dvw = joints_mod.warm_start_joints(jrows, j_imp, dvw)
@@ -160,11 +173,26 @@ def _solve_phase(state, man, rows, settings: Settings, meta: SceneMeta,
     return state
 
 
+def broadphase(state, meta: SceneMeta):
+    """The pair list of ``meta.broadphase_mode`` (stepper.py:326-340 in the
+    JAX package): (keys, body_a, body_b, valid, dropped, window alarms)."""
+    mode = meta.broadphase_mode
+    if mode == "auto":
+        mode = "dense" if state.capacity <= DENSE_LIMIT else "sweep"
+    if mode == "sweep":
+        return find_pairs_sweep(state, meta.max_pairs, meta.sweep_window,
+                                meta.wide_cap, meta.should_collide_fn)
+    if mode != "dense":
+        raise ValueError(f"broadphase_mode {mode!r}: auto, dense or sweep")
+    return find_pairs(state, meta.max_pairs, meta.wide_cap,
+                      meta.should_collide_fn) + (0,)
+
+
 def prepare_rows(state, settings: Settings, meta: SceneMeta):
     """The step up to the contact rows: AABBs, broadphase, manifolds,
     narrowphase, islands and row building. Returns (state, man, rows,
     counters) where counters = (broadphase pairs dropped, narrowphase
-    candidates dropped, manifold slots dropped)."""
+    candidates dropped, manifold slots dropped, sweep window alarms)."""
     dt = settings.fixed_dt
     amin, amax = compute_aabbs(state.shape_type, state.origin_pos(),
                                state.orn, state.convex, state.shape_index,
@@ -187,10 +215,12 @@ def prepare_rows(state, settings: Settings, meta: SceneMeta):
     # sorted pair list is what find_pairs would emit. Reused only when the
     # last step dropped no pair: a truncated list must be recomputed so the
     # drop keeps being reported until the world grows (unlike the JAX
-    # package, whose carry reports 0 and so never grows).
+    # package, whose carry reports 0 and so never grows). A user pair
+    # filter turns the carry off (stepper.py:350-354 in the JAX package).
     # device branch (stepper.py:367 in the JAX package): host-synced here
     validb = state.valid & (state.shape_type != ShapeType.NONE)
-    can_reuse = (bool(state.bp_carry_ok)
+    can_reuse = (meta.should_collide_fn is None
+                 and bool(state.bp_carry_ok)
                  and not bool(torch.any(escaped & validb))
                  and int(state.overflow[0]) == 0)
     P = meta.max_pairs
@@ -198,9 +228,9 @@ def prepare_rows(state, settings: Settings, meta: SceneMeta):
         keys = state.contacts.sort_key[:P]
         pvalid = state.contacts.sort_pvalid[:P]
         _, pa, pb = decode_keys(keys, state.capacity)
-        bp_dropped = 0
+        bp_dropped = bp_alarms = 0
     else:
-        keys, pa, pb, pvalid, bp_dropped = find_pairs(state, P, meta.wide_cap)
+        keys, pa, pb, pvalid, bp_dropped, bp_alarms = broadphase(state, meta)
     state = dataclasses.replace(
         state, bp_carry_ok=torch.tensor(True, device=state.device))
 
@@ -234,7 +264,8 @@ def prepare_rows(state, settings: Settings, meta: SceneMeta):
     rows = solver_mod.build_contact_rows(
         state, man, dt, settings.num_restitution_iterations > 0,
         settings.mass_splitting, meta.has_spin_roll, meta.max_rows)
-    return state, man, rows, (bp_dropped, np_dropped, man_dropped)
+    return state, man, rows, (bp_dropped, np_dropped, man_dropped,
+                              bp_alarms)
 
 
 def solve_width(rows, meta: SceneMeta) -> int:
@@ -255,8 +286,8 @@ def solve_width(rows, meta: SceneMeta) -> int:
 def physics_step(state, settings: Settings, meta: SceneMeta):
     """One fixed-dt step of the whole world."""
     dt = settings.fixed_dt
-    state, man, rows, (bp_dropped, np_dropped, man_dropped) = prepare_rows(
-        state, settings, meta)
+    state, man, rows, (bp_dropped, np_dropped, man_dropped,
+                       bp_alarms) = prepare_rows(state, settings, meta)
     width = solve_width(rows, meta)
     if width < rows.valid.shape[0]:
         rows_w = solver_mod.rows_prefix(rows, width)
@@ -268,6 +299,6 @@ def physics_step(state, settings: Settings, meta: SceneMeta):
         state,
         step_count=state.step_count + 1,
         sim_time=state.sim_time + dt,
-        overflow=torch.tensor([bp_dropped, np_dropped, rows.dropped, 0,
-                               man_dropped], dtype=torch.int32,
+        overflow=torch.tensor([bp_dropped, np_dropped, rows.dropped,
+                               bp_alarms, man_dropped], dtype=torch.int32,
                               device=state.device))

@@ -76,7 +76,6 @@ def profile_step(world, repeats: int = 3) -> Dict[str, float]:
     """Run one step phase by phase and time each (ms, the mean of
     ``repeats`` calls after one untimed call), then the whole step
     (``full_step``)."""
-    from ..collision.broadphase import find_pairs
     from ..collision.manifold import update_slots
     from ..collision.narrowphase import update_contacts
     from ..config import PAIR_SEPARATION_MARGIN
@@ -85,7 +84,7 @@ def profile_step(world, repeats: int = 3) -> Dict[str, float]:
     from ..dynamics import solver_kernels as sk
     from ..dynamics.position import solve_positions
     from ..shapes.aabb import compute_aabbs
-    from ..simulation.stepper import physics_step
+    from ..simulation.stepper import broadphase, physics_step
 
     st = world.state
     meta = world.meta
@@ -121,8 +120,8 @@ def profile_step(world, repeats: int = 3) -> Dict[str, float]:
                                 st.bp_aabb_min),
         bp_aabb_max=torch.where(esc, tmax + PAIR_SEPARATION_MARGIN,
                                 st.bp_aabb_max))
-    keys, pa, pb, pv, _ = timed("broadphase", lambda s: find_pairs(
-        s, meta.max_pairs, meta.wide_cap), st)
+    keys, pa, pb, pv, _, _ = timed("broadphase",
+                                   lambda s: broadphase(s, meta), st)
     man, _, _, _ = timed("manifold_carry", update_slots, st.contacts, keys,
                          pa, pb, pv)
     man, _ = timed("narrowphase", lambda s, m: update_contacts(
@@ -141,8 +140,8 @@ def profile_step(world, repeats: int = 3) -> Dict[str, float]:
             S.num_individual_restitution_iterations), st)
 
     def vel():
-        imp_t = torch.zeros((6, Rp), device=dev)
-        dvw_t = torch.zeros((6, st.capacity), device=dev)
+        imp_t = torch.zeros((6, Rp), dtype=tbl.dtype, device=dev)
+        dvw_t = torch.zeros((6, st.capacity), dtype=tbl.dtype, device=dev)
         for _ in range(S.num_solver_velocity_iterations):
             imp_t, dvw_t = sm.solve_contacts_once(tbl, imp_t, dvw_t, ab_p,
                                                   rows.sA_n is not None)

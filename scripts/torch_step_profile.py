@@ -67,6 +67,7 @@ def phase_times(world, steps: int) -> dict:
     patches = [
         (stepper, "compute_aabbs", "aabbs"),
         (stepper, "find_pairs", "broadphase"),
+        (stepper, "find_pairs_sweep", "broadphase"),
         (stepper, "update_slots", "manifold slots"),
         (stepper, "update_contacts", "narrowphase"),
         (islands, "update_sleep", "islands and sleep"),
