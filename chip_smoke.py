@@ -133,6 +133,22 @@ prints no result):
    alone timed on that state; a 30-step drop of ``mixed_pile(65_531)``
    (65,536 slots, the pair-key limit) under "sweep", its keys equal to
    ``find_pairs``' at every step that grew nothing, both broadphases timed.
+13. The step sharded over a mesh (``edyn_tpu_torch.parallel``). 13a:
+   phase 3's 10k pile (``max_pairs`` 208,128 from the drop) stepped 120
+   times over 4 shards on one card (over the cards, in turn, where there
+   are several), twice: the second run with every shard's part of each
+   body-space sum a hop of its own (``hop_each_shard``, the path of shards
+   on distinct cards); each run equal in every leaf to the unsharded step
+   from the same start (else the first differing step and leaves), every
+   shard's device launching K1, K2, K3a, K3b and K4 and none K5 (counts by
+   device and shard, ``cuda_lib.DEVICE_LAUNCHES``), no overflow, phase 3's
+   pile checks; the ordered chain against one ``index_sum`` on random rows.
+   13b: the three cases of the JAX package's ``tests/test_sharding.py``
+   at their sizes on 8 shards, equal to the unsharded step at every step,
+   the asleep case solved at the ladder's narrow tier (quantum 256 x 8).
+   13c: the landed pile's ms/step unsharded and at 1, 2 and 4 shards in
+   turns, the gathers' and chains' ms, kernels a step, peak memory per
+   device. ``--phases 13`` runs it alone.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -201,6 +217,14 @@ STEPS = 120
 
 def log(*a):
     print(*a, flush=True)
+
+
+_START = time.perf_counter()
+
+
+def mark(phase: int):
+    """Log the script's clock at the end of a phase."""
+    log(f"[clock] phase {phase} ended at {time.perf_counter() - _START:.1f} s")
 
 
 # the joint path: 768 ragdolls (13 bodies, 20 joints each) on a 16 x 16
@@ -1177,6 +1201,7 @@ def card_vs_cpu(dev, n_bodies: int = 1000, settle: int = 240,
     import edyn_tpu_torch as et
     from edyn_tpu_torch.core.convert import state_from_numpy, state_to_numpy
     from edyn_tpu_torch.dynamics.solver import rows_prefix
+    from edyn_tpu_torch.parallel import make_mesh
     from edyn_tpu_torch.simulation import stepper
     from edyn_tpu_torch.utils.scenes import mixed_pile
 
@@ -1207,9 +1232,10 @@ def card_vs_cpu(dev, n_bodies: int = 1000, settle: int = 240,
     if width < rows.valid.shape[0]:
         rows = rows_prefix(rows, width)
     use_rest = s.num_restitution_iterations > 0
-    got = stepper._solve_phase(_to(st, dev), _to(man, dev), _to(rows, dev),
-                               s, meta, use_rest)
-    want = stepper._solve_phase(st, man, rows, s, meta, use_rest)
+    got = stepper._solve_phase(_to(st, dev), _to(man, dev), [_to(rows, dev)],
+                               s, meta, use_rest, make_mesh([dev]))
+    want = stepper._solve_phase(st, man, [rows], s, meta, use_rest,
+                                make_mesh(["cpu"]))
     solve = _hold("solve phase", [(f, getattr(got, f), getattr(want, f), r, a)
                                   for f, r, a in STEP_TOL])
 
@@ -3336,8 +3362,387 @@ def phase12(dev, main: dict, landed) -> tuple:
             f64_kernel_entries(kern, launches))
 
 
+SHARDS = 4              # phase 13a's shards
+SHARD_STEPS = 120       # 13a: steps from the drop, as phase 3
+# phase 3's pile grows its pair budget to 208,128 while it lands (PR 8's
+# runs); 13a's runs start there, so that neither drops a pair
+SHARD_MAX_PAIRS = 208_128
+SHARD_KS = (1, 2, 4)    # 13c: shard counts timed on one card
+SHARD_TIMED = 4         # 13c: steps timed at each k, twice, in turns
+SHARD_PROFILED = 1      # 13c: steps under the profiler and the span timers
+SHARD_LEAD = 25         # 13b: unsharded steps into the first contacts
+SHARD_KERNELS = ("solve_iteration", "ngs_iteration", "restitution_iteration",
+                 "relvel", "unified_features", "pair_order",
+                 "collide_support")
+
+
+def shard_devices(k: int) -> list:
+    """k shards over the host's cards, in turn (all on cuda:0 with one)."""
+    import torch
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", s % n) for s in range(k)]
+
+
+def _differing(a, b) -> list:
+    """Paths of the leaves of two states that are not torch.equal."""
+    import torch
+    return [n for (n, x), (_, y) in zip(_leaves(a), _leaves(b))
+            if not torch.equal(x, y)]
+
+
+def _sync_all():
+    import torch
+    for d in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(d)
+
+
+def _first_difference(start, settings, meta, step, dev_state, steps: int):
+    """Step the unsharded and the sharded step side by side from one
+    state; (step, leaves) of the first that differ, or None."""
+    from edyn_tpu_torch.simulation.stepper import physics_step
+    st = start
+    for i in range(1, steps + 1):
+        st = physics_step(st, settings, meta)
+        dev_state = step(dev_state)
+        bad = _differing(dev_state, st)
+        if bad:
+            return i, bad
+    return None
+
+
+def _shard_counts(mesh) -> list:
+    """Each shard's launches per kernel step (cuda_lib.DEVICE_LAUNCHES)."""
+    from edyn_tpu_torch.utils import cuda_lib
+    return [dict(cuda_lib.DEVICE_LAUNCHES.get((str(d), s), {}))
+            for s, d in enumerate(mesh.devices)]
+
+
+def chain_hops(dev, n: int = N_BODIES + 5, rows: int = 160_128,
+               k: int = SHARDS) -> dict:
+    """The ordered chain with every part a hop (``merge=False``: the path
+    of shards on separate cards), on one card: equal, bit for bit, to one
+    ``index_sum`` over all rows, in both layouts."""
+    import torch
+    from edyn_tpu_torch.dynamics import solver
+    from edyn_tpu_torch.dynamics.solver import chain_index_sum
+    from edyn_tpu_torch.parallel.collectives import ranges
+    g = torch.Generator(device="cpu").manual_seed(13)
+    x = torch.randn(n, 6, generator=g).to(dev)
+    idx = torch.randint(0, n, (rows,), generator=g).to(dev)
+    src = (torch.randn(rows, 6, generator=g) * 10.0 ** torch.randint(
+        -4, 4, (rows, 1), generator=g)).to(dev)
+    src[::3] = 0.0   # zero rows take index_sum's scratch rows
+    parts = [(idx[a:b], src[a:b]) for a, b in ranges(rows, k)]
+    out = {}
+    for merge in (False, True):
+        got = chain_index_sum(x, parts, merge=merge)
+        got_t = chain_index_sum(x.T.contiguous(), [(i, t.T) for i, t in parts],
+                                dim=1, merge=merge)
+        want = solver.index_sum(x, idx, src)
+        out["hops" if not merge else "merged"] = bool(
+            torch.equal(got, want) and torch.equal(got_t, want.T))
+    if not all(out.values()):
+        raise AssertionError(f"[sharded] the chain differs from index_sum: "
+                             f"{out}")
+    return out
+
+
+def batch_products(dev) -> dict:
+    """Phase 13a, a measurement (ROADMAP P14): whether the first 64 rows'
+    3x3-matrix-by-3-vector ``einsum`` (a batched GEMM on the card, as the
+    contact rows' ``solver._mv``) gives the same bits at R rows as alone,
+    for R from 64 to SHARD_MAX_PAIRS. The step builds its rows once at the
+    table's full width, so no shard's rows depend on it."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(9)
+    n = SHARD_MAX_PAIRS
+    m = torch.randn(n, 3, 3, generator=g).to(dev)
+    x = torch.randn(n, 3, generator=g).to(dev)
+
+    def mv(r):
+        return torch.einsum("...ij,...j->...i", m[:r], x[:r])[:64]
+    ref = mv(64)
+    out = {r: bool(torch.equal(mv(r), ref))
+           for r in (256, 1024, 4096, 20_000, 52_224, 160_080, n)}
+    log(f"[sharded] einsum's first 64 rows equal to their own at R rows: "
+        f"{out}")
+    return out
+
+
+def sharded_pile(dev) -> tuple:
+    """Phase 13a: phase 3's pile stepped sharded over SHARDS shards, held
+    bit-equal to the unsharded step from the same start, twice: the second
+    run with every shard's part of each body-space sum a hop of its own
+    (``hop_each_shard``, the path of shards on distinct cards); each shard
+    launching each kernel of the path. Returns (summary, launches of the
+    first sharded run, the end state, settings, meta)."""
+    import torch
+    import edyn_tpu_torch as et
+    from edyn_tpu_torch.parallel import make_mesh, make_sharded_step
+    from edyn_tpu_torch.simulation.stepper import physics_step
+    from edyn_tpu_torch.utils import cuda_lib
+    from edyn_tpu_torch.utils.scenes import mixed_pile
+
+    world = et.make_world(mixed_pile(n_bodies=N_BODIES, seed=0)[0],
+                          et.Settings(), max_pairs=SHARD_MAX_PAIRS,
+                          device=dev)
+    start, settings, meta = world.state, world.settings, world.meta
+    del world
+    _sync_all()
+    t0 = time.perf_counter()
+    ref = start
+    for _ in range(SHARD_STEPS):
+        ref = physics_step(ref, settings, meta)
+    _sync_all()
+    t_ref = time.perf_counter() - t0
+    if int(ref.overflow.abs().sum()):
+        raise AssertionError(f"[sharded] the unsharded run dropped: "
+                             f"{ref.overflow.tolist()}")
+
+    runs = []
+    for run, hops in enumerate((False, True)):
+        mesh = make_mesh(shard_devices(SHARDS), hop_each_shard=hops)
+        step, dev0 = make_sharded_step(mesh, start, settings, meta)
+        _reset_counts()
+        cuda_lib.reset_device_launches()
+        _sync_all()
+        t0 = time.perf_counter()
+        ds = dev0
+        for _ in range(SHARD_STEPS):
+            ds = step(ds)
+        _sync_all()
+        runs.append(dict(seconds=time.perf_counter() - t0,
+                         launches=_read_counts(),
+                         per_shard=_shard_counts(mesh), step=step,
+                         start=dev0, state=ds))
+        log(f"[sharded] run {run + 1}: {SHARD_STEPS} steps over {SHARDS} "
+            f"shards on {[str(d) for d in mesh.devices]}, a hop per "
+            f"{'shard' if hops else 'device'}, in "
+            f"{runs[-1]['seconds']:.3f} s = "
+            f"{SHARD_STEPS / runs[-1]['seconds']:.3f} steps/s (unsharded "
+            f"{SHARD_STEPS / t_ref:.3f}); launches {runs[-1]['launches']}; "
+            f"per shard {runs[-1]['per_shard']}")
+    for r in runs:
+        bad = _differing(r["state"], ref)
+        if bad:
+            where = _first_difference(start, settings, meta, r["step"],
+                                      r["start"], SHARD_STEPS)
+            raise AssertionError(f"[sharded] the sharded pile differs from "
+                                 f"the unsharded one at {bad[:8]}; first at "
+                                 f"(step, leaves) {where}")
+    got = runs[0]["state"]
+    launches = runs[0]["launches"]
+    for r in runs:
+        if r["launches"]["count_overlaps"]:
+            raise AssertionError("[sharded] K5 launched on the step")
+        for s, counts in enumerate(r["per_shard"]):
+            missing = [k for k in SHARD_KERNELS if not counts.get(k)]
+            if missing or counts.get("count_overlaps"):
+                raise AssertionError(f"[sharded] shard {s} on "
+                                     f"{mesh.devices[s]} launched no "
+                                     f"{missing} (or K5): {counts}")
+    if int(got.overflow.abs().sum()):
+        raise AssertionError(f"[sharded] overflow {got.overflow.tolist()}")
+    lowest = check_pile(got, -FLOOR_BURIAL, "sharded")
+    chains = chain_hops(dev)
+    log(f"[sharded] chain against index_sum, bit-equal: {chains}")
+    summary = dict(chain_bit_equal=chains, batch_products=batch_products(dev),
+        shards=SHARDS, devices=[str(d) for d in mesh.devices],
+        steps=SHARD_STEPS, max_pairs=SHARD_MAX_PAIRS,
+        bit_equal_to_unsharded=True, hop_per_shard_bit_equal=True,
+        unsharded_steps_per_s=SHARD_STEPS / t_ref,
+        sharded_steps_per_s=[SHARD_STEPS / r["seconds"] for r in runs],
+        launches=launches, per_shard_launches=runs[0]["per_shard"],
+        live_points=int(got.contacts.point_valid.sum()),
+        lowest_centre=lowest)
+    del ref, runs
+    return summary, launches, got, settings, meta
+
+
+def _jax_case(name, dev):
+    """A world of tests/test_sharding.py's case ``name`` on ``dev``, at
+    that test's sizes, stepped unsharded into its first contacts (the
+    asleep case: 40 steps, put to sleep, two bodies woken, 1 step)."""
+    import dataclasses
+    import edyn_tpu_torch as et
+    from edyn_tpu_torch.utils.scenes import mixed_pile, rich_scene
+    n_dev = 8
+
+    def cap(b):
+        return -(-len(b.defs) // n_dev) * n_dev
+    if name == "pile":
+        b, _ = mixed_pile(n_bodies=56)
+        return et.make_world(b, capacity=cap(b), max_pairs=1024,
+                             max_joints=n_dev, device=dev).step(SHARD_LEAD)
+    if name == "rich_sweep":
+        b, _ = rich_scene(n_bodies=48, n_chains=2, chain_links=4, mesh_n=8)
+        w = et.make_world(b, capacity=cap(b), max_pairs=1024, device=dev)
+        w.meta = dataclasses.replace(w.meta, broadphase_mode="sweep")
+        return w.step(SHARD_LEAD)
+    b, ids = mixed_pile(n_bodies=56)
+    w = et.make_world(b, capacity=cap(b), max_pairs=4096, max_joints=n_dev,
+                      device=dev)
+    w.step(40)
+    w.put_to_sleep()
+    w.wake_set({ids[0], ids[1]})
+    return w.step(1)
+
+
+def jax_cases_on_card(dev) -> dict:
+    """Phase 13b: the three cases of tests/test_sharding.py on the card,
+    sharded over 8 shards, each held bit-equal to the unsharded step at
+    every step (5 steps, as that test; the asleep case 3, its solve at the
+    ladder's narrowest tier, the JAX formula with quantum 256 x 8)."""
+    from edyn_tpu_torch.parallel import make_mesh, make_sharded_step
+    from edyn_tpu_torch.simulation import stepper
+    out = {}
+    mesh = make_mesh(shard_devices(8))
+    for name, steps in (("pile", 5), ("rich_sweep", 5), ("asleep", 3)):
+        w = _jax_case(name, dev)
+        st = w.state
+        step, ds = make_sharded_step(mesh, st, w.settings, w.meta)
+        widths = []
+        real = stepper.solve_width
+
+        def record(rows, meta):
+            width = real(rows, meta)
+            if meta.shard_mesh is not None:
+                widths.append((rows.valid.shape[0], width))
+            return width
+        stepper.solve_width = record
+        try:
+            for i in range(1, steps + 1):
+                ds = step(ds)
+                st = stepper.physics_step(st, w.settings, w.meta)
+                bad = _differing(ds, st)
+                if bad:
+                    raise AssertionError(f"[13b {name}] step {i} differs at "
+                                         f"{bad[:8]}")
+        finally:
+            stepper.solve_width = real
+        rec = dict(steps=steps, shards=8,
+                   live_points=int(st.contacts.point_valid.sum()),
+                   widths=sorted(set(widths)))
+        if name == "asleep":
+            r_full, width = widths[0]
+            quantum = 256 * 8
+            tier0 = max(quantum, -(-(r_full // 8) // quantum) * quantum)
+            if not (tier0 < r_full and width == tier0):
+                raise AssertionError(f"[13b asleep] width {width}, the "
+                                     f"narrow tier {tier0} of {r_full}")
+            rec["narrow_tier"] = tier0
+        if not rec["live_points"]:
+            raise AssertionError(f"[13b {name}] no contact points")
+        log(f"[13b] {name}: {rec}")
+        out[name] = rec
+    return out
+
+
+def shard_timing(landed, settings, meta) -> dict:
+    """Phase 13c: the landed pile stepped unsharded and at each k of
+    SHARD_KS on one card (and over every card where there are several),
+    SHARD_TIMED steps each, in turns (unsharded, 1, 2, 4, 4, 2, 1,
+    unsharded); then per k, SHARD_PROFILED steps with the gathers, splits
+    and chains synchronised and timed, SHARD_PROFILED steps under the
+    profiler (kernels a step, device busy), and the peak memory of each
+    device over the timed steps."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from edyn_tpu_torch.parallel import collectives, make_mesh
+    from edyn_tpu_torch.parallel import make_sharded_step
+    from edyn_tpu_torch.simulation.stepper import physics_step
+
+    configs = [("unsharded", None)] + [
+        (f"k={k}", make_mesh(shard_devices(k))) for k in SHARD_KS]
+    n = torch.cuda.device_count()
+    if n > 1:
+        configs.append((f"{n} cards", make_mesh(
+            [torch.device("cuda", i) for i in range(n)])))
+
+    def runner(mesh):
+        if mesh is None:
+            def go(steps):
+                st = landed
+                for _ in range(steps):
+                    st = physics_step(st, settings, meta)
+            return go
+        step, ds0 = make_sharded_step(mesh, landed, settings, meta)
+
+        def go(steps):
+            ds = ds0
+            for _ in range(steps):
+                ds = step(ds)
+        return go
+
+    runs = {name: runner(mesh) for name, mesh in configs}
+    for go in runs.values():
+        go(1)   # warm: first use of each width
+    times = {name: [] for name in runs}
+    order = list(runs) + list(reversed(list(runs)))
+    peak = {}
+    for name in order:
+        for d in range(n):
+            torch.cuda.reset_peak_memory_stats(d)
+        _sync_all()
+        t0 = time.perf_counter()
+        runs[name](SHARD_TIMED)
+        _sync_all()
+        times[name].append(1e3 * (time.perf_counter() - t0) / SHARD_TIMED)
+        peak[name] = [torch.cuda.max_memory_allocated(d) / 2**20
+                      for d in range(n)]
+
+    def dev_us(e):
+        for attr in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(e, attr):
+                return getattr(e, attr)
+        return 0.0
+
+    out = {}
+    for name in runs:
+        with collectives.timed() as spans:
+            _sync_all()
+            t0 = time.perf_counter()
+            runs[name](SHARD_PROFILED)
+            _sync_all()
+            wall = time.perf_counter() - t0
+        with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA]) as pr:
+            runs[name](SHARD_PROFILED)
+            _sync_all()
+        kern = [(dev_us(e), e.count) for e in pr.key_averages()
+                if e.device_type != DeviceType.CPU and dev_us(e) > 0]
+        ms = times[name]
+        out[name] = dict(
+            ms_per_step=ms, steps_per_s=[1e3 / m for m in ms],
+            spans_ms_per_step={k: 1e3 * v / SHARD_PROFILED
+                               for k, v in spans.items()},
+            spans_share=sum(spans.values()) / wall,
+            kernels_per_step=sum(c for _, c in kern) / SHARD_PROFILED,
+            device_ms_per_step=sum(t for t, _ in kern) * 1e-3
+            / SHARD_PROFILED,
+            peak_mib_per_device=peak[name])
+        log(f"[13c] {name}: {out[name]}")
+    return out
+
+
+def phase13(dev) -> tuple:
+    """Phase 13 in order: 13a, 13b, 13c. Returns (summary, launches of
+    13a's sharded run)."""
+    t0 = time.perf_counter()
+    a, launches, landed, settings, meta = sharded_pile(dev)
+    t1 = time.perf_counter()
+    b = jax_cases_on_card(dev)
+    t2 = time.perf_counter()
+    c = shard_timing(landed, settings, meta)
+    del landed
+    log(f"[phase 13] 13a {t1 - t0:.1f} s, 13b {t2 - t1:.1f} s, 13c "
+        f"{time.perf_counter() - t2:.1f} s; gpu: {gpu_line()}")
+    return dict(sharded_pile=a, jax_cases=b, timing=c), launches
+
+
 def run_alone(phases, dev) -> None:
-    """``--phases``: phases 8, 9, 10, 11 and 12 alone, in the order
+    """``--phases``: phases 8, 9, 10, 11, 12 and 13 alone, in the order
     given, after the build (phase 12 after phase 3's main path, whose f32
     figures and landed pile it uses); their summaries are printed, the
     result lines are not."""
@@ -3364,6 +3769,8 @@ def run_alone(phases, dev) -> None:
                       world.settings)
             del world
             out[12], _, _ = phase12(dev, main, landed)
+        elif p == 13:
+            out[13], _ = phase13(dev)
         else:
             raise SystemExit(f"--phases: phase {p} does not run alone")
     log(json.dumps(out, default=str))
@@ -3373,7 +3780,7 @@ def run(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="",
-                    help="comma-separated phases among 8, 9, 10, 11 and 12 "
+                    help="comma-separated phases among 8-13 "
                          "to run alone after the build (a rehearsal: no "
                          "result lines)")
     args = ap.parse_args(argv)
@@ -3422,11 +3829,15 @@ def run(argv=None) -> int:
                              True)
     k5_edges = k5_edge_cases(dev)
 
+    mark(2)
+
     # 3. the main path, the suggest_max_pairs entry point, and the JAX
     #    package's own pile test
     world, launches, main = main_path(N_BODIES, STEPS, dev)
     suggest = suggest_path(world)
     main["pile_of_60_lowest_centre"] = reference_pile(dev)
+
+    mark(3)
 
     # 4. the kernels on a real step: the solver's table, the live UNIFIED
     #    pairs (against the plain version and against support_sat), the
@@ -3447,8 +3858,12 @@ def run(argv=None) -> int:
     landed = (state_to_numpy(st), world.meta, world.settings)
     del world, tbl, ka, kb, st
 
+    mark(4)
+
     # 5. card against CPU
     versus, _ = card_vs_cpu(dev)
+
+    mark(5)
 
     # 6. joints: the ragdoll pile, the JAX package's ragdoll test, card
     #    against CPU on a settled jointed pile
@@ -3467,6 +3882,8 @@ def run(argv=None) -> int:
     ragdolls["one_ragdoll"] = reference_ragdoll(dev)
     ragdolls["card_vs_cpu"] = joints_card_vs_cpu(dev)
 
+    mark(6)
+
     # 7. the terrain path: rich_scene at the bench's body count, then the
     #    path's kernels on its own step
     terrain, ter_launches, ter_world = terrain_path(N_TERRAIN, STEPS, dev)
@@ -3482,10 +3899,14 @@ def run(argv=None) -> int:
                                                   "terrain step")
     del ter_world, tbl, ka, kb, st
 
+    mark(7)
+
     # 8. card against CPU on a settled terrain world (the whole step, then
     #    the mesh bucket alone, then the opt-in triangle cull), the vehicle,
     #    the JAX package's compound tests on the card
     terrain.update(terrain_checks(dev))
+
+    mark(8)
 
     # 9. bench.py's protocol on the 10k pile, the solver kernels at the
     #    mostly-asleep step's narrowed width, the live-world API
@@ -3497,12 +3918,18 @@ def run(argv=None) -> int:
     bench["live_api"] = live_api(bw, bids, dev)
     del bw
 
+    mark(9)
+
     # 10. PagedTerrain streaming on the card
     paged, paged_launches = paged_path(dev)
+
+    mark(10)
 
     # 11. the networked path on the 10k pile: checkpoint resume, a server
     #     and two clients over bytes, the async worker, presentation
     networked, net_launches = networked_path(dev)
+
+    mark(11)
 
     # 12. float64: the 10k pile under the float64 default dtype (K1-K5's
     #     double entries), those entries against their plain versions,
@@ -3511,6 +3938,14 @@ def run(argv=None) -> int:
     phase_12, f64_launches, f64_entries = phase12(dev, main, landed)
     del landed
 
+    mark(12)
+
+    # 13. the step sharded over the mesh: the 10k pile over 4 shards bit-
+    #     equal to the unsharded step, each shard launching K1-K4; the JAX
+    #     package's sharding cases; steps/s at k = 1, 2 and 4
+    phase_13, shard_launches = phase13(dev)
+
+    mark(13)
     kernels = []
     for name, r in rand.items():
         kernels.append(dict(
@@ -3523,6 +3958,7 @@ def run(argv=None) -> int:
             asleep_launches=asleep_launches[name],
             paged_launches=paged_launches[name],
             networked_launches=net_launches[name],
+            sharded_launches=shard_launches[name],
             max_abs_err=max(r["max_abs_err"], real[name]["max_abs_err"],
                             rag_real[name]["max_abs_err"],
                             ter_real[name]["max_abs_err"],
@@ -3563,6 +3999,7 @@ def run(argv=None) -> int:
         asleep_launches=asleep_launches[K4["name"]],
         paged_launches=paged_launches[K4["name"]],
         networked_launches=net_launches[K4["name"]],
+            sharded_launches=shard_launches[K4["name"]],
         max_abs_err=k4_err, tol=k4_tol,
         within_tol=min(r["within_tol"] for r in k4_all),
         equal_pairs=sum(r["equal_pairs"] for r in k4_all),
@@ -3605,6 +4042,7 @@ def run(argv=None) -> int:
                 asleep_launches=asleep_launches[step],
                 paged_launches=paged_launches[step],
                 networked_launches=net_launches[step],
+            sharded_launches=shard_launches[step],
                 max_abs_err=k4_err if step == "collide_support" else 0.0,
                 tol=k4_tol if step == "collide_support"
                 else "bit-equal to the plain version",
@@ -3629,6 +4067,7 @@ def run(argv=None) -> int:
         asleep_launches=asleep_launches["count_overlaps"],
         paged_launches=paged_launches["count_overlaps"],
         networked_launches=net_launches["count_overlaps"],
+            sharded_launches=shard_launches["count_overlaps"],
         max_abs_err=max(r["max_abs_err"] for r in k5_all),
         tol="exact", ms=k5_rand["ms"], plain_ms=k5_rand["plain_ms"],
         bound_ms=k5_rand["bound_ms"], bound_us=k5_rand["bound_ms"] * 1e3,
@@ -3648,7 +4087,7 @@ def run(argv=None) -> int:
                     "terrain_kernels": {"solver": ter_real, "k4": k4_ter},
                     "bench": bench, "asleep_kernels": asleep_real,
                     "paged": paged, "networked": networked,
-                    "phase_12": phase_12}))
+                    "phase_12": phase_12, "phase_13": phase_13}))
     log(f"gpu: {line}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

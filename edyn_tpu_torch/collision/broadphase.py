@@ -21,6 +21,7 @@ import torch
 
 from ..core.state import INVALID_KEY, KIND_DYNAMIC
 from ..math import quat
+from ..parallel.collectives import Mesh, gather, ranges, replicas
 from ..shapes.params import ShapeType
 
 PLANE_PAIR_MARGIN = 0.05
@@ -95,12 +96,47 @@ def _check_capacity(N: int):
 
 
 def find_pairs(state, max_pairs: int, wide_cap: int = 64,
-               should_collide_fn=None):
+               should_collide_fn=None, mesh: Mesh | None = None):
     """Returns (keys [max_pairs] int64 ascending, body_a, body_b, valid,
     dropped). ``dropped`` is a host int: set bits beyond ``max_pairs`` plus
-    wide bodies beyond ``wide_cap``."""
+    wide bodies beyond ``wide_cap``. Over a ``mesh`` each shard builds the
+    mask rows of its contiguous range of bodies on its device; their set
+    bits, concatenated in shard order, are those of one shard over all
+    rows."""
     N = state.capacity
     _check_capacity(N)
+    dev = state.device
+    mesh = mesh or Mesh((dev,))
+    states = replicas(state, mesh)
+    parts = []
+    for s, (n0, n1) in enumerate(ranges(N, mesh.size)):
+        with mesh.scope(s):
+            parts.append(_mask_rows(states[s], n0, n1, wide_cap,
+                                    should_collide_fn))
+    rows = gather([p[0] for p in parts], dev)
+    cols = gather([p[1] for p in parts], dev)
+    wj_ids, wcnt = parts[0][2].to(dev), parts[0][3]
+    total = rows.shape[0]
+    rows = rows[:max_pairs]
+    cols = cols[:max_pairs]
+    j_col = torch.where(cols < N, cols,
+                        wj_ids[torch.clamp(cols - N, 0, wide_cap - 1)])
+    lo_ab = torch.minimum(rows, j_col)
+    hi_ab = torch.maximum(rows, j_col)
+    keys = torch.full((max_pairs,), INVALID_KEY, dtype=torch.int64,
+                      device=dev)
+    keys[:rows.shape[0]] = pack_keys(lo_ab, hi_ab, N,
+                                     torch.ones_like(lo_ab, dtype=torch.bool))
+    keys = torch.sort(keys, stable=True).values
+    dropped = max(total - max_pairs, 0) + max(wcnt - wide_cap, 0)
+    valid, body_a, body_b = _decode_excluded(state, keys)
+    return keys, body_a, body_b, valid, dropped
+
+
+def _mask_rows(state, n0: int, n1: int, wide_cap: int, should_collide_fn):
+    """The set bits of rows ``n0:n1`` of the [narrow | wide] pair mask, row
+    major: (rows, cols, the wide bodies' ids, their count)."""
+    N = state.capacity
     dev = state.device
     idx = torch.arange(N, device=dev)
     validb = state.valid & (state.shape_type != ShapeType.NONE)
@@ -111,9 +147,9 @@ def find_pairs(state, max_pairs: int, wide_cap: int = 64,
     wj_ids = torch.where(wloc >= 0, wloc, torch.zeros_like(wloc)).long()
     wok = wloc >= 0
 
-    rows, cols = [], []
-    for r0 in range(0, N, ROW_BLOCK):
-        ib = idx[r0:r0 + ROW_BLOCK]
+    rows, cols = [idx[:0]], [idx[:0]]
+    for r0 in range(n0, n1, ROW_BLOCK):
+        ib = idx[r0:min(r0 + ROW_BLOCK, n1)]
         i2 = ib[:, None]
         m = _pair_filters_elt(state, i2, idx[None, :])
         m &= narrow[ib][:, None] & narrow[None, :]
@@ -130,23 +166,7 @@ def find_pairs(state, max_pairs: int, wide_cap: int = 64,
         nz = torch.nonzero(torch.cat([m, mw], dim=1))
         rows.append(nz[:, 0] + r0)
         cols.append(nz[:, 1])
-    rows = torch.cat(rows)
-    cols = torch.cat(cols)
-    total = rows.shape[0]
-    rows = rows[:max_pairs]
-    cols = cols[:max_pairs]
-    j_col = torch.where(cols < N, cols,
-                        wj_ids[torch.clamp(cols - N, 0, wide_cap - 1)])
-    lo_ab = torch.minimum(rows, j_col)
-    hi_ab = torch.maximum(rows, j_col)
-    keys = torch.full((max_pairs,), INVALID_KEY, dtype=torch.int64,
-                      device=dev)
-    keys[:rows.shape[0]] = pack_keys(lo_ab, hi_ab, N,
-                                     torch.ones_like(lo_ab, dtype=torch.bool))
-    keys = torch.sort(keys, stable=True).values
-    dropped = max(total - max_pairs, 0) + max(wcnt - wide_cap, 0)
-    valid, body_a, body_b = _decode_excluded(state, keys)
-    return keys, body_a, body_b, valid, dropped
+    return torch.cat(rows), torch.cat(cols), wj_ids, wcnt
 
 
 def _decode_excluded(state, keys):

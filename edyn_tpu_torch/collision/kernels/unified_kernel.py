@@ -772,7 +772,7 @@ def world_features(table_t, dims):
     ids = torch.empty((NCODES + 1,), dtype=torch.int32, device=dev)
     rc = fn(table_t.data_ptr(), N, *dims, feat.data_ptr(), code.data_ptr(),
             present.data_ptr(), ids.data_ptr(), cuda_lib.stream(table_t))
-    cuda_lib.launched(counts, "unified_features", rc)
+    cuda_lib.launched(counts, "unified_features", rc, dev)
     return feat, code, ids
 
 
@@ -801,7 +801,7 @@ def pair_order(code, ids, ka, kb, launch_counts=None):
             cuda_lib.stream(code))
         cuda_lib.launched(
             LAUNCHES if launch_counts is None else launch_counts,
-            "pair_order", rc)
+            "pair_order", rc, dev)
     return perm
 
 
@@ -820,7 +820,7 @@ def collide_ordered(feat, ka, kb, perm, dims, threshold: float,
         rc = fn(feat.data_ptr(), *dims, ka.data_ptr(), kb.data_ptr(),
                 perm.data_ptr(), K, float(threshold), int(bool(rim_axes)),
                 out.data_ptr(), cuda_lib.stream(feat))
-        cuda_lib.launched(counts, "collide_support", rc)
+        cuda_lib.launched(counts, "collide_support", rc, feat.device)
     return out.reshape(K, 4, 12)
 
 

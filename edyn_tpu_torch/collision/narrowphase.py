@@ -26,14 +26,15 @@ kernel by the tests and against K4 by ``chip_smoke.py``; no step runs it.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
 from ..config import CONTACT_BREAKING_THRESHOLD
 from ..core.state import KIND_STATIC
 from ..math import quat
+from ..parallel.collectives import Mesh, gather, ranges, replicas, to_device
 from ..shapes.params import ShapeType
-from .broadphase import compact
 from .kernels import box_box
 from .kernels.compound import (
     collide_compound_compound, collide_compound_convex, collide_compound_mesh,
@@ -224,53 +225,138 @@ def update_contacts(state, man, threshold: float, types_present: frozenset,
     """Run the bucket kernels over the manifold pair list and merge fresh
     points into ``man``. Returns (table, dropped candidates as a host
     int). ``tri_cull``: ``Settings.mesh_triangle_cull``."""
+    return update_contacts_sharded(state, man, threshold, types_present,
+                                   bucket_cap, dt, tri_cull,
+                                   Mesh((state.device,)))
+
+
+def update_contacts_sharded(state, man, threshold: float,
+                            types_present: frozenset, bucket_cap, dt: float,
+                            tri_cull: bool, mesh: Mesh):
+    """``update_contacts`` with the manifold slots split into the mesh's
+    contiguous ranges: each shard classifies its slots, runs the buckets
+    over its share of each bucket's selection (K4 on its device for the
+    UNIFIED bucket) and merges its slots' points. The shards' selections, concatenated
+    in shard order and cut at the bucket's capacity, are the selections
+    over all slots, so the table (gathered on the home device) and the
+    drop count are the same for any number of shards."""
+    _check_types(types_present)
+    M = man.key.shape[0]
+    cap = bucket_cap or M
+    states = replicas(state, mesh)
+    parts, sels = [], []
+    for s, (m0, m1) in enumerate(ranges(M, mesh.size)):
+        with mesh.scope(s):
+            man_s = to_device(slice_table(man, m0, m1), mesh.devices[s])
+            cls, swap, frozen, stale = live_classes(states[s], man_s)
+            man_s = dataclasses.replace(
+                man_s, point_valid=man_s.point_valid & ~stale[:, None])
+            parts.append((man_s, swap, frozen))
+            sels.append({b: torch.nonzero(cls == b).flatten()
+                         for b in _classes_present(types_present)})
+    # padded bucket rows produce nothing the JAX path keeps, so only the
+    # live prefix of each selection is computed
+    dropped = 0
+    for bucket in _classes_present(types_present):
+        this_cap = _bucket_cap(bucket, cap, M)
+        counts = [sel[bucket].shape[0] for sel in sels]
+        dropped += max(sum(counts) - this_cap, 0)
+        off = 0
+        for sel, c in zip(sels, counts):
+            sel[bucket] = sel[bucket][:max(0, min(c, this_cap - off))]
+            off += c
+    out, tables = [], {}
+    for s, (man_s, swap, frozen) in enumerate(parts):
+        with mesh.scope(s):
+            # the side tables are per body: one build per device
+            dev = mesh.devices[s]
+            if dev not in tables:
+                tables[dev] = SideTables(states[s])
+            new_pts = fresh_points(states[s], man_s, swap, sels[s],
+                                   threshold, types_present, tri_cull,
+                                   tables[dev])
+            out.append(merge_fresh(states[s], man_s, new_pts, frozen, dt))
+    return gather_tables(out, mesh.home), dropped
+
+
+def slice_table(tab, m0: int, m1: int):
+    """Slots ``m0:m1`` of a table whose every field is slot-major."""
+    return dataclasses.replace(tab, **{
+        f.name: getattr(tab, f.name)[m0:m1]
+        for f in dataclasses.fields(tab)})
+
+
+def gather_tables(parts, device):
+    """Slot-major tables concatenated in order on ``device``."""
+    return dataclasses.replace(parts[0], **{
+        f.name: gather([getattr(p, f.name) for p in parts], device)
+        for f in dataclasses.fields(parts[0])})
+
+
+def _check_types(types_present):
     unsupported = set(types_present) - SUPPORTED_TYPES
     if unsupported:
         raise NotImplementedError(
             f"shape types {sorted(unsupported)} have no narrowphase bucket")
+
+
+class SideTables:
+    """A body state's side tables, each built at its first use and shared
+    by the shards on one device: ``plain`` (``pack_side_table``'s, the
+    plain buckets) and ``k4`` (``pack_side_table_t``'s)."""
+
+    def __init__(self, state):
+        self.state = state
+
+    @functools.cached_property
+    def plain(self):
+        return pack_side_table(self.state)
+
+    @functools.cached_property
+    def k4(self):
+        return pack_side_table_t(self.state)
+
+
+def fresh_points(state, man, swap, sels: dict, threshold: float,
+                 types_present: frozenset, tri_cull: bool, tables):
+    """The fresh points of every bucket's live selection (``sels``: bucket
+    -> int64 slots of ``man``), packed [M,4,14]: pivot_a 0:3 | pivot_b
+    3:6 | normal 6:9 | attachment 9 | distance 10 | point_valid 11 |
+    friction_scale 12 | restitution_scale 13; slots no bucket ran are 0.
+    ``tables``: the state's ``SideTables``."""
     M = man.key.shape[0]
     dev = man.key.device
-    cap = bucket_cap or M
     ba = man.body_a.long()
     bb = man.body_b.long()
-    cls, swap, frozen, stale = live_classes(state, man)
-    man = dataclasses.replace(
-        man, point_valid=man.point_valid & ~stale[:, None])
-
-    # packed fresh points [M+1,4,14] (row M is the scratch row of dropped
-    # writes): pivot_a 0:3 | pivot_b 3:6 | normal 6:9 | attachment 9 |
-    # distance 10 | point_valid 11 | friction_scale 12 | restitution_scale 13
+    # row M is the scratch row of dropped writes
     new_pts = torch.zeros((M + 1, 4, 14), dtype=state.dtype, device=dev)
-    dropped = 0
-    packed, dims = pack_side_table(state)
     has_cyl = S.CYLINDER in types_present
-
-    for bucket in _classes_present(types_present):
-        sel, count = compact(cls == bucket, _bucket_cap(bucket, cap, M))
-        this_cap = sel.shape[0]
-        dropped += max(count - this_cap, 0)
-        live = min(count, this_cap)
+    for bucket, s in sels.items():
+        if not s.shape[0]:
+            continue
         if bucket == B_UNIFIED and dev.type == "cuda":
             # K4 over the whole live prefix; the bucket needs no swap, and
             # its friction/restitution scales are ones (narrowphase.py:266
             # in the JAX package)
-            if live:
-                s = sel[:live].long()
-                table_t, dims_t = pack_side_table_t(state)
-                out = collide_support_unified(table_t, ba[s], bb[s], dims_t,
-                                              threshold, rim_axes=has_cyl)
-                new_pts[s] = torch.cat([
-                    out[..., :12], torch.ones(out.shape[:2] + (2,),
-                                              dtype=out.dtype,
-                                              device=dev)], dim=-1)
+            tbl_t, dims_t = tables.k4
+            out = collide_support_unified(tbl_t, ba[s], bb[s], dims_t,
+                                          threshold, rim_axes=has_cyl)
+            new_pts[s] = torch.cat([
+                out[..., :12], torch.ones(out.shape[:2] + (2,),
+                                          dtype=out.dtype,
+                                          device=dev)], dim=-1)
             continue
-        # padded bucket rows produce nothing the JAX path keeps, so only the
-        # live prefix is computed
-        if live:
-            s = sel[:live].long()
-            new_pts[s] = bucket_points(bucket, state, man, s, swap, threshold,
-                                       has_cyl, packed, dims, tri_cull)
-    new_pts = new_pts[:M]
+        packed, dims = tables.plain
+        new_pts[s] = bucket_points(bucket, state, man, s, swap, threshold,
+                                   has_cyl, packed, dims, tri_cull)
+    return new_pts[:M]
+
+
+def merge_fresh(state, man, new_pts, frozen, dt: float):
+    """Merge ``fresh_points``' output into ``man``; frozen pairs keep
+    their points verbatim."""
+    ba = man.body_a.long()
+    bb = man.body_b.long()
 
     # rolling analogue of the reference's rolling_tag
     st = state.shape_type
@@ -304,5 +390,4 @@ def update_contacts(state, man, threshold: float, types_present: frozenset,
         return torch.where(fr.reshape(fr.shape + (1,) * (old.dim() - 1)),
                            old, new)
 
-    man = dataclasses.replace(merged, **{f: keep_frozen(f) for f in fields})
-    return man, dropped
+    return dataclasses.replace(merged, **{f: keep_frozen(f) for f in fields})

@@ -14,27 +14,48 @@ import torch
 
 from ..config import CONTACT_POSITION_CORRECTION_RATE
 from ..math import quat, vec
+from ..parallel.collectives import Mesh
 from . import solver_kernels as sk
-from .solver import scatter_upd_t
+from .solver import ShardPack, chain_upd_t
 
 MAX_CORRECTION = 0.05  # metres of positional error consumed per iteration
 ERROR_EXIT = 0.005
 
 
 def solve_positions(state, tbl, ab_p, num_iterations: int):
+    return solve_positions_sharded(state, [ShardPack.of_table(tbl, ab_p)],
+                                   Mesh((tbl.device,)), num_iterations)
+
+
+def solve_positions_sharded(state, packs, mesh: Mesh, num_iterations: int):
+    """``solve_positions`` over the shards' row tables
+    (``solver.ShardPack``): K2 per shard on its device, the updates met in
+    ``solver.chain_upd_t``, the early exit on the largest error of any
+    shard. Equal to ``solve_positions`` over the concatenated rows."""
     if num_iterations <= 0:
         return state
     N = state.capacity
-    dpq_t = torch.zeros((6, N), dtype=tbl.dtype, device=tbl.device)
+    dpq_t = torch.zeros((6, N), dtype=packs[0].tbl.dtype, device=mesh.home)
     for _ in range(num_iterations):
-        upd, err = sk.ngs_iteration(tbl, dpq_t[:, ab_p],
-                                    float(CONTACT_POSITION_CORRECTION_RATE),
-                                    float(MAX_CORRECTION))
-        dpq_t = scatter_upd_t(dpq_t, ab_p, upd)
+        upds, err_max = [], None
+        for s, p in enumerate(packs):
+            with mesh.scope(s):
+                upd, err = sk.ngs_iteration(
+                    p.tbl, dpq_t.to(p.device)[:, p.ab_p],
+                    float(CONTACT_POSITION_CORRECTION_RATE),
+                    float(MAX_CORRECTION))
+                upds.append(upd)
+                e = torch.amax(err).to(mesh.home)
+                err_max = e if err_max is None else torch.maximum(err_max, e)
+        dpq_t = chain_upd_t(dpq_t, packs, upds, mesh)
         # device branch (position.py:59 and :109 in the JAX package):
         # host-synced early exit
-        if not bool(torch.amax(err) >= ERROR_EXIT):
+        if not bool(err_max >= ERROR_EXIT):
             break
+    return _apply_correction(state, dpq_t)
+
+
+def _apply_correction(state, dpq_t):
     dpq = dpq_t.T
     dang = vec.clamp_length(dpq[:, 3:6], 0.2)
     dpos = vec.clamp_length(dpq[:, 0:3], 3 * MAX_CORRECTION)

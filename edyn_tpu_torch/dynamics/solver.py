@@ -23,6 +23,7 @@ import torch
 from ..config import LARGE_SCALAR
 from ..core.state import KIND_STATIC
 from ..math import quat, vec
+from ..parallel.collectives import Mesh, span
 from . import solver_kernels as sk
 
 BIG = 1e18
@@ -319,18 +320,25 @@ def rows_prefix(rows: ContactRows, Rs: int) -> ContactRows:
     rows.count <= Rs)."""
     if Rs > rows.valid.shape[0]:
         raise ValueError("prefix wider than the row table")
+    return rows_range(rows, 0, Rs)
+
+
+def rows_range(rows: ContactRows, r0: int, r1: int,
+               device=None) -> ContactRows:
+    """Rows r0:r1 of a row table, on ``device`` (default: theirs)."""
+    device = device or rows.valid.device
 
     def cut(x):
         if isinstance(x, RowDir):
-            return RowDir(*(getattr(x, f.name)[:Rs]
+            return RowDir(*(getattr(x, f.name)[r0:r1].to(device)
                             for f in dataclasses.fields(RowDir)))
         if isinstance(x, torch.Tensor):
-            return x[:Rs]
+            return x[r0:r1].to(device)
         return x
 
     kw = {f.name: cut(getattr(rows, f.name))
           for f in dataclasses.fields(ContactRows)}
-    kw["ab"] = torch.cat([rows.a[:Rs], rows.b[:Rs]])
+    kw["ab"] = torch.cat([kw["a"], kw["b"]])
     return ContactRows(**kw)
 
 
@@ -363,10 +371,10 @@ def refresh_contact_rhs(rows: ContactRows, state, dt: float,
                                rhs_roll2=-vec.dot(rows.roll_t2, rel_w))
 
 
-def warm_start_contacts(rows: ContactRows, imp6, dvw):
-    """Apply the stored impulses [R,6] (normal 0 | friction 1:3 | spin 3 |
-    roll 4:6) to the packed [N,6] deltas before iterating (reference:
-    constraint_row.cpp warm_start)."""
+def warm_start_terms(rows: ContactRows, imp6):
+    """The stored impulses [R,6] (normal 0 | friction 1:3 | spin 3 |
+    roll 4:6) as packed [lin, ang] deltas of the rows' bodies: (ua, ub),
+    each [R,6]."""
     m = lambda x: torch.where(rows.valid, x, torch.zeros_like(x))[:, None]
     dn_ = m(imp6[:, 0])
     df1_ = m(imp6[:, 1])
@@ -384,9 +392,27 @@ def warm_start_contacts(rows: ContactRows, imp6, dvw):
             + rows.sA_t2 * dr2_
         ang_b = ang_b + rows.sB_n * ds_ + rows.sB_t1 * dr1_ \
             + rows.sB_t2 * dr2_
-    upd = torch.cat([torch.cat([lin_a, ang_a], 1),
-                     torch.cat([lin_b, ang_b], 1)])
-    return index_sum(dvw, rows.ab, upd)
+    return torch.cat([lin_a, ang_a], 1), torch.cat([lin_b, ang_b], 1)
+
+
+def warm_start_contacts(rows: ContactRows, imp6, dvw):
+    """Apply the stored impulses [R,6] to the packed [N,6] deltas before
+    iterating (reference: constraint_row.cpp warm_start)."""
+    return warm_start_sharded([rows], [imp6], dvw, Mesh((dvw.device,)))
+
+
+def warm_start_sharded(parts, imp6s, dvw, mesh: Mesh):
+    """``warm_start_contacts`` over the shards' rows (``parts``, with their
+    stored impulses ``imp6s``, each on its shard's device), the terms met
+    in one ordered chain. Returns the deltas on the last shard's device."""
+    terms = []
+    for s, (rows, imp6) in enumerate(zip(parts, imp6s)):
+        with mesh.scope(s):
+            terms.append(warm_start_terms(rows, imp6))
+    return chain_index_sum(
+        dvw, [(rows.a, t[0]) for rows, t in zip(parts, terms)]
+        + [(rows.b, t[1]) for rows, t in zip(parts, terms)],
+        merge=not mesh.hop_each_shard)
 
 
 def index_sum(x, index, src):
@@ -443,12 +469,114 @@ def scatter_upd_t(x_t, ab_p, upd):
     return x_t.index_add(1, ab_p, src)
 
 
+def chain_index_sum(x, parts, dim: int = 0, merge: bool = True):
+    """``x`` plus every part's terms, ``parts`` = [(index, src), ...] in
+    order, scattered along ``dim`` of x ([N,6], or [6,N] with ``dim=1``);
+    equal, bit for bit, to one ``index_sum`` (or ``scatter_upd_t``) over
+    the concatenated parts. The sum hops from device to device in part
+    order; with ``merge``, consecutive parts on one device are added in one
+    call (shards sharing a card), else each part is a hop. Returns the sum
+    on the last part's device.
+
+    The two devices add in different orders, and the chain follows each.
+    The CPU's ``index_add`` adds a target's terms to x one after the other,
+    so x itself travels. The card's ``index_sum`` (``index_put`` with
+    ``accumulate``) adds a target's terms one after the other from zero and
+    then adds that sum to x; so the running sum travels, each hop adding
+    it first, then its own terms, and x is added at the end."""
+    hops = []
+    for index, src in parts:
+        if merge and hops and hops[-1][0] == src.device:
+            hops[-1][1].append(index)
+            hops[-1][2].append(src)
+        else:
+            hops.append((src.device, [index], [src]))
+    hops = [(dev, torch.cat(i), torch.cat(s, dim)) for dev, i, s in hops]
+    with span("chain"):
+        if not x.is_cuda:
+            for dev, index, src in hops:
+                x = x.to(dev).index_add(dim, index, src)
+            return x
+        if len(hops) == 1:
+            _, index, src = hops[0]
+            if dim == 0:
+                return index_sum(x.to(src.device), index, src)
+            return index_sum(x.to(src.device).t().contiguous(), index,
+                             src.t()).t().contiguous()
+        acc = None
+        for dev, index, src in hops:
+            src = src.t() if dim == 1 else src
+            if acc is not None:
+                acc = acc.to(dev)
+                index = torch.cat([torch.arange(acc.shape[0], device=dev),
+                                   index])
+                src = torch.cat([acc, src])
+            acc = index_sum(src.new_zeros((x.shape[dim],)
+                                          + tuple(src.shape[1:])),
+                            index, src)
+        return x.to(acc.device) + (acc.t() if dim == 1 else acc)
+
+
+def chain_upd_t(x_t, packs, upds, mesh: Mesh):
+    """``scatter_upd_t`` over the shards' row tables: the a-halves of every
+    shard in shard order, then the b-halves, so each body takes its terms
+    in the order of one scatter over the concatenated rows. ``packs`` are
+    the shards' ``ShardPack``s, ``upds`` their [12,Rp] updates. Returns
+    the sum on the home device."""
+    if len(packs) == 1 and not mesh.hop_each_shard:
+        return scatter_upd_t(x_t, packs[0].ab_p, upds[0])
+    parts = ([(p.a_p, u[:6]) for p, u in zip(packs, upds)]
+             + [(p.b_p, u[6:]) for p, u in zip(packs, upds)])
+    return chain_index_sum(x_t, parts, dim=1,
+                           merge=not mesh.hop_each_shard).to(mesh.home)
+
+
+@dataclasses.dataclass
+class ShardPack:
+    """One shard's packed row table (``pack_rows_t``) on its device."""
+    tbl: torch.Tensor
+    a_p: torch.Tensor
+    b_p: torch.Tensor
+    ab_p: torch.Tensor
+    Rp: int
+
+    @classmethod
+    def of_rows(cls, rows):
+        tbl, a_p, b_p, Rp = sk.pack_rows_t(rows)
+        return cls(tbl, a_p, b_p, torch.cat([a_p, b_p]), Rp)
+
+    @classmethod
+    def of_table(cls, tbl, ab_p):
+        """A packed table and its endpoint indices ``cat([a_p, b_p])``."""
+        Rp = tbl.shape[1]
+        return cls(tbl, ab_p[:Rp], ab_p[Rp:], ab_p, Rp)
+
+    @property
+    def device(self):
+        return self.tbl.device
+
+
 def solve_contacts_once(tbl, imp_t, dvw_t, ab_p, with_sr: bool):
     """One velocity iteration: gather -> K1 -> scatter-add. imp_t [6,Rp],
     dvw_t [6,N]."""
-    g = dvw_t[:, ab_p]
-    imp_t, upd = sk.solve_iteration(tbl, imp_t, g, with_sr)
-    return imp_t, scatter_upd_t(dvw_t, ab_p, upd)
+    (imp_t,), dvw_t = solve_contacts_sharded(
+        [ShardPack.of_table(tbl, ab_p)], [imp_t], dvw_t, with_sr,
+        Mesh((tbl.device,)))
+    return imp_t, dvw_t
+
+
+def solve_contacts_sharded(packs, imp_ts, dvw_t, with_sr: bool, mesh: Mesh):
+    """``solve_contacts_once`` over the shards' row tables: K1 per shard
+    on its device, the updates met in ``chain_upd_t``. Returns (the
+    shards' impulses, the deltas on the home device)."""
+    upds, out = [], []
+    for s, p in enumerate(packs):
+        with mesh.scope(s):
+            imp_t, upd = sk.solve_iteration(
+                p.tbl, imp_ts[s], dvw_t.to(p.device)[:, p.ab_p], with_sr)
+            out.append(imp_t)
+            upds.append(upd)
+    return out, chain_upd_t(dvw_t, packs, upds, mesh)
 
 
 def solve_restitution(state, tbl, ab_p, num_iterations: int,
@@ -457,30 +585,52 @@ def solve_restitution(state, tbl, ab_p, num_iterations: int,
     (reference: restitution_solver.cpp:86-408). Outer passes play the role
     of BFS levels and stop early once no row approaches faster than the
     threshold. Returns (linvel, angvel)."""
+    return solve_restitution_sharded(
+        state, [ShardPack.of_table(tbl, ab_p)], Mesh((tbl.device,)),
+        num_iterations, num_individual_iterations)
+
+
+def solve_restitution_sharded(state, packs, mesh: Mesh, num_iterations: int,
+                              num_individual_iterations: int):
+    """``solve_restitution`` over the shards' row tables: K3b and K3a run
+    per shard on its device, the early exit takes every shard's rows, and
+    each inner iteration's updates meet in ``chain_upd_t``. Equal to
+    ``solve_restitution`` over the concatenated rows, bit for bit."""
     relvel_threshold = -0.005
     N = state.capacity
-    Rp = tbl.shape[1]
-    dev = tbl.device
-    valid_p = tbl[55:56, :] > 0.5
-    restit_p = tbl[56:57, :]
-
+    home = mesh.home
     velp_t = torch.cat([state.linvel, state.angvel], dim=1).T.contiguous()
     for it in range(num_iterations):
-        relvel = sk.relvel(tbl, velp_t[:, ab_p])
-        active = valid_p & (relvel < relvel_threshold) & (restit_p > 0)
+        dyns, any_active = [], None
+        for s, p in enumerate(packs):
+            with mesh.scope(s):
+                valid_p = p.tbl[55:56, :] > 0.5
+                restit_p = p.tbl[56:57, :]
+                relvel = sk.relvel(p.tbl, velp_t.to(p.device)[:, p.ab_p])
+                active = valid_p & (relvel < relvel_threshold) \
+                    & (restit_p > 0)
+                rhs = -relvel * (1.0 + restit_p)
+                dyns.append(torch.cat([rhs, active.to(p.tbl.dtype)], dim=0))
+                a = torch.any(active).to(home)
+                any_active = a if any_active is None else any_active | a
         # device branches (solver.py:643 and :730 in the JAX package):
-        # host-synced. The JAX loop exits one pass later, after a pass that
-        # adds a zero update; stopping here gives the same velocities.
-        if not bool(torch.any(active)):
+        # host-synced, once for all shards. The JAX loop exits one pass
+        # later, after a pass that adds a zero update; stopping here gives
+        # the same velocities.
+        if not bool(any_active):
             break
-        rhs = -relvel * (1.0 + restit_p)
-        dyn = torch.cat([rhs, active.to(tbl.dtype)], dim=0)
-        dvw_t = torch.zeros((6, N), dtype=tbl.dtype, device=dev)
-        imp3_t = torch.zeros((3, Rp), dtype=tbl.dtype, device=dev)
+        dvw_t = torch.zeros((6, N), dtype=velp_t.dtype, device=home)
+        imp3 = [torch.zeros((3, p.Rp), dtype=p.tbl.dtype, device=p.device)
+                for p in packs]
         for _ in range(num_individual_iterations):
-            g = dvw_t[:, ab_p]
-            imp3_t, upd = sk.restitution_iteration(tbl, dyn, imp3_t, g)
-            dvw_t = scatter_upd_t(dvw_t, ab_p, upd)
+            upds = []
+            for s, p in enumerate(packs):
+                with mesh.scope(s):
+                    g = dvw_t.to(p.device)[:, p.ab_p]
+                    imp3[s], upd = sk.restitution_iteration(p.tbl, dyns[s],
+                                                            imp3[s], g)
+                    upds.append(upd)
+            dvw_t = chain_upd_t(dvw_t, packs, upds, mesh)
         velp_t = velp_t + dvw_t
     velp = velp_t.T
     return velp[:, 0:3], velp[:, 3:6]

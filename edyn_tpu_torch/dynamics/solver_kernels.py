@@ -366,7 +366,7 @@ def solve_iteration(tbl, imp_t, g, with_sr: bool):
     oupd = torch.empty((12, Rp), dtype=dt, device=tbl.device)
     rc = fn(tbl.data_ptr(), imp_t.data_ptr(), g.data_ptr(), oimp.data_ptr(),
             oupd.data_ptr(), Rp, int(bool(with_sr)), cuda_lib.stream(tbl))
-    cuda_lib.launched(counts, "solve_iteration", rc)
+    cuda_lib.launched(counts, "solve_iteration", rc, tbl.device)
     return oimp, oupd
 
 
@@ -385,7 +385,7 @@ def restitution_iteration(tbl, dyn, imp3_t, g):
     oupd = torch.empty((12, Rp), dtype=dt, device=tbl.device)
     rc = fn(tbl.data_ptr(), dyn.data_ptr(), imp3_t.data_ptr(), g.data_ptr(),
             oimp.data_ptr(), oupd.data_ptr(), Rp, cuda_lib.stream(tbl))
-    cuda_lib.launched(counts, "restitution_iteration", rc)
+    cuda_lib.launched(counts, "restitution_iteration", rc, tbl.device)
     return oimp, oupd
 
 
@@ -400,7 +400,7 @@ def relvel(tbl, g):
     out = torch.empty((1, Rp), dtype=tbl.dtype, device=tbl.device)
     rc = fn(tbl.data_ptr(), g.data_ptr(), out.data_ptr(), Rp,
             cuda_lib.stream(tbl))
-    cuda_lib.launched(counts, "relvel", rc)
+    cuda_lib.launched(counts, "relvel", rc, tbl.device)
     return out
 
 
@@ -416,5 +416,5 @@ def ngs_iteration(tbl, g, rate: float, max_corr: float):
     err = torch.empty((1, Rp), dtype=tbl.dtype, device=tbl.device)
     rc = fn(tbl.data_ptr(), g.data_ptr(), upd.data_ptr(), err.data_ptr(), Rp,
             float(rate), float(max_corr), cuda_lib.stream(tbl))
-    cuda_lib.launched(counts, "ngs_iteration", rc)
+    cuda_lib.launched(counts, "ngs_iteration", rc, tbl.device)
     return upd, err

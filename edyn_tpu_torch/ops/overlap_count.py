@@ -75,7 +75,7 @@ def count_overlaps_tensor(aabb_min, aabb_max, valid):
     total = torch.empty((1,), dtype=torch.int64, device=aabb_min.device)
     rc = fn(aabb_min.data_ptr(), aabb_max.data_ptr(), valid.data_ptr(), N,
             total.data_ptr(), cuda_lib.stream(total))
-    cuda_lib.launched(counts, "count_overlaps", rc)
+    cuda_lib.launched(counts, "count_overlaps", rc, total.device)
     return total
 
 

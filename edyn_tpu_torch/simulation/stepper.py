@@ -11,10 +11,22 @@ stepper_sequential.cpp:28-152, solver.cpp:387-468). Phase order:
 PyTorch runs eagerly, so each device-side branch of the JAX step
 (``lax.cond`` / ``while_loop``) is a host-synced Python branch here; each
 site says so where it is taken.
+
+The step runs over a mesh of devices (``parallel.Mesh``):
+``SceneMeta.shard_mesh``, set by ``parallel.make_sharded_step``, or one
+shard on the state's device. The dense broadphase's mask rows, the
+narrowphase's manifold slots and the contact rows split into the shards'
+contiguous ranges, each shard's kernels (K4, K3b, K3a, K1, K2) run on its
+device, and every body-space sum is an ordered chain over the shards
+(``solver.chain_index_sum``), so the result is the same, bit for bit, for
+any number of shards. The rest (AABBs, the sweep and the pair-list carry,
+manifold slots, islands, joints, integration) runs on the home device,
+shard 0's, where the state lives.
 """
 from __future__ import annotations
 
 import dataclasses
+from types import SimpleNamespace
 
 import torch
 
@@ -22,14 +34,15 @@ from ..collision.broadphase import (
     DENSE_LIMIT, decode_keys, find_pairs, find_pairs_sweep,
 )
 from ..collision.manifold import set_drop, update_slots
-from ..collision.narrowphase import update_contacts
+from ..collision.narrowphase import update_contacts_sharded
 from ..config import PAIR_SEPARATION_MARGIN, Settings
 from ..constraints import joints as joints_mod
 from ..dynamics import islands as islands_mod
 from ..dynamics import solver as solver_mod
 from ..dynamics import solver_kernels as sk
-from ..dynamics.position import solve_positions
+from ..dynamics.position import solve_positions_sharded
 from ..math import quat
+from ..parallel.collectives import Mesh, gather, ranges
 from ..shapes.aabb import compute_aabbs
 from ..shapes.params import ShapeType
 
@@ -60,6 +73,9 @@ class SceneMeta:
     # (reference: settings.should_collide_func); it may read any state, so
     # it turns the pair-list carry off
     should_collide_fn: object = None
+    # multi-device: the ``parallel.Mesh`` the step runs sharded over (set
+    # by make_sharded_step; None: one shard on the state's device)
+    shard_mesh: object = None
 
 
 def apply_gravity(state, dt: float):
@@ -84,98 +100,17 @@ def integrate_velocities(state, dv, dw, dt: float):
                                orn=orn)
 
 
-def _solve_phase(state, man, rows, settings: Settings, meta: SceneMeta,
-                 use_rest: bool):
-    """Everything row-dependent between narrowphase and the step epilogue,
-    on a (possibly prefix-sliced) contact row table. The joint rows always
-    run at their full width."""
-    dt = settings.fixed_dt
-    tbl, a_p, b_p, Rp = sk.pack_rows_t(rows)
-    ab_p = torch.cat([a_p, b_p])
-
-    if use_rest:
-        linvel, angvel = solver_mod.solve_restitution(
-            state, tbl, ab_p, settings.num_restitution_iterations,
-            settings.num_individual_restitution_iterations)
-        state = dataclasses.replace(state, linvel=linvel, angvel=angvel)
-
-    state = apply_gravity(state, dt)
-
-    # refresh the rhs rows of the packed table (rhs_n 48 | rhs_1 49 |
-    # rhs_2 50; spin/roll rhs at C_BASE+27:30)
-    rows = solver_mod.refresh_contact_rhs(rows, state, dt, use_rest)
-    pad = Rp - rows.valid.shape[0]
-
-    def prhs(*xs):
-        return torch.nn.functional.pad(torch.stack(xs), (0, pad))
-
-    tbl[48:51] = prhs(rows.rn.rhs, rows.r1.rhs, rows.r2.rhs)
-    with_sr = rows.sA_n is not None
-    if with_sr:
-        tbl[sk.C_BASE + 27:sk.C_BASE + 30] = prhs(
-            rows.rhs_spin, rows.rhs_roll1, rows.rhs_roll2)
-    if meta.has_joints:
-        jrows, new_jangle = joints_mod.build_joint_rows(
-            state, dt, settings.mass_splitting, types=meta.joint_types,
-            cone_cap=settings.cone_max_violation)
-    else:
-        jrows, new_jangle = None, state.joints.angle
-
-    # warm start + velocity iterations; deltas travel transposed [6, N]
-    N = state.capacity
-    M, P = man.point_valid.shape
-    slot = rows.row_slot
-    imp_packed = torch.cat([
-        man.normal_impulse[..., None], man.friction_impulse,
-        man.spin_impulse[..., None], man.roll_impulse], dim=-1)
-    imp6 = imp_packed.reshape(M * P, 6)[slot]
-    dvw = solver_mod.warm_start_contacts(
-        rows, imp6, torch.zeros((N, 6), dtype=state.dtype,
-                                device=state.device))
-    j_imp = state.joints.impulses
-    if meta.has_joints:
-        dvw = joints_mod.warm_start_joints(jrows, j_imp, dvw)
-    imp_t = torch.nn.functional.pad(imp6, (0, 0, 0, pad)).T.contiguous()
-    dvw_t = dvw.T.contiguous()
-    for _ in range(settings.num_solver_velocity_iterations):
-        imp_t, dvw_t = solver_mod.solve_contacts_once(tbl, imp_t, dvw_t,
-                                                      ab_p, with_sr)
-        if meta.has_joints:
-            # the joint solve works on [N,6] deltas, after each contact
-            # iteration's scatter-add
-            j_imp, dvw = joints_mod.solve_joints_once(jrows, j_imp, dvw_t.T)
-            dvw_t = dvw.T.contiguous()
-    dvw = dvw_t.T
-    imp6 = imp_t.T[:rows.valid.shape[0]]
-
-    # store applied impulses for next-step warm starting: one packed
-    # scatter through the row compaction map, invalid rows dropped
-    slot_w = torch.where(rows.valid, slot, torch.full_like(slot, M * P))
-    flat = set_drop(imp_packed.reshape(M * P, 6), slot_w, imp6)
-    flat = flat.reshape(M, P, 6)
-    man = dataclasses.replace(
-        man,
-        normal_impulse=flat[..., 0].contiguous(),
-        friction_impulse=flat[..., 1:3].contiguous(),
-        spin_impulse=flat[..., 3].contiguous(),
-        roll_impulse=flat[..., 4:6].contiguous())
-    joints = dataclasses.replace(state.joints, impulses=j_imp,
-                                 angle=new_jangle)
-    state = dataclasses.replace(state, contacts=man, joints=joints)
-
-    state = integrate_velocities(state, dvw[:, 0:3], dvw[:, 3:6], dt)
-    state = solve_positions(state, tbl, ab_p,
-                            settings.num_solver_position_iterations)
-    if meta.has_joints:
-        state = joints_mod.solve_joint_positions(
-            state, settings.num_solver_position_iterations,
-            types=meta.joint_types)
-    return state
+def step_mesh(state, meta: SceneMeta) -> Mesh:
+    """The mesh a step runs over: ``meta.shard_mesh``, else one shard on
+    the state's device."""
+    return meta.shard_mesh or Mesh((state.device,))
 
 
 def broadphase(state, meta: SceneMeta):
     """The pair list of ``meta.broadphase_mode`` (stepper.py:326-340 in the
-    JAX package): (keys, body_a, body_b, valid, dropped, window alarms)."""
+    JAX package): (keys, body_a, body_b, valid, dropped, window alarms).
+    The dense mask is built by the shards of the step's mesh
+    (``find_pairs``); the sweep runs on the home device."""
     mode = meta.broadphase_mode
     if mode == "auto":
         mode = "dense" if state.capacity <= DENSE_LIMIT else "sweep"
@@ -185,7 +120,7 @@ def broadphase(state, meta: SceneMeta):
     if mode != "dense":
         raise ValueError(f"broadphase_mode {mode!r}: auto, dense or sweep")
     return find_pairs(state, meta.max_pairs, meta.wide_cap,
-                      meta.should_collide_fn) + (0,)
+                      meta.should_collide_fn, step_mesh(state, meta)) + (0,)
 
 
 def prepare_rows(state, settings: Settings, meta: SceneMeta):
@@ -193,6 +128,16 @@ def prepare_rows(state, settings: Settings, meta: SceneMeta):
     narrowphase, islands and row building. Returns (state, man, rows,
     counters) where counters = (broadphase pairs dropped, narrowphase
     candidates dropped, manifold slots dropped, sweep window alarms)."""
+    state, man, counters = prepare_contacts(state, settings, meta)
+    rows = solver_mod.build_contact_rows(
+        state, man, settings.fixed_dt, settings.num_restitution_iterations > 0,
+        settings.mass_splitting, meta.has_spin_roll, meta.max_rows)
+    return state, man, rows, counters
+
+
+def prepare_contacts(state, settings: Settings, meta: SceneMeta):
+    """``prepare_rows`` without the rows: (state, man, counters). The dense
+    broadphase and the narrowphase run over the step's mesh."""
     dt = settings.fixed_dt
     amin, amax = compute_aabbs(state.shape_type, state.origin_pos(),
                                state.orn, state.convex, state.shape_index,
@@ -230,7 +175,8 @@ def prepare_rows(state, settings: Settings, meta: SceneMeta):
         _, pa, pb = decode_keys(keys, state.capacity)
         bp_dropped = bp_alarms = 0
     else:
-        keys, pa, pb, pvalid, bp_dropped, bp_alarms = broadphase(state, meta)
+        keys, pa, pb, pvalid, bp_dropped, bp_alarms = broadphase(
+            state, meta)
     state = dataclasses.replace(
         state, bp_carry_ok=torch.tensor(True, device=state.device))
 
@@ -243,9 +189,10 @@ def prepare_rows(state, settings: Settings, meta: SceneMeta):
                               device=state.device)
     wake_bodies[old.body_a[edge_wake].long()] = True
     wake_bodies[old.body_b[edge_wake].long()] = True
-    man, np_dropped = update_contacts(state, man, settings.collision_threshold,
-                                      meta.types_present, meta.bucket_cap, dt,
-                                      settings.mesh_triangle_cull)
+    man, np_dropped = update_contacts_sharded(
+        state, man, settings.collision_threshold, meta.types_present,
+        meta.bucket_cap, dt, settings.mesh_triangle_cull,
+        step_mesh(state, meta))
 
     # steady-state island skip: unchanged pair list and pointed mask for
     # >= 2*RESET_PERIOD steps
@@ -260,22 +207,19 @@ def prepare_rows(state, settings: Settings, meta: SceneMeta):
                                      meta.island_iters,
                                      wake_bodies=wake_bodies,
                                      skip_labels=skip_labels)
-
-    rows = solver_mod.build_contact_rows(
-        state, man, dt, settings.num_restitution_iterations > 0,
-        settings.mass_splitting, meta.has_spin_roll, meta.max_rows)
-    return state, man, rows, (bp_dropped, np_dropped, man_dropped,
-                              bp_alarms)
+    return state, man, (bp_dropped, np_dropped, man_dropped, bp_alarms)
 
 
 def solve_width(rows, meta: SceneMeta) -> int:
     """The sleep-gating ladder: the narrowest of R/8, 3R/4 and R (rounded up
-    to 256) that holds the live rows. Numbers are identical in every tier.
-    Device branch (stepper.py:452 in the JAX package): host-synced."""
+    to 256, or to 256 x the shards under a mesh: stepper.py:431-432 in the
+    JAX package) that holds the live rows. Numbers are identical in every tier. Device
+    branch (stepper.py:452 in the JAX package): host-synced."""
     Rfull = rows.valid.shape[0]
     if not (meta.sleep_gating and meta.max_rows is not None):
         return Rfull
-    quantum = 256
+    quantum = 256 * (1 if meta.shard_mesh is None
+                     else meta.shard_mesh.size)
     for num, den in ((1, 8), (3, 4)):
         Rs = max(quantum, -(-(Rfull * num // den) // quantum) * quantum)
         if Rs < Rfull and rows.count <= Rs:
@@ -284,17 +228,16 @@ def solve_width(rows, meta: SceneMeta) -> int:
 
 
 def physics_step(state, settings: Settings, meta: SceneMeta):
-    """One fixed-dt step of the whole world."""
+    """One fixed-dt step of the whole world, over ``meta.shard_mesh`` when
+    it is set (the state then lives on its home device) and else as one
+    shard on the state's device."""
     dt = settings.fixed_dt
+    use_rest = settings.num_restitution_iterations > 0
+    mesh = step_mesh(state, meta)
     state, man, rows, (bp_dropped, np_dropped, man_dropped,
                        bp_alarms) = prepare_rows(state, settings, meta)
-    width = solve_width(rows, meta)
-    if width < rows.valid.shape[0]:
-        rows_w = solver_mod.rows_prefix(rows, width)
-    else:
-        rows_w = rows
-    state = _solve_phase(state, man, rows_w, settings, meta,
-                         settings.num_restitution_iterations > 0)
+    state = _solve_phase(state, man, _shard_rows(rows, meta, mesh), settings,
+                         meta, use_rest, mesh)
     return dataclasses.replace(
         state,
         step_count=state.step_count + 1,
@@ -302,3 +245,123 @@ def physics_step(state, settings: Settings, meta: SceneMeta):
         overflow=torch.tensor([bp_dropped, np_dropped, rows.dropped,
                                bp_alarms, man_dropped], dtype=torch.int32,
                               device=state.device))
+
+
+def _shard_rows(rows, meta: SceneMeta, mesh: Mesh) -> list:
+    """The rows of the ladder's width (``solve_width``) cut into the
+    shards' contiguous ranges, each on its shard's device. The rows are
+    built once, at the table's full width: on the card a batched product's
+    bits depend on the batch (ROADMAP P14), so rows built per shard would
+    round otherwise."""
+    width = solve_width(rows, meta)
+    return [solver_mod.rows_range(rows, r0, r1, mesh.devices[s])
+            for s, (r0, r1) in enumerate(ranges(width, mesh.size))]
+
+
+def _solve_phase(state, man, parts, settings: Settings, meta: SceneMeta,
+                 use_rest: bool, mesh: Mesh):
+    """Everything row-dependent between narrowphase and the step epilogue
+    (restitution -> gravity -> rhs refresh -> joint rows -> warm start ->
+    velocity iterations, each followed by the joint solve -> impulse
+    writeback -> integrate -> position iterations -> joint positions),
+    over the shards' contact rows (``parts``, one ``ContactRows`` on each
+    shard's device): each shard packs its table and launches its own K3b,
+    K3a, K1 and K2; the deltas meet in ordered chains on the home device,
+    where the joints (always at their full width), the impulse writeback
+    and the integration run."""
+    dt = settings.fixed_dt
+    home = mesh.home
+    packs = []
+    for s, rows in enumerate(parts):
+        with mesh.scope(s):
+            packs.append(solver_mod.ShardPack.of_rows(rows))
+
+    if use_rest:
+        linvel, angvel = solver_mod.solve_restitution_sharded(
+            state, packs, mesh, settings.num_restitution_iterations,
+            settings.num_individual_restitution_iterations)
+        state = dataclasses.replace(state, linvel=linvel, angvel=angvel)
+
+    state = apply_gravity(state, dt)
+
+    # refresh the rhs rows of the packed tables (rhs_n 48 | rhs_1 49 |
+    # rhs_2 50; spin/roll rhs at C_BASE+27:30)
+    with_sr = parts[0].sA_n is not None
+    for s, p in enumerate(packs):
+        with mesh.scope(s):
+            vel = SimpleNamespace(linvel=state.linvel.to(p.device),
+                                  angvel=state.angvel.to(p.device))
+            rows = solver_mod.refresh_contact_rhs(parts[s], vel, dt,
+                                                  use_rest)
+            parts[s] = rows
+            pad = p.Rp - rows.valid.shape[0]
+
+            def prhs(*xs):
+                return torch.nn.functional.pad(torch.stack(xs), (0, pad))
+
+            p.tbl[48:51] = prhs(rows.rn.rhs, rows.r1.rhs, rows.r2.rhs)
+            if with_sr:
+                p.tbl[sk.C_BASE + 27:sk.C_BASE + 30] = prhs(
+                    rows.rhs_spin, rows.rhs_roll1, rows.rhs_roll2)
+    if meta.has_joints:
+        jrows, new_jangle = joints_mod.build_joint_rows(
+            state, dt, settings.mass_splitting, types=meta.joint_types,
+            cone_cap=settings.cone_max_violation)
+    else:
+        jrows, new_jangle = None, state.joints.angle
+
+    # warm start + velocity iterations; deltas travel transposed [6, N]
+    N = state.capacity
+    M, P = man.point_valid.shape
+    imp_packed = torch.cat([
+        man.normal_impulse[..., None], man.friction_impulse,
+        man.spin_impulse[..., None], man.roll_impulse], dim=-1)
+    flat_imp = imp_packed.reshape(M * P, 6)
+    imp6s = [flat_imp[rows.row_slot.to(home)].to(p.device)
+             for rows, p in zip(parts, packs)]
+    dvw = solver_mod.warm_start_sharded(
+        parts, imp6s, torch.zeros((N, 6), dtype=state.dtype, device=home),
+        mesh).to(home)
+    j_imp = state.joints.impulses
+    if meta.has_joints:
+        dvw = joints_mod.warm_start_joints(jrows, j_imp, dvw)
+    imp_ts = [torch.nn.functional.pad(
+        imp6, (0, 0, 0, p.Rp - imp6.shape[0])).T.contiguous()
+        for imp6, p in zip(imp6s, packs)]
+    dvw_t = dvw.T.contiguous()
+    for _ in range(settings.num_solver_velocity_iterations):
+        imp_ts, dvw_t = solver_mod.solve_contacts_sharded(
+            packs, imp_ts, dvw_t, with_sr, mesh)
+        if meta.has_joints:
+            # the joint solve works on [N,6] deltas, after each contact
+            # iteration's scatter-add
+            j_imp, dvw = joints_mod.solve_joints_once(jrows, j_imp, dvw_t.T)
+            dvw_t = dvw.T.contiguous()
+    dvw = dvw_t.T
+
+    # store applied impulses for next-step warm starting: one packed
+    # scatter through the row compaction map, invalid rows dropped
+    imp6 = gather([t.T[:rows.valid.shape[0]] for t, rows in zip(imp_ts, parts)],
+                  home)
+    valid = gather([rows.valid for rows in parts], home)
+    slot = gather([rows.row_slot for rows in parts], home)
+    slot_w = torch.where(valid, slot, torch.full_like(slot, M * P))
+    flat = set_drop(flat_imp, slot_w, imp6).reshape(M, P, 6)
+    man = dataclasses.replace(
+        man,
+        normal_impulse=flat[..., 0].contiguous(),
+        friction_impulse=flat[..., 1:3].contiguous(),
+        spin_impulse=flat[..., 3].contiguous(),
+        roll_impulse=flat[..., 4:6].contiguous())
+    joints = dataclasses.replace(state.joints, impulses=j_imp,
+                                 angle=new_jangle)
+    state = dataclasses.replace(state, contacts=man, joints=joints)
+
+    state = integrate_velocities(state, dvw[:, 0:3], dvw[:, 3:6], dt)
+    state = solve_positions_sharded(state, packs, mesh,
+                                    settings.num_solver_position_iterations)
+    if meta.has_joints:
+        state = joints_mod.solve_joint_positions(
+            state, settings.num_solver_position_iterations,
+            types=meta.joint_types)
+    return state

@@ -11,10 +11,12 @@ The wrappers around the kernels share the helpers below: ``on_cpu`` decides
 by the tensors' device (the CPU takes the plain version; CUDA launches the
 kernel or raises, never falls back), ``check`` validates a kernel argument,
 ``stream`` gives PyTorch's current stream, and ``launched`` raises on a
-failed launch and counts a good one.
+failed launch and counts a good one, in the wrapper's own counts and in
+``DEVICE_LAUNCHES`` under the launch's device and shard (``shard_scope``).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -41,6 +43,10 @@ _load_lock = threading.Lock()
 _count_lock = threading.Lock()  # launch counts from several threads
 # compiler output of each source built by this process ({name: log})
 BUILD_LOGS: dict = {}
+# every launch by where it ran: {(device, shard): {kernel step: launches}};
+# shard is the index set by ``shard_scope`` (None outside a sharded step)
+DEVICE_LAUNCHES: dict = {}
+_scope = threading.local()
 
 
 def _nvcc() -> str:
@@ -150,9 +156,36 @@ def stream(t):
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def launched(counts: dict, name: str, rc: int):
-    """Raise if the launch failed; else count it in ``counts[name]``."""
+@contextlib.contextmanager
+def shard_scope(index: int, device):
+    """Launches inside count under shard ``index``; on a CUDA ``device``
+    it is also the current device, which a launch through ctypes runs on."""
+    prev = getattr(_scope, "shard", None)
+    _scope.shard = index
+    try:
+        if torch.device(device).type == "cuda":
+            with torch.cuda.device(device):
+                yield
+        else:
+            yield
+    finally:
+        _scope.shard = prev
+
+
+def reset_device_launches():
+    with _count_lock:
+        DEVICE_LAUNCHES.clear()
+
+
+def launched(counts: dict, name: str, rc: int, device=None):
+    """Raise if the launch failed; else count it in ``counts[name]`` and
+    under ``device`` (the launch's tensors') and the current shard in
+    ``DEVICE_LAUNCHES``."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+    key = (None if device is None else str(device),
+           getattr(_scope, "shard", None))
     with _count_lock:
         counts[name] += 1
+        per = DEVICE_LAUNCHES.setdefault(key, {})
+        per[name] = per.get(name, 0) + 1

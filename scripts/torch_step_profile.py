@@ -69,15 +69,15 @@ def phase_times(world, steps: int) -> dict:
         (stepper, "find_pairs", "broadphase"),
         (stepper, "find_pairs_sweep", "broadphase"),
         (stepper, "update_slots", "manifold slots"),
-        (stepper, "update_contacts", "narrowphase"),
+        (stepper, "update_contacts_sharded", "narrowphase"),
         (islands, "update_sleep", "islands and sleep"),
         (solver, "build_contact_rows", "contact rows"),
         (sk, "pack_rows_t", "pack row table"),
-        (solver, "solve_restitution", "restitution (K3a, K3b)"),
+        (solver, "solve_restitution_sharded", "restitution (K3a, K3b)"),
         (solver, "refresh_contact_rhs", "rhs refresh"),
-        (solver, "warm_start_contacts", "warm start"),
-        (solver, "solve_contacts_once", "velocity iterations (K1)"),
-        (stepper, "solve_positions", "position iterations (K2)"),
+        (solver, "warm_start_sharded", "warm start"),
+        (solver, "solve_contacts_sharded", "velocity iterations (K1)"),
+        (stepper, "solve_positions_sharded", "position iterations (K2)"),
         (joints, "build_joint_rows", "joint rows"),
         (joints, "warm_start_joints", "joint warm start"),
         (joints, "solve_joints_once", "joint velocity solve"),
