@@ -21,17 +21,28 @@ prints no result):
    kernel's device time with its inputs read from device memory and with
    them in L2 (CUDA-graph replays), the plain version's, one call with its
    host work, and the bound; each kernel's registers, stack and spills from
-   the build.
+   the build. Then the card's fused iterations (``check_fused``): one K1
+   and one K3a iteration by the fused path (``vel_fused_kernel`` or
+   ``rest_fused_kernel``, then ``segment_sum`` over the step's scatter
+   plan) bit-equal to the unfused path (gather, ``vel_kernel`` or
+   ``rest_kernel``, ``solver.index_sum``) and to the fused path's plain
+   versions; ``segment_sum`` bit-equal to ``index_sum`` on the same terms;
+   each new kernel timed L2-cold beside its bound, its plain version and,
+   for ``segment_sum``, ``index_sum`` (its ``library_ms``); both paths' time
+   per iteration.
 3. The main path: ``mixed_pile(10_000)`` -> ``make_world`` (cuda) ->
    ``World.step_n(120)``, with every kernel's launch count set to 0 just
    before and read just after. Checks finite state, launch counts within
-   (0, per-step maximum x steps], and the pile checks of the JAX package's
+   (0, per-step maximum x steps] (K1 and K3a fused, with ``segment_sum``;
+   their unfused kernels never), and the pile checks of the JAX package's
    ``test_mixed_pile_settles_and_no_tunnel`` (see ``FLOOR_BURIAL``); then
    the ``suggest_max_pairs`` entry point once on the landed pile (K5, its
    count equal to the plain one); then that JAX test itself, a 60-body pile
    settled for 240 steps, on the card.
 4. The kernels again on a real step of that pile: the solver kernels on its
-   packed row table; K4 on its live UNIFIED pairs, equal to its plain
+   packed row table, and the fused iterations as in phase 2 on its rows
+   and its bodies (the static planes left out of the plan); K4 on its live
+   UNIFIED pairs, equal to its plain
    version on every pair and against the port's
    ``support_sat.collide_support`` under the parity contract of
    ``tests/test_pallas_narrowphase.py``, timed with all its launches
@@ -58,8 +69,8 @@ prints no result):
    pile, as phase 4 holds them on the 10k pile: the solver kernels on its
    packed row table, K4 on its live UNIFIED pairs (against its plain
    version and against ``support_sat``). Then the JAX package's ragdoll
-   test (one ragdoll, 240 steps, the default settings) on the card, twice,
-   both runs ending in the same state bit for bit, and
+   test (one ragdoll, 240 steps, the default settings) on the card, and a
+   second run equal to the first bit for bit after 60 steps, and
    card against CPU on a 16-ragdoll pile settled 240 steps: the whole step
    under phase 5's rule, and ``build_joint_rows``, ``solve_joints_once``
    and ``solve_joint_positions`` alone within ``JOINT_RTOL``.
@@ -84,7 +95,8 @@ prints no result):
    and one step with it; ``examples/vehicle.py``'s vehicle (a compound
    chassis on hinged wheels) driven 120 frames on the card and on the CPU,
    x > 1.0 m on both; the JAX package's compound tests
-   (``tests/test_torch_compound_behaviour.py``) on the card.
+   (``tests/test_torch_compound_behaviour.py``) on the card, in a process
+   of their own beside the rest of the phase.
 9. ``bench.py``'s protocol: ``mixed_pile(10_000)`` -> ``make_world``
    (cuda, 256 spare slots) -> ``step_n(2)``, 60 falling steps timed, 300
    untimed, 60 settled steps timed, then ``bench.py``'s mostly-asleep
@@ -92,7 +104,8 @@ prints no result):
    ``wake_set``) and 60 mostly-asleep steps timed, with the launch counts
    read over the protocol and over the mostly-asleep steps; fails below
    ``MIN_ASLEEP`` asleep, on a non-finite state or an overflow. The solver
-   kernels on that world's rows at the narrowed width. Then the live-world
+   kernels and the fused iterations on that world's rows at the narrowed
+   width. Then the live-world
    API on that world: 256 spawns into the spare slots and 256 destroys,
    the setters, 10 steps through ``step_with_events`` (every spawned body
    that touches has a started contact), 4,096 vertical rays on the card
@@ -124,7 +137,8 @@ prints no result):
    all; every state leaf float64, every counter int32 and zero, phase 3's
    pile checks; steps/s beside phase 3's. 12b: the double entries against
    their plain float64 versions on phase 2's random inputs at f64 and on a
-   real step of that pile (K1-K3b max abs error 0, K4 equal on every pair
+   real step of that pile (K1-K3b max abs error 0, the fused iterations
+   and ``segment_sum`` bit-equal as in phase 2, K4 equal on every pair
    with its pre-pass and order, K5's counts equal, its edge cases too),
    timed L2-cold against bounds at the float64 rate. 12c: phase 5 at
    float64. 12d: the landed 10k pile of phase 3 (float32) stepped 60 steps
@@ -301,7 +315,11 @@ def random_inputs(C: int, Rp: int, N: int, seed: int, dev):
         tbl=t.contiguous(), imp=u(6, Rp), imp3=u(3, Rp),
         g=vel_t[:, ab].contiguous(),
         dyn=torch.stack([torch.randn((Rp,), generator=g, device=dev),
-                         (u(Rp) > 0.3).float()]).contiguous())
+                         (u(Rp) > 0.3).float()]).contiguous(),
+        # the fused iterations' endpoints and [N,6] deltas; every body
+        # moves (the random table gives every side a mass)
+        ab=ab, vel=vel_t.T.contiguous(),
+        moves=torch.ones((N,), dtype=torch.bool, device=dev))
 
 
 def _events():
@@ -444,6 +462,287 @@ def check_kernels(inp, with_sr: bool, label: str,
             f"{out[name]['bound_ms'] * 1e3:.2f} us ({nbytes / 1e6:.2f} MB); "
             f"one call with its host work {per_call * 1e3:.1f} us")
     return out
+
+
+# The card's fused iterations: K1 and K3a with their endpoint
+# gather inside, and the segment sum that adds their terms per body.
+# name: (pallas_call line of the TPU kernel, CUDA kernel, the unfused
+# kernel it is held to)
+FUSED = {
+    "solve_iteration_fused": ("edyn_tpu/dynamics/pallas_solver.py:262",
+                              "vel_fused_kernel", "solve_iteration"),
+    "restitution_iteration_fused": ("edyn_tpu/dynamics/pallas_solver.py:342",
+                                    "rest_fused_kernel",
+                                    "restitution_iteration"),
+    "segment_sum": ("none (the XLA scatter-add around "
+                    "edyn_tpu/dynamics/pallas_solver.py:262 and :342)",
+                    "segment_sum_kernel", None),
+}
+
+
+def bits_equal(a, b) -> bool:
+    """Equal to the bit (the sign of a zero too)."""
+    import torch
+    it = torch.int64 if a.dtype == torch.float64 else torch.int32
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.contiguous().view(it), b.contiguous().view(it)))
+
+
+def profiled_us(fn, reps: int = 10):
+    """Device time (us) of all the kernels one call of ``fn`` launches,
+    from ``torch.profiler`` over ``reps`` calls (device events only); None
+    where the profiler recorded no device event (not measured)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU:
+            continue
+        for attr in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(e, attr):
+                total += getattr(e, attr)
+                break
+    return total / reps if total else None
+
+
+def check_fused(inp, with_sr: bool, label: str) -> dict:
+    """The fused K1 and K3a iterations and ``segment_sum`` on one input set
+    (``inp``: a packed table, impulses, ``dyn``, the endpoints ``ab`` [2Rp],
+    the body velocities ``vel`` [N,6] as the deltas, the bodies that can
+    move ``moves``), through the step's own functions over one shard:
+
+    - one velocity iteration by the fused path
+      (``solver.solve_contacts_planned``) and by the unfused one
+      (``solver.solve_contacts_sharded``: gather, K1, ``index_sum``), and
+      one restitution inner iteration each way: impulses and deltas equal
+      to the bit; also the fused path's plain versions
+      (``*_fused_plain``, ``segment_sum_plain``) on the card, to the bit;
+    - ``segment_sum`` against ``solver.index_sum`` (``index_put_`` with
+      ``accumulate``) on the same terms, to the bit;
+    - each new kernel's device time, L2-cold (CUDA-graph replays cycling
+      through input copies that together exceed three times the L2), its
+      plain version's and, for ``segment_sum``, ``index_sum``'s
+      (``library_ms``), each as one call with its host work (CUDA events;
+      the plain versions sync with the host); and the per-iteration time of
+      both paths, one call with its host work and, from the profiler, the
+      device time of all its kernels.
+
+    Bounds: bytes from device memory over its rate (the table rows the
+    kernel reads, impulses in and out, the int32 endpoints and positions,
+    the live terms' six components out, the [N,6] deltas once); the
+    endpoint loads by index hit L2 and are not counted. For the segment
+    sum: the live terms in, the offsets, x in and out."""
+    import torch
+    from edyn_tpu_torch.dynamics import scatter
+    from edyn_tpu_torch.dynamics import solver
+    from edyn_tpu_torch.dynamics import solver_kernels as sk
+    from edyn_tpu_torch.parallel.collectives import Mesh
+    tbl, imp, imp3, vel = inp["tbl"], inp["imp"], inp["imp3"], inp["vel"]
+    C, Rp = tbl.shape
+    N, dt = vel.shape[0], tbl.dtype
+    es, rate = tbl.element_size(), flops_per_s(dt)
+    # active rows are valid rows, as solve_restitution_sharded makes them
+    dyn = torch.stack([inp["dyn"][0], inp["dyn"][1] * (tbl[55] > 0.5)])
+    mesh = Mesh((tbl.device,))
+    pack = solver.ShardPack.of_table(tbl, inp["ab"])
+    plan = scatter.ScatterPlan.build([pack], inp["moves"], mesh)
+    t, h = plan.shards[0], plan.hops[0]
+    kept = int(h.offsets[-1])
+    d0 = scatter.body_table(vel)
+
+    def plain_iteration(kern):
+        ta, d = torch.zeros_like(t.terms_a), d0.clone()
+        if kern == "K1":
+            out = sk.solve_iteration_fused_plain(tbl, imp, d, t.ab, t.pos, ta,
+                                                 ta, with_sr)
+        else:
+            out = sk.restitution_iteration_fused_plain(tbl, dyn, imp3, d,
+                                                       t.ab, t.pos, ta, ta)
+        return out, sk.segment_sum_plain(ta, h.offsets, x=d), ta
+
+    def unfused(kern):
+        x_t = vel.T.contiguous()
+        if kern == "K1":
+            (o,), x = solver.solve_contacts_sharded([pack], [imp], x_t,
+                                                    with_sr, mesh)
+            return o, x
+        g = x_t[:, pack.ab_p]
+        o, upd = sk.restitution_iteration(tbl, dyn, imp3, g)
+        return o, solver.scatter_upd_t(x_t, pack.ab_p, upd)
+
+    def fused(kern, d):
+        if kern == "K1":
+            (o,), d = solver.solve_contacts_planned([pack], [imp], d, with_sr,
+                                                    mesh, plan)
+            return o, d
+        o = sk.restitution_iteration_fused(tbl, dyn, imp3, d, t.ab, t.pos,
+                                           t.terms_a, t.terms_b)
+        return o, plan.add(d, mesh)
+
+    out, iteration = {}, {}
+    for kern, name in (("K1", "solve_iteration_fused"),
+                       ("K3a", "restitution_iteration_fused")):
+        o_old, x_old = unfused(kern)
+        o_new, d_new = fused(kern, d0.clone())
+        terms = t.terms_a.clone()
+        o_pl, d_pl, terms_pl = plain_iteration(kern)
+        torch.cuda.synchronize()
+        for what, a, b in (("impulses", o_new, o_old),
+                           ("deltas", d_new[:, :6], x_old.T),
+                           ("plain impulses", o_pl, o_new),
+                           ("plain deltas", d_pl, d_new),
+                           ("plain terms", terms_pl, terms)):
+            if not bits_equal(a, b):
+                diff = float((a - b).abs().max())
+                raise AssertionError(f"[{label}] {name}: {what} differ from "
+                                     f"the {'plain' if 'plain' in what else 'unfused'} "
+                                     f"path (max abs {diff}), bit-equal "
+                                     "required")
+        if kept and not float((d_new[:, :6] - vel).abs().max()) > 0:
+            raise AssertionError(f"[{label}] {name} moved no body")
+        # segment_sum alone against index_sum on this iteration's terms
+        if kern == "K1":
+            g = vel.T.contiguous()[:, pack.ab_p]
+            _, upd = sk.solve_iteration(tbl, imp, g, with_sr)
+            src = torch.cat([upd[:6], upd[6:]], dim=1).T.contiguous()
+            lib = solver.index_sum(vel, pack.ab_p, src)
+            seg = sk.segment_sum(terms, h.offsets, x=d0.clone())
+            if not bits_equal(seg[:, :6], lib):
+                raise AssertionError(f"[{label}] segment_sum differs from "
+                                     "index_sum on the same terms")
+            seg_terms = terms
+        iteration[kern] = dict(
+            old_call_ms=call_ms(lambda: unfused(kern), 20),
+            new_call_ms=call_ms(lambda: fused(kern, d0.clone()), 20),
+            old_device_us=profiled_us(lambda: unfused(kern)),
+            new_device_us=profiled_us(lambda: fused(kern, d0.clone())))
+
+    # each new kernel alone, L2-cold
+    idx_bytes = 4 * 2 * Rp * 2   # ab and pos, int32
+    body_bytes = es * 6 * N
+    term_bytes = es * 6 * kept
+    k1_rows = sk.rows_read("solve_iteration", with_sr)
+    k3_rows = sk.rows_read("restitution_iteration")
+    work = {
+        "solve_iteration_fused": (
+            es * Rp * (k1_rows + 12) + idx_bytes + term_bytes + body_bytes,
+            Rp * FLOPS_K1[with_sr]),
+        "restitution_iteration_fused": (
+            es * Rp * (k3_rows + 2 + 6) + idx_bytes + term_bytes + body_bytes,
+            Rp * KERNELS["restitution_iteration"][3]),
+        "segment_sum": (term_bytes + 4 * (N + 1) + 2 * body_bytes, 6 * kept),
+    }
+
+    def kernel_fn(name, s):
+        if name == "solve_iteration_fused":
+            return lambda: sk.solve_iteration_fused(
+                s["tbl"], s["imp"], s["d"], t.ab, t.pos, s["terms"],
+                s["terms"], with_sr)
+        if name == "restitution_iteration_fused":
+            return lambda: sk.restitution_iteration_fused(
+                s["tbl"], dyn, imp3, s["d"], t.ab, t.pos, s["terms"],
+                s["terms"])
+        return lambda: sk.segment_sum(s["terms"], h.offsets, x=s["d"])
+
+    def plain_fn(name):
+        d, ta = d0.clone(), torch.zeros_like(t.terms_a)
+        if name == "solve_iteration_fused":
+            return lambda: sk.solve_iteration_fused_plain(
+                tbl, imp, d, t.ab, t.pos, ta, ta, with_sr)
+        if name == "restitution_iteration_fused":
+            return lambda: sk.restitution_iteration_fused_plain(
+                tbl, dyn, imp3, d, t.ab, t.pos, ta, ta)
+        return lambda: sk.segment_sum_plain(seg_terms, h.offsets, x=d)
+
+    for name, (nbytes, ops) in work.items():
+        moved = (es * C * Rp if name != "segment_sum" else 0) \
+            + es * 8 * (N + 2 * Rp)
+        n_sets = max(2, -(-3 * L2_BYTES // moved))
+        sets = [dict(tbl=tbl.clone() if name != "segment_sum" else tbl,
+                     imp=imp.clone(), d=d0.clone(),
+                     terms=seg_terms.clone()) for _ in range(n_sets)]
+        ms = device_ms([kernel_fn(name, s) for s in sets])
+        del sets
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
+        r = dict(ms=ms, plain_ms=call_ms(plain_fn(name), 5),
+                 plain_timed_by="one call with its host work (CUDA events)",
+                 call_ms=call_ms(kernel_fn(name, dict(
+                     tbl=tbl, imp=imp, d=d0.clone(), terms=seg_terms.clone())),
+                     20),
+                 bound_ms=1e3 * max(t_bytes, t_ops),
+                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+                 bytes=nbytes, kept_terms=kept, C=C, Rp=Rp, N=N,
+                 dtype=str(dt), max_abs_err=0.0, library_ms=None)
+        if name == "segment_sum":
+            r["library_ms"] = call_ms(
+                lambda: solver.index_sum(vel, pack.ab_p, src), 20)
+            r["library"] = ("solver.index_sum (index_put_ with accumulate), "
+                            "one call with its host work (CUDA events)")
+        else:
+            kern = "K1" if name == "solve_iteration_fused" else "K3a"
+            r["iteration"] = iteration[kern]
+        out[name] = r
+        log(f"[{label}] {name}: {dt} C={C} Rp={Rp} N={N}, {kept} live "
+            f"terms planned; bit-equal to the unfused path and to its plain "
+            f"version; device {ms * 1e3:.2f} us L2-cold ({n_sets} input "
+            f"sets); one call {r['call_ms'] * 1e3:.1f} us; plain (one call) "
+            f"{r['plain_ms'] * 1e3:.1f} us; bound {r['bound_ms'] * 1e3:.2f} "
+            f"us ({nbytes / 1e6:.2f} MB)"
+            + (f"; index_sum (one call) {r['library_ms'] * 1e3:.1f} us"
+               if name == "segment_sum" else ""))
+    us = lambda x: "not measured" if x is None else f"{x:.2f} us"
+    for kern, it in iteration.items():
+        log(f"[{label}] one {kern} iteration: unfused (gather, kernel, "
+            f"index_sum) {it['old_call_ms'] * 1e3:.1f} us a call, "
+            f"{us(it['old_device_us'])} on the device; fused (kernel, "
+            f"segment_sum) {it['new_call_ms'] * 1e3:.1f} us a call, "
+            f"{us(it['new_device_us'])} on the device")
+    return out
+
+
+def fused_entry(name: str, r: dict, others: dict, launches: dict,
+                scalar: str = "float") -> dict:
+    """The kernels line's entry of a fused iteration's kernel or of the
+    segment sum (``check_fused``): ``r`` its results at the main path's
+    shapes (the landed pile's real step), ``others`` more of them by label
+    (random inputs, the mostly-asleep width), ``launches`` its counts by
+    path."""
+    replaces, kernel, unfused = FUSED[name]
+    held = ("bit-equal to its plain version and to the unfused path "
+            f"(gather, {unfused}, index_sum)" if unfused else
+            "bit-equal to its plain version and to solver.index_sum")
+    e = dict(name=name if scalar == "float" else f"{name}_f64",
+             route="cuda", source=SOURCE, replaces=replaces, **launches,
+             max_abs_err=r["max_abs_err"], tol=held, ms=r["ms"],
+             plain_ms=r["plain_ms"], plain_timed_by=r["plain_timed_by"],
+             bound_ms=r["bound_ms"], bound_us=r["bound_ms"] * 1e3,
+             bound_by=r["bound_by"],
+             bound_counts="device-memory bytes; the endpoint loads by index "
+                          "hit L2 and are not counted",
+             library_ms=r["library_ms"], call_ms=r["call_ms"], C=r["C"],
+             Rp=r["Rp"], N=r["N"], kept_terms=r["kept_terms"],
+             dtype=r["dtype"])
+    if "launches" in launches and scalar == "float":
+        e["launches_per_step"] = launches["launches"] / STEPS
+    if r["library_ms"] is not None:
+        e["library"] = r["library"]
+    if "iteration" in r:
+        e["iteration"] = r["iteration"]
+    for label, o in others.items():
+        e.update({f"{label}_{k}": o[k] for k in (
+            "ms", "plain_ms", "bound_ms", "library_ms", "Rp", "N",
+            "kept_terms")})
+        if "iteration" in o:
+            e[f"{label}_iteration"] = o["iteration"]
+    e.update(build_info("solver_kernels", kernel, scalar))
+    return e
 
 
 def count_ops(fn):
@@ -941,15 +1240,31 @@ def k5_edge_cases(dev, dtype=None) -> dict:
 
 
 def max_launches_per_step(s) -> dict:
-    """Each counted kernel step's most launches in one step under
-    Settings ``s``."""
-    return {"solve_iteration": s.num_solver_velocity_iterations,
+    """Each counted kernel step's most launches in one unsharded step under
+    Settings ``s``. K1 and K3a run fused on the card: their unfused
+    entries (the CPU's path) must not launch at all."""
+    rest = s.num_restitution_iterations \
+        * s.num_individual_restitution_iterations
+    return {"solve_iteration_fused": s.num_solver_velocity_iterations,
             "ngs_iteration": s.num_solver_position_iterations,
-            "restitution_iteration": s.num_restitution_iterations
-            * s.num_individual_restitution_iterations,
+            "restitution_iteration_fused": rest,
             "relvel": s.num_restitution_iterations,
+            "segment_sum": s.num_solver_velocity_iterations + rest,
+            "solve_iteration": 0, "restitution_iteration": 0,
             "unified_features": 1, "pair_order": 1, "collide_support": 1,
             "count_overlaps": 0}
+
+
+# the unfused K1 and K3a: never on the card's step
+UNFUSED = ("solve_iteration", "restitution_iteration")
+
+
+def no_unfused(launches: dict, label: str):
+    """Fail if the card's step launched K1 or K3a unfused."""
+    ran = {k: launches[k] for k in UNFUSED if launches.get(k)}
+    if ran:
+        raise AssertionError(f"[{label}] the unfused K1/K3a launched on the "
+                             f"step: {ran}")
 
 
 def main_path(n_bodies: int, steps: int, dev):
@@ -993,9 +1308,10 @@ def main_path(n_bodies: int, steps: int, dev):
         f"{world.overflow_counters()}, launches {launches}")
 
     for name, n in launches.items():
-        if not 0 < n <= per_step[name] * steps:
+        most = per_step[name] * steps
+        if not (0 < n <= most if most else n == 0):
             raise AssertionError(f"{name}: {n} launches in {steps} steps, "
-                                 f"expected 1..{per_step[name] * steps}")
+                                 f"expected {f'1..{most}' if most else 0}")
     lowest = check_pile(st, -FLOOR_BURIAL, "main")
     log(f"[main] max_pairs grew to {world.meta.max_pairs}")
     return world, launches, dict(
@@ -1083,8 +1399,10 @@ def rows_in_use(world) -> int:
 def real_inputs(world):
     """Kernel inputs from one real step of the world: the packed table at
     the width the step solves, the warm-start impulses, and the gathered
-    body velocities."""
+    body velocities; for the fused iterations the endpoints, the body
+    velocities and the bodies that can move."""
     import torch
+    from edyn_tpu_torch.dynamics import scatter
     from edyn_tpu_torch.dynamics import solver_kernels as sk
     from edyn_tpu_torch.dynamics.solver import rows_prefix
     from edyn_tpu_torch.simulation.stepper import prepare_rows, solve_width
@@ -1107,7 +1425,8 @@ def real_inputs(world):
                      ((tbl[55:56] > 0.5) & (relv < -0.005)).to(tbl.dtype)])
     return dict(tbl=tbl, imp=imp6.T.contiguous(),
                 imp3=imp6[:, :3].T.contiguous(), g=g,
-                dyn=dyn.contiguous()), rows.sA_n is not None
+                dyn=dyn.contiguous(), ab=ab_p, vel=vel_t.T.contiguous(),
+                moves=scatter.movable(st)), rows.sA_n is not None
 
 
 def _to(x, dev):
@@ -1452,8 +1771,8 @@ def ragdoll_path(n_ragdolls: int, steps: int, dev):
             raise AssertionError(f"[ragdolls] {name}: {n} launches in "
                                  f"{steps} steps, at most "
                                  f"{per_step[name] * steps}")
-    for name in ("solve_iteration", "ngs_iteration", "unified_features",
-                 "pair_order", "collide_support"):
+    for name in ("solve_iteration_fused", "segment_sum", "ngs_iteration",
+                 "unified_features", "pair_order", "collide_support"):
         # (the plain versions on a CPU rehearsal count nothing)
         if launches[name] == 0 and torch.device(dev).type == "cuda":
             raise AssertionError(f"[ragdolls] {name} never launched")
@@ -1484,37 +1803,49 @@ def ragdoll_path(n_ragdolls: int, steps: int, dev):
                 max_pairs=world.meta.max_pairs, **checks), launches, world
 
 
+# the JAX package's ragdoll test: 240 steps; the second run, which must
+# retrace the first bit for bit, is held to it after its first 60
+ONE_RAGDOLL_STEPS = 240
+ONE_RAGDOLL_AGAIN = 60
+
+
 def reference_ragdoll(dev) -> dict:
     """The JAX package's test_ragdoll_drops_and_holds_together on the card:
     one ragdoll dropped on a plane, 240 steps, its own limits, the default
-    settings (the cone row unbounded, ROADMAP R8). It runs twice: the card's
-    step sums each body's row updates in one fixed order
-    (``solver.index_sum``), so both runs must end in the same state, bit for
-    bit. With ``index_add``'s atomics the order changed from run to run, and
-    one run in about five blew this ragdoll up (R8)."""
+    settings (the cone row unbounded, ROADMAP R8). A second run must
+    retrace the first, bit for bit, over its first ``ONE_RAGDOLL_AGAIN``
+    steps: the card's step sums each body's row updates in one fixed order
+    (``solver.index_sum``, and ``segment_sum`` in the same order). With
+    ``index_add``'s atomics the order changed from run to run, and one run
+    in about five blew this ragdoll up (R8)."""
     import numpy as np
     import torch
     import edyn_tpu_torch as et
     from edyn_tpu_torch.utils.ragdoll import RagdollDef, make_ragdoll
+    fields = ("pos", "orn", "linvel", "angvel")
 
-    def drop():
+    def world():
         b = et.WorldBuilder()
         b.make_rigidbody(et.RigidBodyDef(
             kind=et.KIND_STATIC, shape=et.PlaneShape((0, 1, 0), 0.0),
             material=et.Material(friction=0.8)))
         rag = make_ragdoll(b, RagdollDef(position=(0, 0.3, 0)))
-        w = et.make_world(b, device=dev)
-        t0 = time.perf_counter()
-        w.step(240)
-        torch.cuda.synchronize()
-        return w, rag, time.perf_counter() - t0
+        return et.make_world(b, device=dev), rag
 
-    w, rag, secs = drop()
-    again, _, _ = drop()
-    for f in ("pos", "orn", "linvel", "angvel"):
-        if not torch.equal(getattr(w.state, f), getattr(again.state, f)):
+    w, rag = world()
+    t0 = time.perf_counter()
+    w.step(ONE_RAGDOLL_AGAIN)
+    early = {f: getattr(w.state, f).clone() for f in fields}
+    w.step(ONE_RAGDOLL_STEPS - ONE_RAGDOLL_AGAIN)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    again, _ = world()
+    again.step(ONE_RAGDOLL_AGAIN)
+    for f in fields:
+        if not torch.equal(early[f], getattr(again.state, f)):
             raise AssertionError(f"[one ragdoll] two runs of the same scene "
-                                 f"end in another {f} on the card")
+                                 f"differ in {f} after {ONE_RAGDOLL_AGAIN} "
+                                 "steps on the card")
     pos = np.array([w.position(i) for i in rag.bodies()])
     d_head = float(np.linalg.norm(w.position(rag.head)
                                   - w.position(rag.torso_upper)))
@@ -1522,8 +1853,9 @@ def reference_ragdoll(dev) -> dict:
                                   - w.position(rag.lower_leg_left)))
     out = dict(lowest=float(pos[:, 1].min()), extent=float(np.abs(pos).max()),
                head=d_head, knee=d_knee, seconds=secs)
-    log(f"[one ragdoll] 240 steps on the card in {secs:.2f} s, twice, the "
-        f"same state bit for bit: {out}")
+    log(f"[one ragdoll] {ONE_RAGDOLL_STEPS} steps on the card in "
+        f"{secs:.2f} s; a second run the same state bit for bit after "
+        f"{ONE_RAGDOLL_AGAIN}: {out}")
     if not (out["lowest"] > -0.05 and out["extent"] < 5.0
             and d_head < 0.5 and d_knee < 0.5):
         raise AssertionError(f"the JAX package's ragdoll test fails on the "
@@ -1738,8 +2070,9 @@ def terrain_path(n_bodies: int, steps: int, dev):
             raise AssertionError(f"[terrain] {name}: {n} launches in "
                                  f"{steps} steps, at most "
                                  f"{per_step[name] * steps}")
-    for name in ("solve_iteration", "ngs_iteration", "relvel",
-                 "unified_features", "pair_order", "collide_support"):
+    for name in ("solve_iteration_fused", "segment_sum", "ngs_iteration",
+                 "relvel", "unified_features", "pair_order",
+                 "collide_support"):
         if launches[name] == 0 and torch.device(dev).type == "cuda":
             raise AssertionError(f"[terrain] {name} never launched")
     if launches["count_overlaps"]:
@@ -1960,7 +2293,7 @@ def vehicle_card_vs_cpu(dev) -> dict:
 
 def compound_tests_on_card(dev) -> dict:
     """The JAX package's compound behaviour tests (tests/test_compound.py)
-    on the card, through the port's test file."""
+    on the card, through the port's test file. Returns {case: seconds}."""
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import test_torch_compound_behaviour as tb
     out = {}
@@ -1968,7 +2301,34 @@ def compound_tests_on_card(dev) -> dict:
         t0 = time.perf_counter()
         case(device=dev)
         out[case.__name__] = time.perf_counter() - t0
-    log(f"[compound tests] passed on the card: "
+    return out
+
+
+def start_compound_tests():
+    """``compound_tests_on_card`` in a process of its own, on the card
+    beside phase 8's other checks (its tiny worlds wait on the host, not
+    on the card): the process, which prints its result as its last line."""
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke; print(json.dumps("
+            "chip_smoke.compound_tests_on_card('cuda')), flush=True)")
+    return subprocess.Popen([sys.executable, "-c", code, ROOT], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+
+def finish_compound_tests(proc, timeout: float = 600.0) -> dict:
+    """Wait for ``start_compound_tests``' process; fail if a test failed."""
+    try:
+        text, _ = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"[compound tests] failed on the card "
+                             f"({proc.returncode}):\n{text[-4000:]}")
+    out = json.loads(text.strip().splitlines()[-1])
+    log(f"[compound tests] passed on the card (a process of their own): "
         f"{ {k: round(v, 2) for k, v in out.items()} } s")
     return out
 
@@ -1980,17 +2340,24 @@ def terrain_checks(dev) -> dict:
     (P9); the vehicle; the JAX package's compound tests on the card."""
     from edyn_tpu_torch.shapes.params import ShapeType
     from edyn_tpu_torch.utils.scenes import rich_scene
-    builder = rich_scene(n_bodies=512)[0]
-    mesh = builder.defs[0].shape
-    out = {}
-    out["card_vs_cpu"], w8 = card_vs_cpu(
-        dev, builder=builder, label="terrain card-vs-cpu", nudge_orn=True)
-    rim = ShapeType.CYLINDER in w8.meta.types_present
-    out["mesh_card_vs_cpu"] = mesh_card_vs_cpu(w8.state, rim)
-    out["mesh_cull"] = mesh_cull_check(w8, mesh)
-    del w8
-    out["vehicle"] = vehicle_card_vs_cpu(dev)
-    out["compound_tests"] = compound_tests_on_card(dev)
+    compound = start_compound_tests()
+    try:
+        builder = rich_scene(n_bodies=512)[0]
+        mesh = builder.defs[0].shape
+        out = {}
+        out["card_vs_cpu"], w8 = card_vs_cpu(
+            dev, builder=builder, label="terrain card-vs-cpu",
+            nudge_orn=True)
+        rim = ShapeType.CYLINDER in w8.meta.types_present
+        out["mesh_card_vs_cpu"] = mesh_card_vs_cpu(w8.state, rim)
+        out["mesh_cull"] = mesh_cull_check(w8, mesh)
+        del w8
+        out["vehicle"] = vehicle_card_vs_cpu(dev)
+    except BaseException:
+        compound.kill()
+        compound.wait()
+        raise
+    out["compound_tests"] = finish_compound_tests(compound)
     return out
 
 
@@ -2224,12 +2591,13 @@ def asleep_path(n_bodies: int, dev):
     # the protocol runs every kernel of the step; the mostly-asleep steps
     # at least the solver's (their awake bodies may have no pair)
     on_card = torch.device(dev).type == "cuda"
-    for name in ("solve_iteration", "ngs_iteration", "restitution_iteration",
-                 "relvel", "unified_features", "pair_order",
-                 "collide_support"):
+    for name in ("solve_iteration_fused", "ngs_iteration",
+                 "restitution_iteration_fused", "segment_sum", "relvel",
+                 "unified_features", "pair_order", "collide_support"):
         if on_card and not launches[name]:
             raise AssertionError(f"[bench] {name} never launched")
-    for name in ("solve_iteration", "ngs_iteration"):
+    no_unfused(launches, "bench")
+    for name in ("solve_iteration_fused", "segment_sum", "ngs_iteration"):
         if on_card and not asleep_launches[name]:
             raise AssertionError(f"[bench] {name} never launched in the "
                                  "mostly-asleep steps")
@@ -2933,11 +3301,12 @@ def networked_path(dev):
         f"{1e3 * statistics.mean(calls):.3f} ms a call (max "
         f"{1e3 * max(calls):.3f}) at {world.state.capacity} bodies; "
         f"launches over the phase {launches}")
-    for name in ("solve_iteration", "ngs_iteration", "restitution_iteration",
-                 "relvel", "unified_features", "pair_order",
-                 "collide_support"):
+    for name in ("solve_iteration_fused", "ngs_iteration",
+                 "restitution_iteration_fused", "segment_sum", "relvel",
+                 "unified_features", "pair_order", "collide_support"):
         if not launches[name]:
             raise AssertionError(f"[net] {name} never launched")
+    no_unfused(launches, "net")
     if launches["count_overlaps"]:
         raise AssertionError("[net] K5 launched on the step")
     out["launches"] = launches
@@ -2945,8 +3314,9 @@ def networked_path(dev):
 
 
 # Phase 12: the float64 mode and the sweep broadphase.
-F64_KERNELS = ("solve_iteration", "ngs_iteration", "restitution_iteration",
-               "relvel", "unified_features", "pair_order", "collide_support",
+F64_KERNELS = ("solve_iteration_fused", "ngs_iteration",
+               "restitution_iteration_fused", "segment_sum", "relvel",
+               "unified_features", "pair_order", "collide_support",
                "count_overlaps")
 SWEEP_STEPS = 60        # steps of the landed 10k pile under each broadphase
 SWEEP_CALLS = 10        # broadphase calls timed on one state
@@ -3043,9 +3413,9 @@ def f64_path(n_bodies: int, steps: int, dev, f32_main: dict):
     per_step = max_launches_per_step(world.settings)
     for name, n in f64c.items():
         most = 1 if name == "count_overlaps" else per_step[name] * steps
-        if not 0 < n <= most:
+        if not (0 < n <= most if most else n == 0):
             raise AssertionError(f"[f64] {name}_f64: {n} launches, expected "
-                                 f"1..{most}")
+                                 f"{f'1..{most}' if most else 0}")
     plain = ov.count_overlaps_plain(st.aabb_min, st.aabb_max, st.valid)
     if budget != max(256, int(plain * 1.5)):
         raise AssertionError(f"[f64] suggest_max_pairs gives {budget}, the "
@@ -3083,15 +3453,17 @@ def f64_kernels(world, dev) -> dict:
     f64 = lambda inp: {k: v.double() if v.is_floating_point() else v
                        for k, v in inp.items()}
     Rp_full = -(-16 * (N_BODIES + 5) // 128) * 128
-    out = dict(random=check_kernels(f64(random_inputs(
-        C_BASE + C_SR, Rp_full, N_BODIES + 5, 0, dev)), True, "f64 random",
-        exact=True))
+    inp = f64(random_inputs(C_BASE + C_SR, Rp_full, N_BODIES + 5, 0, dev))
+    out = dict(random=check_kernels(inp, True, "f64 random", exact=True),
+               fused_random=check_fused(inp, True, "f64 random"))
+    del inp
     check_kernels(f64(random_inputs(C_BASE, Rp_full, N_BODIES + 5, 1, dev)),
                   False, "f64 random, no spin/roll rows", exact=True)
     inp, with_sr = real_inputs(world)
     if inp["tbl"].dtype != torch.float64:
         raise AssertionError("the f64 pile's row table is not float64")
     out["real"] = check_kernels(inp, with_sr, "f64 real step", exact=True)
+    out["fused_real"] = check_fused(inp, with_sr, "f64 real step")
     del inp
     st = world.state
     tbl, dims = uk.pack_side_table_t(st)
@@ -3304,8 +3676,12 @@ def f64_kernel_entries(kernels12, launches) -> list:
     k4_all = kernels12["k4_random"] + [k4]
     k5_all = ([kernels12["k5_random"], kernels12["k5_real"]]
               + list(kernels12["k5_edges"].values()))
-    out = []
-    for name, r in rand.items():
+    out = [fused_entry(name, kernels12["fused_real"][name],
+                       {"random": kernels12["fused_random"][name]},
+                       {"launches": launches[name]}, "double")
+           for name in FUSED]
+    for name in ("ngs_iteration", "relvel"):
+        r = rand[name]
         out.append(dict(
             name=f"{name}_f64", route="cuda", source=SOURCE,
             replaces=KERNELS[name][0], dtype="float64",
@@ -3371,9 +3747,9 @@ SHARD_KS = (1, 2, 4)    # 13c: shard counts timed on one card
 SHARD_TIMED = 4         # 13c: steps timed at each k, twice, in turns
 SHARD_PROFILED = 1      # 13c: steps under the profiler and the span timers
 SHARD_LEAD = 25         # 13b: unsharded steps into the first contacts
-SHARD_KERNELS = ("solve_iteration", "ngs_iteration", "restitution_iteration",
-                 "relvel", "unified_features", "pair_order",
-                 "collide_support")
+SHARD_KERNELS = ("solve_iteration_fused", "ngs_iteration",
+                 "restitution_iteration_fused", "relvel", "unified_features",
+                 "pair_order", "collide_support")
 
 
 def shard_devices(k: int) -> list:
@@ -3535,6 +3911,9 @@ def sharded_pile(dev) -> tuple:
     for r in runs:
         if r["launches"]["count_overlaps"]:
             raise AssertionError("[sharded] K5 launched on the step")
+        if not r["launches"]["segment_sum"]:
+            raise AssertionError("[sharded] segment_sum never launched")
+        no_unfused(r["launches"], "sharded")
         for s, counts in enumerate(r["per_shard"]):
             missing = [k for k in SHARD_KERNELS if not counts.get(k)]
             if missing or counts.get("count_overlaps"):
@@ -3755,6 +4134,7 @@ def run_alone(phases, dev) -> None:
             inp, with_sr = real_inputs(bw)
             out["9_kernels"] = check_kernels(inp, with_sr,
                                              "mostly-asleep step")
+            out["9_fused"] = check_fused(inp, with_sr, "mostly-asleep step")
             del inp
             out["9_live_api"] = live_api(bw, bids, dev)
             del bw
@@ -3814,8 +4194,10 @@ def run(argv=None) -> int:
     # 2. kernels against their plain versions at the main path's full width
     from edyn_tpu_torch.dynamics.solver_kernels import C_BASE, C_SR
     Rp_full = -(-16 * (N_BODIES + 5) // 128) * 128
-    rand = check_kernels(random_inputs(C_BASE + C_SR, Rp_full, N_BODIES + 5,
-                                       0, dev), True, "random")
+    inp = random_inputs(C_BASE + C_SR, Rp_full, N_BODIES + 5, 0, dev)
+    rand = check_kernels(inp, True, "random")
+    fused_rand = check_fused(inp, True, "random")
+    del inp
     check_kernels(random_inputs(C_BASE, Rp_full, N_BODIES + 5, 1, dev),
                   False, "random, no spin/roll rows")
     fresh = et.make_world(mixed_pile(n_bodies=N_BODIES, seed=0)[0],
@@ -3844,6 +4226,7 @@ def run(argv=None) -> int:
     #    pile's AABBs
     inp, with_sr = real_inputs(world)
     real = check_kernels(inp, with_sr, "real step")
+    fused_real = check_fused(inp, with_sr, "real step")
     del inp
     st = world.state
     tbl, dims = uk.pack_side_table_t(st)
@@ -3914,6 +4297,7 @@ def run(argv=None) -> int:
         N_BODIES, dev)
     inp, with_sr = real_inputs(bw)
     asleep_real = check_kernels(inp, with_sr, "mostly-asleep step")
+    fused_asleep = check_fused(inp, with_sr, "mostly-asleep step")
     del inp
     bench["live_api"] = live_api(bw, bids, dev)
     del bw
@@ -3946,8 +4330,20 @@ def run(argv=None) -> int:
     phase_13, shard_launches = phase13(dev)
 
     mark(13)
-    kernels = []
-    for name, r in rand.items():
+    launch_sets = dict(launches=launches, ragdoll_launches=rag_launches,
+                       terrain_launches=ter_launches,
+                       bench_launches=bench_launches,
+                       asleep_launches=asleep_launches,
+                       paged_launches=paged_launches,
+                       networked_launches=net_launches,
+                       sharded_launches=shard_launches)
+    kernels = [fused_entry(name, fused_real[name],
+                           {"random": fused_rand[name],
+                            "asleep": fused_asleep[name]},
+                           {k: v[name] for k, v in launch_sets.items()})
+               for name in FUSED]
+    for name in ("ngs_iteration", "relvel"):
+        r = rand[name]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCE,
             replaces=KERNELS[name][0], launches=launches[name],
@@ -4078,6 +4474,8 @@ def run(argv=None) -> int:
         **build_info("overlap_count", "overlap_kernel")))
     kernels += f64_entries
     log(json.dumps({"main_path": main, "suggest_max_pairs": suggest,
+                    "fused": {"random": fused_rand, "real": fused_real,
+                              "asleep": fused_asleep},
                     "k4": {"random": k4_rand, "real": k4_real},
                     "k5": {"random": k5_rand, "real": k5_real,
                            "edge_cases": k5_edges},

@@ -2,16 +2,23 @@
 // interface for ctypes (edyn_tpu_torch/dynamics/solver_kernels.py).
 //
 // They replace the Pallas TPU kernels of edyn_tpu/dynamics/pallas_solver.py:
-//   edyn_solve_iteration       <- solve_iteration_pallas (_make_vel_kernel)
-//   edyn_ngs_iteration         <- ngs_iteration_pallas (_make_ngs_kernel)
-//   edyn_restitution_iteration <- restitution_iteration_pallas
-//                                 (_make_rest_kernel)
-//   edyn_relvel                <- relvel_pallas (_make_relvel_kernel)
+//   edyn_solve_iteration_fused       <- solve_iteration_pallas
+//     (_make_vel_kernel), with the gather and scatter-add around it
+//   edyn_restitution_iteration_fused <- restitution_iteration_pallas
+//     (_make_rest_kernel), the same
+//   edyn_ngs_iteration               <- ngs_iteration_pallas (_make_ngs_kernel)
+//   edyn_relvel                      <- relvel_pallas (_make_relvel_kernel)
+// and edyn_segment_sum, which replaces none: it adds the fused kernels'
+// update terms per body (see segment_sum_kernel). edyn_solve_iteration and
+// edyn_restitution_iteration are K1 and K3a without the fusion, as the TPU
+// ran them: against gathered endpoint deltas, with the scatter-add left to
+// the caller. The step runs them on the CPU's path only (as their plain
+// versions); on the card they are what the fused iterations are held to.
 //
-// Every kernel reads the component-major [C, Rp] row table of pack_rows_t
-// and the gathered endpoint deltas g [6, 2Rp] (a-half, then b-half), and
-// writes per-row outputs. The gather and the scatter-add stay in PyTorch
-// around the kernel.
+// Every kernel reads the component-major [C, Rp] row table of pack_rows_t.
+// The unfused kernels read the gathered endpoint deltas g [6, 2Rp] (a-half,
+// then b-half) and write per-row outputs; the fused ones read the [N, 8]
+// body table by index and write their terms where the step's plan says.
 //
 // Each kernel is a template on the scalar type T with a float and a double
 // instantiation: the entry points edyn_* take float tensors, edyn_*_f64
@@ -25,8 +32,8 @@
 // spin/roll block: 88 table rows + 6 + 12 in, 6 + 12 out, about 79 MB, so
 // about 24 us at 3.35 TB/s). Design: one thread per contact row; thread j
 // reads tbl[c * Rp + j], so a warp reads 32 neighbouring floats of each
-// table row and every load and store is coalesced. No shared memory: each
-// value is read once.
+// table row and every table load and impulse store is coalesced. No shared
+// memory: each value is read once.
 //
 // Each entry point launches on the given stream and returns
 // cudaGetLastError().
@@ -132,17 +139,18 @@ __device__ __forceinline__ void store_upd(T* __restrict__ o, long long rp,
   }
 }
 
+// K1's arithmetic on row j against its endpoint deltas (va, wa, vb, wb):
+// writes the row's impulses to oimp and its twelve update terms to ual, uaa
+// (body a: linear, angular), ubl, uba (body b). vel_kernel and
+// vel_fused_kernel share it, so both round the same way, op by op.
 template <typename F>
-__global__ void vel_kernel(const F* __restrict__ tbl,
-                           const F* __restrict__ imp,
-                           const F* __restrict__ g, F* __restrict__ oimp,
-                           F* __restrict__ oupd, int rp_, int with_sr) {
-  const long long rp = rp_;
-  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= rp) return;
-  Row<F> T{tbl, rp, j};
-  F va[3], wa[3], vb[3], wb[3];
-  load_g(g, rp, j, va, wa, vb, wb);
+__device__ __forceinline__ void vel_row(const Row<F>& T,
+                                        const F* __restrict__ imp,
+                                        F* __restrict__ oimp, long long rp,
+                                        long long j, const F va[3],
+                                        const F wa[3], const F vb[3],
+                                        const F wb[3], int with_sr, F ual[3],
+                                        F uaa[3], F ubl[3], F uba[3]) {
   const F n_imp = imp[j], f1 = imp[rp + j], f2 = imp[2 * rp + j];
   const F s_imp = imp[3 * rp + j], ri1 = imp[4 * rp + j],
           ri2 = imp[5 * rp + j];
@@ -174,7 +182,6 @@ __global__ void vel_kernel(const F* __restrict__ tbl,
   const F df1_ = ok ? imp1 - f1 : F(0);
   const F df2_ = ok ? imp2 - f2 : F(0);
 
-  F ual[3], ubl[3], uaa[3], uba[3];
   const F inv_ma = T(INV_MA), inv_mb = T(INV_MB);
   F tan[3], tbn[3], ta1[3], tb1[3], ta2[3], tb2[3];
   T.vec(TA_N, tan);
@@ -233,21 +240,18 @@ __global__ void vel_kernel(const F* __restrict__ tbl,
   oimp[3 * rp + j] = s_out;
   oimp[4 * rp + j] = r1_out;
   oimp[5 * rp + j] = r2_out;
-  store_upd(oupd, rp, j, ual, uaa, ubl, uba);
 }
 
+// K3a's arithmetic on row j (dyn: rhs_n | active), as vel_row.
 template <typename F>
-__global__ void rest_kernel(const F* __restrict__ tbl,
-                            const F* __restrict__ dyn,
-                            const F* __restrict__ imp,
-                            const F* __restrict__ g, F* __restrict__ oimp,
-                            F* __restrict__ oupd, int rp_) {
-  const long long rp = rp_;
-  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= rp) return;
-  Row<F> T{tbl, rp, j};
-  F va[3], wa[3], vb[3], wb[3];
-  load_g(g, rp, j, va, wa, vb, wb);
+__device__ __forceinline__ void rest_row(const Row<F>& T,
+                                         const F* __restrict__ dyn,
+                                         const F* __restrict__ imp,
+                                         F* __restrict__ oimp, long long rp,
+                                         long long j, const F va[3],
+                                         const F wa[3], const F vb[3],
+                                         const F wb[3], F ual[3], F uaa[3],
+                                         F ubl[3], F uba[3]) {
   const F rhs_n = dyn[j];
   const bool active = dyn[rp + j] > F(0.5);
   const F n_i = imp[j], f1 = imp[rp + j], f2 = imp[2 * rp + j];
@@ -273,7 +277,6 @@ __global__ void rest_kernel(const F* __restrict__ tbl,
   const F dn_ = active ? dn : F(0);
   const F df1_ = active ? imp1 - f1 : F(0);
   const F df2_ = active ? imp2 - f2 : F(0);
-  F ual[3], ubl[3], uaa[3], uba[3];
   const F inv_ma = T(INV_MA), inv_mb = T(INV_MB);
   F tan[3], tbn[3], ta1[3], tb1[3], ta2[3], tb2[3];
   T.vec(TA_N, tan);
@@ -292,7 +295,227 @@ __global__ void rest_kernel(const F* __restrict__ tbl,
   oimp[j] = new_n;
   oimp[rp + j] = imp1;
   oimp[2 * rp + j] = imp2;
+}
+
+template <typename F>
+__global__ void vel_kernel(const F* __restrict__ tbl,
+                           const F* __restrict__ imp,
+                           const F* __restrict__ g, F* __restrict__ oimp,
+                           F* __restrict__ oupd, int rp_, int with_sr) {
+  const long long rp = rp_;
+  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= rp) return;
+  Row<F> T{tbl, rp, j};
+  F va[3], wa[3], vb[3], wb[3];
+  load_g(g, rp, j, va, wa, vb, wb);
+  F ual[3], uaa[3], ubl[3], uba[3];
+  vel_row(T, imp, oimp, rp, j, va, wa, vb, wb, with_sr, ual, uaa, ubl, uba);
   store_upd(oupd, rp, j, ual, uaa, ubl, uba);
+}
+
+template <typename F>
+__global__ void rest_kernel(const F* __restrict__ tbl,
+                            const F* __restrict__ dyn,
+                            const F* __restrict__ imp,
+                            const F* __restrict__ g, F* __restrict__ oimp,
+                            F* __restrict__ oupd, int rp_) {
+  const long long rp = rp_;
+  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= rp) return;
+  Row<F> T{tbl, rp, j};
+  F va[3], wa[3], vb[3], wb[3];
+  load_g(g, rp, j, va, wa, vb, wb);
+  F ual[3], uaa[3], ubl[3], uba[3];
+  rest_row(T, dyn, imp, oimp, rp, j, va, wa, vb, wb, ual, uaa, ubl, uba);
+  store_upd(oupd, rp, j, ual, uaa, ubl, uba);
+}
+
+// ---------------------------------------------------------------------------
+// The fused iterations and the segment sum (the card's solver loops)
+// ---------------------------------------------------------------------------
+//
+// vel_fused_kernel and rest_fused_kernel replace the same TPU kernels as
+// vel_kernel and rest_kernel (pallas_solver.py:254/262 and :338/342), with
+// the XLA gather and scatter-add that ran around them on the TPU, where
+// Mosaic could not lower a gather by index inside the kernel. Here a
+// thread loads its row's two endpoint deltas by index from the body table
+// d [N, 8] (lin 0:3 | ang 3:6 | two zeros: one 32-byte sector per body in
+// float, which sits in L2: 10,005 bodies are 320 KB of a 50 MB L2), runs
+// the row's arithmetic (vel_row / rest_row), and writes each of its two
+// update terms as one [8] row of a terms buffer at the position the
+// step's scatter plan gives it (dynamics/scatter.py), -1 for a term the
+// plan leaves out (an invalid row, or a body with zero inverse mass and
+// inertia, whose terms are zero). segment_sum_kernel then adds each
+// body's run of terms. Bound: memory, as vel_kernel: the table rows, the
+// impulses in and out, the endpoint indices and positions, and the terms
+// out; the endpoint loads hit L2. The design keeps every table load and
+// impulse store coalesced (thread j reads column j) and replaces the
+// unfused path's gather, [12, Rp] update and scatter-add (a sort of the
+// 2Rp targets every call) with the terms buffer's 32-byte rows.
+
+__device__ __forceinline__ void load_body(const float* __restrict__ d,
+                                          long long i, float v[3],
+                                          float w[3]) {
+  const float4* p = reinterpret_cast<const float4*>(d + 8 * i);
+  const float4 x = p[0], y = p[1];
+  v[0] = x.x; v[1] = x.y; v[2] = x.z;
+  w[0] = x.w; w[1] = y.x; w[2] = y.y;
+}
+
+__device__ __forceinline__ void load_body(const double* __restrict__ d,
+                                          long long i, double v[3],
+                                          double w[3]) {
+  const double2* p = reinterpret_cast<const double2*>(d + 8 * i);
+  const double2 x = p[0], y = p[1], z = p[2];
+  v[0] = x.x; v[1] = x.y; v[2] = y.x;
+  w[0] = y.y; w[1] = z.x; w[2] = z.y;
+}
+
+__device__ __forceinline__ void store_term(float* t, int pos,
+                                           const float l[3],
+                                           const float a[3]) {
+  float4* p = reinterpret_cast<float4*>(t + 8 * (long long)pos);
+  p[0] = make_float4(l[0], l[1], l[2], a[0]);
+  p[1] = make_float4(a[1], a[2], 0.f, 0.f);
+}
+
+__device__ __forceinline__ void store_term(double* t, int pos,
+                                           const double l[3],
+                                           const double a[3]) {
+  double2* p = reinterpret_cast<double2*>(t + 8 * (long long)pos);
+  p[0] = make_double2(l[0], l[1]);
+  p[1] = make_double2(l[2], a[0]);
+  p[2] = make_double2(a[1], a[2]);
+  p[3] = make_double2(0.0, 0.0);
+}
+
+// the endpoint deltas of row j, and where its two terms go (the a-term to
+// terms_a, the b-term to terms_b: one buffer, or two when the plan's
+// chain has a hop for each)
+template <typename F>
+__device__ __forceinline__ void load_ends(const F* __restrict__ d,
+                                          const int* __restrict__ ab,
+                                          long long rp, long long j,
+                                          F va[3], F wa[3], F vb[3],
+                                          F wb[3]) {
+  load_body(d, ab[j], va, wa);
+  load_body(d, ab[rp + j], vb, wb);
+}
+
+template <typename F>
+__device__ __forceinline__ void store_ends(const int* __restrict__ pos,
+                                           F* terms_a, F* terms_b,
+                                           long long rp, long long j,
+                                           const F ual[3], const F uaa[3],
+                                           const F ubl[3], const F uba[3]) {
+  const int pa = pos[j], pb = pos[rp + j];
+  if (pa >= 0) store_term(terms_a, pa, ual, uaa);
+  if (pb >= 0) store_term(terms_b, pb, ubl, uba);
+}
+
+template <typename F>
+__global__ void vel_fused_kernel(const F* __restrict__ tbl,
+                                 const F* __restrict__ imp,
+                                 const F* __restrict__ d,
+                                 const int* __restrict__ ab,
+                                 const int* __restrict__ pos, F* terms_a,
+                                 F* terms_b, F* __restrict__ oimp, int rp_,
+                                 int with_sr) {
+  const long long rp = rp_;
+  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= rp) return;
+  Row<F> T{tbl, rp, j};
+  F va[3], wa[3], vb[3], wb[3];
+  load_ends(d, ab, rp, j, va, wa, vb, wb);
+  F ual[3], uaa[3], ubl[3], uba[3];
+  vel_row(T, imp, oimp, rp, j, va, wa, vb, wb, with_sr, ual, uaa, ubl, uba);
+  store_ends(pos, terms_a, terms_b, rp, j, ual, uaa, ubl, uba);
+}
+
+template <typename F>
+__global__ void rest_fused_kernel(const F* __restrict__ tbl,
+                                  const F* __restrict__ dyn,
+                                  const F* __restrict__ imp,
+                                  const F* __restrict__ d,
+                                  const int* __restrict__ ab,
+                                  const int* __restrict__ pos, F* terms_a,
+                                  F* terms_b, F* __restrict__ oimp,
+                                  int rp_) {
+  const long long rp = rp_;
+  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= rp) return;
+  Row<F> T{tbl, rp, j};
+  F va[3], wa[3], vb[3], wb[3];
+  load_ends(d, ab, rp, j, va, wa, vb, wb);
+  F ual[3], uaa[3], ubl[3], uba[3];
+  rest_row(T, dyn, imp, oimp, rp, j, va, wa, vb, wb, ual, uaa, ubl, uba);
+  store_ends(pos, terms_a, terms_b, rp, j, ual, uaa, ubl, uba);
+}
+
+// segment_sum_kernel replaces no TPU kernel: it is the card's scatter-add
+// of the solver loops (what XLA's scatter-add did around the Pallas
+// kernels), in the order of solver.index_sum, which the step's results
+// are held to: for each body, a sum from zero of its live terms (a term is
+// live when one of its six components is not zero) in plan order (row
+// order, a-halves before b-halves), then x + that sum, written only where
+// a term was live. Without x it is one hop of solver.chain_index_sum: the
+// running sum ``start`` (where live) and the hop's terms summed from zero,
+// then 0 + the sum, 0 where nothing was live. Atomics would add in
+// whatever order threads arrive (ROADMAP P8).
+//
+// Bound: memory (one add per component and term): the terms read once
+// (32 bytes each in float), the offsets, x (or start) in and the sums out.
+// Design: eight lanes per body, lane c holding component c (6 and 7 are
+// the zero padding), so the eight lanes of a body read one term's 32-byte
+// sector together and a warp serves four bodies; a ballot over the body's
+// six lanes is the live test. Each lane adds its component sequentially,
+// in plan order, as index_sum does. A warp walks as many terms as its
+// busiest body has.
+constexpr int LANES = 8;
+
+template <typename F>
+__global__ void segment_sum_kernel(const F* __restrict__ terms,
+                                   const int* __restrict__ off,
+                                   const F* start, const F* x, F* out,
+                                   int n) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long b = t / LANES;
+  const int lane = threadIdx.x & 31;
+  const int c = lane & (LANES - 1);
+  const unsigned body_lanes = 0x3fu << (lane & ~(LANES - 1));
+  const bool has = b < n;
+  int s = 0, len = 0;
+  if (has) {
+    s = off[b];
+    len = off[b + 1] - s;
+  }
+  int most = len;  // the warp walks its busiest body's run
+  for (int o = 16; o > 0; o >>= 1)
+    most = max(most, __shfl_xor_sync(0xffffffffu, most, o));
+  F g = F(0);
+  bool any = false;
+  if (start != nullptr) {
+    const F v = has ? start[b * LANES + c] : F(0);
+    if (__ballot_sync(0xffffffffu, v != F(0)) & body_lanes) {
+      g = g + v;
+      any = true;
+    }
+  }
+  for (int k = 0; k < most; ++k) {
+    const F v = k < len ? terms[(long long)(s + k) * LANES + c] : F(0);
+    if (__ballot_sync(0xffffffffu, v != F(0)) & body_lanes) {
+      g = g + v;
+      any = true;
+    }
+  }
+  if (!has) return;
+  const long long i = b * LANES + c;
+  if (x == nullptr)
+    out[i] = any ? F(0) + g : F(0);
+  else if (any)
+    out[i] = x[i] + g;
+  else if (out != x)
+    out[i] = x[i];
 }
 
 template <typename F>
@@ -376,6 +599,41 @@ int restitution_iteration(const F* tbl, const F* dyn, const F* imp,
 }
 
 template <typename F>
+int solve_iteration_fused(const F* tbl, const F* imp, const F* d,
+                          const int* ab, const int* pos, F* terms_a,
+                          F* terms_b, F* oimp, int Rp, int with_sr,
+                          void* stream) {
+  if (Rp > 0)
+    vel_fused_kernel<F><<<grid_for(Rp), THREADS, 0, (cudaStream_t)stream>>>(
+        tbl, imp, d, ab, pos, terms_a, terms_b, oimp, Rp, with_sr);
+  return (int)cudaGetLastError();
+}
+
+template <typename F>
+int restitution_iteration_fused(const F* tbl, const F* dyn, const F* imp,
+                                const F* d, const int* ab, const int* pos,
+                                F* terms_a, F* terms_b, F* oimp, int Rp,
+                                void* stream) {
+  if (Rp > 0)
+    rest_fused_kernel<F><<<grid_for(Rp), THREADS, 0,
+                           (cudaStream_t)stream>>>(
+        tbl, dyn, imp, d, ab, pos, terms_a, terms_b, oimp, Rp);
+  return (int)cudaGetLastError();
+}
+
+template <typename F>
+int segment_sum(const F* terms, const int* off, const F* start, const F* x,
+                F* out, int n, void* stream) {
+  if (n > 0) {
+    const long long threads = (long long)n * LANES;
+    const dim3 grid((unsigned)((threads + THREADS - 1) / THREADS));
+    segment_sum_kernel<F><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+        terms, off, start, x, out, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename F>
 int relvel(const F* tbl, const F* g, F* out, int Rp, void* stream) {
   if (Rp > 0)
     relvel_kernel<F><<<grid_for(Rp), THREADS, 0, (cudaStream_t)stream>>>(
@@ -406,6 +664,54 @@ int edyn_restitution_iteration(const float* tbl, const float* dyn,
                                const float* imp, const float* g, float* oimp,
                                float* oupd, int Rp, void* stream) {
   return restitution_iteration(tbl, dyn, imp, g, oimp, oupd, Rp, stream);
+}
+
+int edyn_solve_iteration_fused(const float* tbl, const float* imp,
+                               const float* d, const int* ab, const int* pos,
+                               float* terms_a, float* terms_b, float* oimp,
+                               int Rp, int with_sr, void* stream) {
+  return solve_iteration_fused(tbl, imp, d, ab, pos, terms_a, terms_b, oimp,
+                               Rp, with_sr, stream);
+}
+
+int edyn_restitution_iteration_fused(const float* tbl, const float* dyn,
+                                     const float* imp, const float* d,
+                                     const int* ab, const int* pos,
+                                     float* terms_a, float* terms_b,
+                                     float* oimp, int Rp, void* stream) {
+  return restitution_iteration_fused(tbl, dyn, imp, d, ab, pos, terms_a,
+                                     terms_b, oimp, Rp, stream);
+}
+
+int edyn_segment_sum(const float* terms, const int* off, const float* start,
+                     const float* x, float* out, int n, void* stream) {
+  return segment_sum(terms, off, start, x, out, n, stream);
+}
+
+int edyn_solve_iteration_fused_f64(const double* tbl, const double* imp,
+                                   const double* d, const int* ab,
+                                   const int* pos, double* terms_a,
+                                   double* terms_b, double* oimp, int Rp,
+                                   int with_sr, void* stream) {
+  return solve_iteration_fused(tbl, imp, d, ab, pos, terms_a, terms_b, oimp,
+                               Rp, with_sr, stream);
+}
+
+int edyn_restitution_iteration_fused_f64(const double* tbl,
+                                         const double* dyn,
+                                         const double* imp, const double* d,
+                                         const int* ab, const int* pos,
+                                         double* terms_a, double* terms_b,
+                                         double* oimp, int Rp,
+                                         void* stream) {
+  return restitution_iteration_fused(tbl, dyn, imp, d, ab, pos, terms_a,
+                                     terms_b, oimp, Rp, stream);
+}
+
+int edyn_segment_sum_f64(const double* terms, const int* off,
+                         const double* start, const double* x, double* out,
+                         int n, void* stream) {
+  return segment_sum(terms, off, start, x, out, n, stream);
 }
 
 int edyn_relvel(const float* tbl, const float* g, float* out, int Rp,

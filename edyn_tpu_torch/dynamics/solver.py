@@ -11,7 +11,11 @@ The JAX package has two variants of the iteration and restitution loops
 (jnp and Pallas, chosen by ``SceneMeta.pallas_solver``). The port has one:
 the loops run over the packed row table (``solver_kernels.pack_rows_t``)
 and call the ``solver_kernels`` wrappers, which take the CUDA kernel on the
-card and the plain version on the CPU.
+card and the plain version on the CPU. On the card the velocity and
+restitution inner iterations run fused over the step's scatter plan
+(``scatter.ScatterPlan``: the kernel gathers its endpoints itself and
+``segment_sum`` adds the terms); on the CPU they gather, run the plain
+version and ``index_add``, as the JAX package's XLA path does.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from ..core.state import KIND_STATIC
 from ..math import quat, vec
 from ..parallel.collectives import Mesh, span
 from . import solver_kernels as sk
+from .scatter import body_table
 
 BIG = 1e18
 
@@ -579,6 +584,48 @@ def solve_contacts_sharded(packs, imp_ts, dvw_t, with_sr: bool, mesh: Mesh):
     return out, chain_upd_t(dvw_t, packs, upds, mesh)
 
 
+def solve_contacts_planned(packs, imp_ts, d, with_sr: bool, mesh: Mesh,
+                           plan):
+    """``solve_contacts_sharded`` on the card: the fused K1 per shard on
+    its device, reading the [N,8] body deltas ``d`` by index and writing
+    its terms where the step's ``scatter.ScatterPlan`` puts them; then
+    the plan's segment sums (into d in place on one card). Equal to
+    ``solve_contacts_sharded`` bit for bit. Returns (the shards'
+    impulses, the deltas on the home device)."""
+    out = []
+    for s, p in enumerate(packs):
+        with mesh.scope(s):
+            t = plan.shards[s]
+            out.append(sk.solve_iteration_fused(
+                p.tbl, imp_ts[s], d.to(p.device), t.ab, t.pos, t.terms_a,
+                t.terms_b, with_sr))
+    return out, plan.add(d, mesh)
+
+
+def solve_velocities(packs, imp_ts, dvw, with_sr: bool, mesh: Mesh,
+                     iterations: int, plan=None, after=None):
+    """The velocity iterations from the [N,6] deltas ``dvw``: the fused
+    path under a ``plan`` (the card), else ``solve_contacts_sharded``
+    over transposed [6,N] deltas. ``after`` (the joint solve) maps the
+    [N,6] deltas after each iteration. Returns (the shards' impulses, the
+    [N,6] deltas)."""
+    if plan is None:
+        dvw_t = dvw.T.contiguous()
+        for _ in range(iterations):
+            imp_ts, dvw_t = solve_contacts_sharded(packs, imp_ts, dvw_t,
+                                                   with_sr, mesh)
+            if after is not None:
+                dvw_t = after(dvw_t.T).T.contiguous()
+        return imp_ts, dvw_t.T
+    d = body_table(dvw)
+    for _ in range(iterations):
+        imp_ts, d = solve_contacts_planned(packs, imp_ts, d, with_sr, mesh,
+                                           plan)
+        if after is not None:
+            d = body_table(after(d[:, :6]))
+    return imp_ts, d[:, :6]
+
+
 def solve_restitution(state, tbl, ab_p, num_iterations: int,
                       num_individual_iterations: int):
     """Restitution shock-propagation pre-pass over the packed table
@@ -591,11 +638,13 @@ def solve_restitution(state, tbl, ab_p, num_iterations: int,
 
 
 def solve_restitution_sharded(state, packs, mesh: Mesh, num_iterations: int,
-                              num_individual_iterations: int):
+                              num_individual_iterations: int, plan=None):
     """``solve_restitution`` over the shards' row tables: K3b and K3a run
     per shard on its device, the early exit takes every shard's rows, and
     each inner iteration's updates meet in ``chain_upd_t``. Equal to
-    ``solve_restitution`` over the concatenated rows, bit for bit."""
+    ``solve_restitution`` over the concatenated rows, bit for bit. Under a
+    ``plan`` (the card) the inner iterations run the fused K3a and the
+    plan's segment sums on [N,8] deltas, with the same result."""
     relvel_threshold = -0.005
     N = state.capacity
     home = mesh.home
@@ -619,9 +668,21 @@ def solve_restitution_sharded(state, packs, mesh: Mesh, num_iterations: int,
         # the same velocities.
         if not bool(any_active):
             break
-        dvw_t = torch.zeros((6, N), dtype=velp_t.dtype, device=home)
         imp3 = [torch.zeros((3, p.Rp), dtype=p.tbl.dtype, device=p.device)
                 for p in packs]
+        if plan is not None:
+            d = torch.zeros((N, 8), dtype=velp_t.dtype, device=home)
+            for _ in range(num_individual_iterations):
+                for s, p in enumerate(packs):
+                    with mesh.scope(s):
+                        t = plan.shards[s]
+                        imp3[s] = sk.restitution_iteration_fused(
+                            p.tbl, dyns[s], imp3[s], d.to(p.device), t.ab,
+                            t.pos, t.terms_a, t.terms_b)
+                d = plan.add(d, mesh)
+            velp_t = velp_t + d[:, :6].T
+            continue
+        dvw_t = torch.zeros((6, N), dtype=velp_t.dtype, device=home)
         for _ in range(num_individual_iterations):
             upds = []
             for s, p in enumerate(packs):

@@ -1,26 +1,36 @@
-"""The solver's four per-row kernels, their plain PyTorch versions, and the
+"""The solver's per-row kernels, their plain PyTorch versions, and the
 packed row table they read.
 
 Counterpart of ``edyn_tpu/dynamics/pallas_solver.py``. The contact-row
 constants are packed once per solve phase into ONE component-major
 ``[C, Rp]`` table at the rows' scalar dtype (``pack_rows_t``, the same
-layout as the JAX package's), and every iteration runs as
+layout as the JAX package's). On the TPU every iteration runs as
 
     gather (index_select) -> kernel -> scatter-add (index_add_)
 
-with the gather and the scatter-add in PyTorch around the kernel, as they
-stay in XLA around the Pallas kernels.
+with the gather and the scatter-add in XLA around the Pallas kernel. The
+port's CPU path keeps that shape (the plain versions, ``index_add``). On
+the card the velocity and restitution iterations run fused: the kernel
+reads its rows' endpoint deltas by index and writes its update terms where
+the step's scatter plan puts them (``dynamics/scatter.py``), and
+``segment_sum`` adds each body's terms in the order of ``solver.index_sum``.
 
 Kernels (CUDA C++ in ``edyn_tpu_torch/csrc/solver_kernels.cu``, built with
 nvcc for sm_90a at first use and loaded with ctypes by ``utils/cuda_lib``):
-- ``solve_iteration``: one velocity iteration (K1, replaces
+- ``solve_iteration_fused``: one velocity iteration with its gather and
+  its half of the scatter (K1, replaces
   ``pallas_solver.solve_iteration_pallas``);
+- ``restitution_iteration_fused``: one restitution inner iteration, the
+  same way (K3a, replaces ``restitution_iteration_pallas``);
+- ``segment_sum``: the per-body sums of those terms (replaces no TPU
+  kernel: it is the scatter-add XLA did);
 - ``ngs_iteration``: one NGS position iteration (K2, replaces
   ``ngs_iteration_pallas``);
-- ``restitution_iteration``: one restitution inner iteration (K3a,
-  replaces ``restitution_iteration_pallas``);
 - ``relvel``: normal relative velocity per row (K3b, replaces
-  ``relvel_pallas``).
+  ``relvel_pallas``);
+- ``solve_iteration``, ``restitution_iteration``: K1 and K3a unfused,
+  against gathered deltas (the CPU's path, and on the card the reference
+  the fused iterations are held to).
 
 Each kernel is one CUDA source templated on the scalar type, with a float
 and a double entry point (``edyn_*`` and ``edyn_*_f64``). Each wrapper takes
@@ -86,7 +96,9 @@ def rows_read(name: str, with_sr: bool = False) -> int:
 
 
 LAUNCHES = {"solve_iteration": 0, "ngs_iteration": 0,
-            "restitution_iteration": 0, "relvel": 0}
+            "restitution_iteration": 0, "relvel": 0,
+            "solve_iteration_fused": 0, "restitution_iteration_fused": 0,
+            "segment_sum": 0}
 LAUNCHES_F64 = dict.fromkeys(LAUNCHES, 0)
 
 
@@ -310,6 +322,65 @@ def ngs_iteration_plain(tbl, g, rate: float, max_corr: float):
     return torch.stack(ua_l + ua_a + ub_l + ub_a), error[None, :]
 
 
+def _place(terms, pos, upd):
+    """Write the [6,Rp] update terms ``upd`` to the rows ``pos`` of an
+    [E,8] terms buffer (columns 0:6), none where the position is -1."""
+    keep = pos >= 0
+    terms[pos[keep].long(), :6] = upd.T[keep]
+
+
+def solve_iteration_fused_plain(tbl, imp_t, d, ab, pos, terms_a, terms_b,
+                                with_sr: bool):
+    """The fused K1's plain version: ``solve_iteration_plain`` on the
+    endpoint deltas gathered from the body table ``d`` [N,8] (lin 0:3 | ang
+    3:6 | two zero columns) by ``ab`` [2Rp] (a-half, then b-half), the
+    a-terms placed in ``terms_a`` at ``pos[:Rp]``, the b-terms in
+    ``terms_b`` at ``pos[Rp:]``. Returns the impulses [6,Rp]."""
+    Rp = tbl.shape[1]
+    oimp, upd = solve_iteration_plain(tbl, imp_t, d[ab.long(), :6].T,
+                                      with_sr)
+    _place(terms_a, pos[:Rp], upd[:6])
+    _place(terms_b, pos[Rp:], upd[6:])
+    return oimp
+
+
+def restitution_iteration_fused_plain(tbl, dyn, imp3_t, d, ab, pos, terms_a,
+                                      terms_b):
+    """The fused K3a's plain version (see ``solve_iteration_fused_plain``).
+    Returns the impulses [3,Rp]."""
+    Rp = tbl.shape[1]
+    oimp, upd = restitution_iteration_plain(tbl, dyn, imp3_t,
+                                            d[ab.long(), :6].T)
+    _place(terms_a, pos[:Rp], upd[:6])
+    _place(terms_b, pos[Rp:], upd[6:])
+    return oimp
+
+
+def segment_sum_plain(terms, offsets, x=None, start=None):
+    """``segment_sum``'s plain version: a loop over the largest number of
+    terms a body has, vectorised over the bodies, each step adding one
+    term per body where it is live (a component not zero), in the kernel's
+    order."""
+    off = offsets.long()
+    lo, deg = off[:-1], off[1:] - off[:-1]
+    n = lo.shape[0]
+    g = terms.new_zeros((n, 8))
+    seen = torch.zeros((n,), dtype=torch.bool, device=terms.device)
+
+    def add(g, seen, v, live):
+        return torch.where(live[:, None], g + v, g), seen | live
+
+    if start is not None:
+        g, seen = add(g, seen, start, (start[:, :6] != 0).any(1))
+    for k in range(int(deg.max()) if n else 0):
+        has = deg > k
+        v = terms[torch.where(has, lo + k, 0)]
+        g, seen = add(g, seen, v, has & (v[:, :6] != 0).any(1))
+    if x is None:
+        return torch.where(seen[:, None], 0.0 + g, torch.zeros_like(g))
+    return x.copy_(torch.where(seen[:, None], x + g, x))
+
+
 # ---------------------------------------------------------------------------
 # load
 # ---------------------------------------------------------------------------
@@ -326,6 +397,12 @@ SIGNATURES = {
     "edyn_relvel_f64": [_P, _P, _P, _I, _P],
     "edyn_ngs_iteration_f64": [_P, _P, _P, _P, _I, _D, _D, _P],
 }
+for _sfx in ("", "_f64"):
+    SIGNATURES.update({
+        f"edyn_solve_iteration_fused{_sfx}": [_P] * 8 + [_I, _I, _P],
+        f"edyn_restitution_iteration_fused{_sfx}": [_P] * 9 + [_I, _P],
+        f"edyn_segment_sum{_sfx}": [_P] * 5 + [_I, _P],
+    })
 
 
 def _entry(name: str, dtype):
@@ -418,3 +495,87 @@ def ngs_iteration(tbl, g, rate: float, max_corr: float):
             float(rate), float(max_corr), cuda_lib.stream(tbl))
     cuda_lib.launched(counts, "ngs_iteration", rc, tbl.device)
     return upd, err
+
+
+def _check_plan_args(tbl, d, ab, pos, terms_a, terms_b):
+    """Check a fused kernel's body table, endpoints, positions and terms
+    buffers against the table's dtype and width."""
+    Rp, dt = tbl.shape[1], tbl.dtype
+    cuda_lib.check(d, "d", (d.shape[0], 8), dt)
+    cuda_lib.check(ab, "ab", (2 * Rp,), torch.int32)
+    cuda_lib.check(pos, "pos", (2 * Rp,), torch.int32)
+    for name, t in (("terms_a", terms_a), ("terms_b", terms_b)):
+        cuda_lib.check(t, name, (t.shape[0], 8), dt)
+
+
+def solve_iteration_fused(tbl, imp_t, d, ab, pos, terms_a, terms_b,
+                          with_sr: bool):
+    """The fused K1: one velocity iteration of the rows against the body
+    deltas ``d`` [N,8], read by the rows' endpoints ``ab`` [2Rp] int32
+    inside the kernel; row j's a-term goes to row ``pos[j]`` of
+    ``terms_a`` [E,8], its b-term to row ``pos[Rp + j]`` of ``terms_b``
+    (int32 positions, -1: not written). Returns the impulses [6,Rp]; the
+    terms buffers are written in place."""
+    if cuda_lib.on_cpu(tbl, imp_t, d, ab, pos, terms_a, terms_b):
+        return solve_iteration_fused_plain(tbl, imp_t, d, ab, pos, terms_a,
+                                           terms_b, with_sr)
+    C, Rp = _table_dims(tbl, with_sr)
+    fn, counts = _entry("solve_iteration_fused", tbl.dtype)
+    cuda_lib.check(tbl, "tbl", (C, Rp), tbl.dtype)
+    cuda_lib.check(imp_t, "imp_t", (6, Rp), tbl.dtype)
+    _check_plan_args(tbl, d, ab, pos, terms_a, terms_b)
+    oimp = torch.empty((6, Rp), dtype=tbl.dtype, device=tbl.device)
+    rc = fn(tbl.data_ptr(), imp_t.data_ptr(), d.data_ptr(), ab.data_ptr(),
+            pos.data_ptr(), terms_a.data_ptr(), terms_b.data_ptr(),
+            oimp.data_ptr(), Rp, int(bool(with_sr)), cuda_lib.stream(tbl))
+    cuda_lib.launched(counts, "solve_iteration_fused", rc, tbl.device)
+    return oimp
+
+
+def restitution_iteration_fused(tbl, dyn, imp3_t, d, ab, pos, terms_a,
+                                terms_b):
+    """The fused K3a: one restitution inner iteration, as
+    ``solve_iteration_fused``. Returns the impulses [3,Rp]."""
+    if cuda_lib.on_cpu(tbl, dyn, imp3_t, d, ab, pos, terms_a, terms_b):
+        return restitution_iteration_fused_plain(tbl, dyn, imp3_t, d, ab,
+                                                 pos, terms_a, terms_b)
+    C, Rp = _table_dims(tbl, False)
+    fn, counts = _entry("restitution_iteration_fused", tbl.dtype)
+    cuda_lib.check(tbl, "tbl", (C, Rp), tbl.dtype)
+    cuda_lib.check(dyn, "dyn", (2, Rp), tbl.dtype)
+    cuda_lib.check(imp3_t, "imp3_t", (3, Rp), tbl.dtype)
+    _check_plan_args(tbl, d, ab, pos, terms_a, terms_b)
+    oimp = torch.empty((3, Rp), dtype=tbl.dtype, device=tbl.device)
+    rc = fn(tbl.data_ptr(), dyn.data_ptr(), imp3_t.data_ptr(), d.data_ptr(),
+            ab.data_ptr(), pos.data_ptr(), terms_a.data_ptr(),
+            terms_b.data_ptr(), oimp.data_ptr(), Rp, cuda_lib.stream(tbl))
+    cuda_lib.launched(counts, "restitution_iteration_fused", rc, tbl.device)
+    return oimp
+
+
+def segment_sum(terms, offsets, x=None, start=None):
+    """Per body b, the terms ``terms[offsets[b]:offsets[b+1]]`` ([E,8]
+    rows, int32 offsets [N+1]) summed from zero in order, each term only
+    where live (a component of 0:6 not zero), as ``solver.index_sum`` adds.
+    With ``x`` [N,8]: x plus each body's sum where a term was live, written
+    into x in place; returns x. Without: one hop of
+    ``solver.chain_index_sum``, the running sum ``start`` [N,8] (optional)
+    counted as each body's first term, then 0 + the sum (0 where nothing
+    was live); returns a new [N,8] tensor."""
+    ts = [t for t in (terms, offsets, x, start) if t is not None]
+    if cuda_lib.on_cpu(*ts):
+        return segment_sum_plain(terms, offsets, x, start)
+    n, dt = offsets.shape[0] - 1, terms.dtype
+    fn, counts = _entry("segment_sum", dt)
+    cuda_lib.check(terms, "terms", (terms.shape[0], 8), dt)
+    cuda_lib.check(offsets, "offsets", (n + 1,), torch.int32)
+    for name, t in (("x", x), ("start", start)):
+        if t is not None:
+            cuda_lib.check(t, name, (n, 8), dt)
+    out = x if x is not None else torch.empty((n, 8), dtype=dt,
+                                              device=terms.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    rc = fn(terms.data_ptr(), offsets.data_ptr(), ptr(start), ptr(x),
+            out.data_ptr(), n, cuda_lib.stream(terms))
+    cuda_lib.launched(counts, "segment_sum", rc, terms.device)
+    return out

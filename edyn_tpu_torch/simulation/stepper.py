@@ -41,6 +41,7 @@ from ..dynamics import islands as islands_mod
 from ..dynamics import solver as solver_mod
 from ..dynamics import solver_kernels as sk
 from ..dynamics.position import solve_positions_sharded
+from ..dynamics import scatter
 from ..math import quat
 from ..parallel.collectives import Mesh, gather, ranges
 from ..shapes.aabb import compute_aabbs
@@ -275,11 +276,14 @@ def _solve_phase(state, man, parts, settings: Settings, meta: SceneMeta,
     for s, rows in enumerate(parts):
         with mesh.scope(s):
             packs.append(solver_mod.ShardPack.of_rows(rows))
+    # on the card: where the fused K3a and K1 write their terms, one
+    # stable sort for the whole phase (None on the CPU: the unfused path)
+    plan = scatter.for_step(state, packs, mesh)
 
     if use_rest:
         linvel, angvel = solver_mod.solve_restitution_sharded(
             state, packs, mesh, settings.num_restitution_iterations,
-            settings.num_individual_restitution_iterations)
+            settings.num_individual_restitution_iterations, plan)
         state = dataclasses.replace(state, linvel=linvel, angvel=angvel)
 
     state = apply_gravity(state, dt)
@@ -328,16 +332,18 @@ def _solve_phase(state, man, parts, settings: Settings, meta: SceneMeta,
     imp_ts = [torch.nn.functional.pad(
         imp6, (0, 0, 0, p.Rp - imp6.shape[0])).T.contiguous()
         for imp6, p in zip(imp6s, packs)]
-    dvw_t = dvw.T.contiguous()
-    for _ in range(settings.num_solver_velocity_iterations):
-        imp_ts, dvw_t = solver_mod.solve_contacts_sharded(
-            packs, imp_ts, dvw_t, with_sr, mesh)
-        if meta.has_joints:
-            # the joint solve works on [N,6] deltas, after each contact
-            # iteration's scatter-add
-            j_imp, dvw = joints_mod.solve_joints_once(jrows, j_imp, dvw_t.T)
-            dvw_t = dvw.T.contiguous()
-    dvw = dvw_t.T
+
+    def joint_pass(d):
+        # the joint solve works on [N,6] deltas, after each contact
+        # iteration's scatter-add
+        nonlocal j_imp
+        j_imp, d = joints_mod.solve_joints_once(jrows, j_imp, d)
+        return d
+
+    imp_ts, dvw = solver_mod.solve_velocities(
+        packs, imp_ts, dvw, with_sr, mesh,
+        settings.num_solver_velocity_iterations, plan,
+        joint_pass if meta.has_joints else None)
 
     # store applied impulses for next-step warm starting: one packed
     # scatter through the row compaction map, invalid rows dropped

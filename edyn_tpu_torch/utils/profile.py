@@ -80,9 +80,11 @@ def profile_step(world, repeats: int = 3) -> Dict[str, float]:
     from ..collision.narrowphase import update_contacts
     from ..config import PAIR_SEPARATION_MARGIN
     from ..dynamics import islands as im
+    from ..dynamics import scatter
     from ..dynamics import solver as sm
     from ..dynamics import solver_kernels as sk
     from ..dynamics.position import solve_positions
+    from ..parallel.collectives import Mesh
     from ..shapes.aabb import compute_aabbs
     from ..simulation.stepper import broadphase, physics_step
 
@@ -134,18 +136,21 @@ def profile_step(world, repeats: int = 3) -> Dict[str, float]:
         S.mass_splitting, meta.has_spin_roll, meta.max_rows), st, man)
     tbl, a_p, b_p, Rp = sk.pack_rows_t(rows)
     ab_p = torch.cat([a_p, b_p])
+    # the step's solve path: fused over a scatter plan on the card
+    mesh = Mesh((dev,))
+    packs = [sm.ShardPack.of_table(tbl, ab_p)]
+    plan = scatter.for_step(st, packs, mesh)
     if S.num_restitution_iterations > 0:
-        timed("restitution", lambda s: sm.solve_restitution(
-            s, tbl, ab_p, S.num_restitution_iterations,
-            S.num_individual_restitution_iterations), st)
+        timed("restitution", lambda s: sm.solve_restitution_sharded(
+            s, packs, mesh, S.num_restitution_iterations,
+            S.num_individual_restitution_iterations, plan), st)
 
     def vel():
         imp_t = torch.zeros((6, Rp), dtype=tbl.dtype, device=dev)
-        dvw_t = torch.zeros((6, st.capacity), dtype=tbl.dtype, device=dev)
-        for _ in range(S.num_solver_velocity_iterations):
-            imp_t, dvw_t = sm.solve_contacts_once(tbl, imp_t, dvw_t, ab_p,
-                                                  rows.sA_n is not None)
-        return dvw_t
+        dvw = torch.zeros((st.capacity, 6), dtype=tbl.dtype, device=dev)
+        return sm.solve_velocities(packs, [imp_t], dvw, rows.sA_n is not None,
+                                   mesh, S.num_solver_velocity_iterations,
+                                   plan)[1]
 
     timed("solve", vel)
     timed("position_correction", lambda s: solve_positions(

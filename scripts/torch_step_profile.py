@@ -59,7 +59,7 @@ def phase_times(world, steps: int) -> dict:
     import torch
     from edyn_tpu_torch.collision import narrowphase as nph
     from edyn_tpu_torch.constraints import joints
-    from edyn_tpu_torch.dynamics import islands, solver
+    from edyn_tpu_torch.dynamics import islands, scatter, solver
     from edyn_tpu_torch.dynamics import solver_kernels as sk
     from edyn_tpu_torch.simulation import stepper
 
@@ -77,6 +77,8 @@ def phase_times(world, steps: int) -> dict:
         (solver, "refresh_contact_rhs", "rhs refresh"),
         (solver, "warm_start_sharded", "warm start"),
         (solver, "solve_contacts_sharded", "velocity iterations (K1)"),
+        (solver, "solve_contacts_planned", "velocity iterations (K1)"),
+        (scatter, "for_step", "scatter plan"),
         (stepper, "solve_positions_sharded", "position iterations (K2)"),
         (joints, "build_joint_rows", "joint rows"),
         (joints, "warm_start_joints", "joint warm start"),
