@@ -21,20 +21,22 @@ prints no result):
    kernel's device time with its inputs read from device memory and with
    them in L2 (CUDA-graph replays), the plain version's, one call with its
    host work, and the bound; each kernel's registers, stack and spills from
-   the build. Then the card's fused iterations (``check_fused``): one K1
-   and one K3a iteration by the fused path (``vel_fused_kernel`` or
-   ``rest_fused_kernel``, then ``segment_sum`` over the step's scatter
-   plan) bit-equal to the unfused path (gather, ``vel_kernel`` or
-   ``rest_kernel``, ``solver.index_sum``) and to the fused path's plain
-   versions; ``segment_sum`` bit-equal to ``index_sum`` on the same terms;
-   each new kernel timed L2-cold beside its bound, its plain version and,
-   for ``segment_sum``, ``index_sum`` (its ``library_ms``); both paths' time
-   per iteration.
+   the build. Then the card's fused iterations (``check_fused``): one K1,
+   one K3a and one K2 iteration by the fused path (``vel_fused_kernel``,
+   ``rest_fused_kernel`` or ``ngs_fused_kernel``, then ``segment_sum`` over
+   the step's scatter plan) bit-equal to the unfused path (gather,
+   ``vel_kernel``, ``rest_kernel`` or ``ngs_kernel``, ``solver.index_sum``)
+   and to the fused path's plain versions; ``segment_sum`` bit-equal to
+   ``index_sum`` on the same terms, and on a run of ``STRESS_RUN`` terms
+   beside empty runs (``segment_stress``); each new kernel timed L2-cold
+   beside its bound, its plain version and, for ``segment_sum``,
+   ``index_sum`` (its ``library_ms``); both paths' time per iteration.
 3. The main path: ``mixed_pile(10_000)`` -> ``make_world`` (cuda) ->
    ``World.step_n(120)``, with every kernel's launch count set to 0 just
    before and read just after. Checks finite state, launch counts within
-   (0, per-step maximum x steps] (K1 and K3a fused, with ``segment_sum``;
-   their unfused kernels never), and the pile checks of the JAX package's
+   (0, per-step maximum x steps] (K1, K3a and K2 fused, with
+   ``segment_sum``; their unfused kernels never), and the pile checks of
+   the JAX package's
    ``test_mixed_pile_settles_and_no_tunnel`` (see ``FLOOR_BURIAL``); then
    the ``suggest_max_pairs`` entry point once on the landed pile (K5, its
    count equal to the plain one); then that JAX test itself, a 60-body pile
@@ -56,7 +58,10 @@ prints no result):
 5. Card against CPU: one step of a settled 1,000-body pile, on the card
    (K4 in the UNIFIED bucket) and from a copy on the CPU (``support_sat``
    there, plain solver versions), held per body at the whole-step
-   tolerances of the test suite (see ``card_vs_cpu``).
+   tolerances of the test suite (see ``card_vs_cpu``). Beside it, each in
+   a process of its own (``beside``): phase 6's jointed card-vs-CPU check
+   and the JAX package's ragdoll test, 12c and 13b below, none of which
+   times anything; their summaries stand in phases 6, 12 and 13.
 6. Joints: ``ragdoll_pile(edyn_tpu_torch)`` (768 ragdolls: 9,989 bodies,
    15,360 point, cone and hinge joints) -> ``make_world`` (cuda, with
    ``RAGDOLL_SETTINGS``' cone cap: ROADMAP R8) -> 120 ``World.step``
@@ -68,12 +73,13 @@ prints no result):
    rows and launches per step. Then the kernels on a real step of that
    pile, as phase 4 holds them on the 10k pile: the solver kernels on its
    packed row table, K4 on its live UNIFIED pairs (against its plain
-   version and against ``support_sat``). Then the JAX package's ragdoll
-   test (one ragdoll, 240 steps, the default settings) on the card, and a
-   second run equal to the first bit for bit after 60 steps, and
-   card against CPU on a 16-ragdoll pile settled 240 steps: the whole step
-   under phase 5's rule, and ``build_joint_rows``, ``solve_joints_once``
-   and ``solve_joint_positions`` alone within ``JOINT_RTOL``.
+   version and against ``support_sat``). Run beside phase 5, each in a
+   process of its own: card against CPU on a 16-ragdoll pile settled 240
+   steps (the whole step under phase 5's rule, and ``build_joint_rows``,
+   ``solve_joints_once`` and ``solve_joint_positions`` alone within
+   ``JOINT_RTOL``), and the JAX package's ragdoll test (one ragdoll, 240
+   steps, the default settings) on the card, with a second run equal to
+   the first bit for bit after 60 steps.
 7. Terrain: ``rich_scene(10_000)`` of ``edyn_tpu_torch`` (a 24 x 24
    trimesh terrain of 1,058 triangles over +-29.6 m, four wall planes,
    10,000 spheres, boxes, capsules and cylinders, four hinge chains of six
@@ -83,7 +89,8 @@ prints no result):
    pivot gap under ``PIVOT_GAP``, and the lowest centre above the terrain
    surface at its (x, z) over all 120 steps above ``TERRAIN_FLOOR``;
    prints steps/s, ms/step and the live MESH-bucket pairs. Then the path's
-   kernels on that world's own step, as phase 6 holds them.
+   kernels on that world's own step, as phase 6 holds them, and the fused
+   iterations as phase 4 holds them.
 8. Card against CPU on a ``rich_scene(512)`` settled 240 steps: the whole
    step under phase 5's rule, each body against its own 1-ulp sensitivity
    with positions and orientations nudged, then the MESH bucket alone
@@ -95,8 +102,10 @@ prints no result):
    and one step with it; ``examples/vehicle.py``'s vehicle (a compound
    chassis on hinged wheels) driven 120 frames on the card and on the CPU,
    x > 1.0 m on both; the JAX package's compound tests
-   (``tests/test_torch_compound_behaviour.py``) on the card, in a process
-   of their own beside the rest of the phase.
+   (``tests/test_torch_compound_behaviour.py``) on the card. The vehicle,
+   the compound tests (in ``COMPOUND_PROCESSES`` shares) and 13a below run
+   in processes of their own beside the rest of the phase: the phase times
+   nothing, and 13a's steps/s are taken beside it.
 9. ``bench.py``'s protocol: ``mixed_pile(10_000)`` -> ``make_world``
    (cuda, 256 spare slots) -> ``step_n(2)``, 60 falling steps timed, 300
    untimed, 60 settled steps timed, then ``bench.py``'s mostly-asleep
@@ -162,7 +171,8 @@ prints no result):
    the asleep case solved at the ladder's narrow tier (quantum 256 x 8).
    13c: the landed pile's ms/step unsharded and at 1, 2 and 4 shards in
    turns, the gathers' and chains' ms, kernels a step, peak memory per
-   device. ``--phases 13`` runs it alone.
+   device, on 13a's end state (pickled by 13a's process). ``--phases
+   13`` runs 13a, 13b and 13c in order in one process.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -303,7 +313,7 @@ def random_inputs(C: int, Rp: int, N: int, seed: int, dev):
     t[55] = (u(Rp) > 0.25).float()              # valid
     t[56] = u(Rp)                               # restitution
     t[63] = t[63] * 0.01                        # base_dist
-    t[64] = (u(Rp) > 0.2).float()               # ngs_valid
+    t[64] = t[55] * (u(Rp) > 0.2).float()       # ngs_valid: valid, not soft
     if C > 65:
         for r in (65 + 24, 65 + 25, 65 + 26):   # spin/roll eff. masses
             t[r] = u(Rp)
@@ -464,7 +474,7 @@ def check_kernels(inp, with_sr: bool, label: str,
     return out
 
 
-# The card's fused iterations: K1 and K3a with their endpoint
+# The card's fused iterations: K1, K3a and K2 with their endpoint
 # gather inside, and the segment sum that adds their terms per body.
 # name: (pallas_call line of the TPU kernel, CUDA kernel, the unfused
 # kernel it is held to)
@@ -474,8 +484,10 @@ FUSED = {
     "restitution_iteration_fused": ("edyn_tpu/dynamics/pallas_solver.py:342",
                                     "rest_fused_kernel",
                                     "restitution_iteration"),
+    "ngs_iteration_fused": ("edyn_tpu/dynamics/pallas_solver.py:441",
+                            "ngs_fused_kernel", "ngs_iteration"),
     "segment_sum": ("none (the XLA scatter-add around "
-                    "edyn_tpu/dynamics/pallas_solver.py:262 and :342)",
+                    "edyn_tpu/dynamics/pallas_solver.py:262, :342 and :441)",
                     "segment_sum_kernel", None),
 }
 
@@ -512,20 +524,23 @@ def profiled_us(fn, reps: int = 10):
     return total / reps if total else None
 
 
-def check_fused(inp, with_sr: bool, label: str) -> dict:
-    """The fused K1 and K3a iterations and ``segment_sum`` on one input set
-    (``inp``: a packed table, impulses, ``dyn``, the endpoints ``ab`` [2Rp],
-    the body velocities ``vel`` [N,6] as the deltas, the bodies that can
-    move ``moves``), through the step's own functions over one shard:
+def check_fused(inp, with_sr: bool, label: str,
+                stress: bool = False) -> dict:
+    """The fused K1, K3a and K2 iterations and ``segment_sum`` on one input
+    set (``inp``: a packed table, impulses, ``dyn``, the endpoints ``ab``
+    [2Rp], the body velocities ``vel`` [N,6] as the deltas, the bodies that
+    can move ``moves``), through the step's own functions over one shard:
 
     - one velocity iteration by the fused path
       (``solver.solve_contacts_planned``) and by the unfused one
-      (``solver.solve_contacts_sharded``: gather, K1, ``index_sum``), and
-      one restitution inner iteration each way: impulses and deltas equal
-      to the bit; also the fused path's plain versions
+      (``solver.solve_contacts_sharded``: gather, K1, ``index_sum``), one
+      restitution inner iteration and one position iteration (K2, the
+      velocities taken as position deltas) each way: impulses (K2: errors)
+      and deltas equal to the bit; also the fused path's plain versions
       (``*_fused_plain``, ``segment_sum_plain``) on the card, to the bit;
     - ``segment_sum`` against ``solver.index_sum`` (``index_put_`` with
-      ``accumulate``) on the same terms, to the bit;
+      ``accumulate``) on the same terms, to the bit; with ``stress``, also
+      on ``segment_stress``'s long run beside empty ones;
     - each new kernel's device time, L2-cold (CUDA-graph replays cycling
       through input copies that together exceed three times the L2), its
       plain version's and, for ``segment_sum``, ``index_sum``'s
@@ -540,9 +555,11 @@ def check_fused(inp, with_sr: bool, label: str) -> dict:
     endpoint loads by index hit L2 and are not counted. For the segment
     sum: the live terms in, the offsets, x in and out."""
     import torch
+    from edyn_tpu_torch.config import CONTACT_POSITION_CORRECTION_RATE
     from edyn_tpu_torch.dynamics import scatter
     from edyn_tpu_torch.dynamics import solver
     from edyn_tpu_torch.dynamics import solver_kernels as sk
+    from edyn_tpu_torch.dynamics.position import MAX_CORRECTION
     from edyn_tpu_torch.parallel.collectives import Mesh
     tbl, imp, imp3, vel = inp["tbl"], inp["imp"], inp["imp3"], inp["vel"]
     C, Rp = tbl.shape
@@ -556,12 +573,16 @@ def check_fused(inp, with_sr: bool, label: str) -> dict:
     t, h = plan.shards[0], plan.hops[0]
     kept = int(h.offsets[-1])
     d0 = scatter.body_table(vel)
+    ngs = (float(CONTACT_POSITION_CORRECTION_RATE), float(MAX_CORRECTION))
 
     def plain_iteration(kern):
         ta, d = torch.zeros_like(t.terms_a), d0.clone()
         if kern == "K1":
             out = sk.solve_iteration_fused_plain(tbl, imp, d, t.ab, t.pos, ta,
                                                  ta, with_sr)
+        elif kern == "K2":
+            out = sk.ngs_iteration_fused_plain(tbl, d, t.ab, t.pos, ta, ta,
+                                               *ngs)
         else:
             out = sk.restitution_iteration_fused_plain(tbl, dyn, imp3, d,
                                                        t.ab, t.pos, ta, ta)
@@ -574,6 +595,10 @@ def check_fused(inp, with_sr: bool, label: str) -> dict:
                                                     with_sr, mesh)
             return o, x
         g = x_t[:, pack.ab_p]
+        if kern == "K2":
+            # as position.solve_positions_sharded's unfused iteration
+            upd, o = sk.ngs_iteration(tbl, g, *ngs)
+            return o, solver.chain_upd_t(x_t, [pack], [upd], mesh)
         o, upd = sk.restitution_iteration(tbl, dyn, imp3, g)
         return o, solver.scatter_upd_t(x_t, pack.ab_p, upd)
 
@@ -582,13 +607,18 @@ def check_fused(inp, with_sr: bool, label: str) -> dict:
             (o,), d = solver.solve_contacts_planned([pack], [imp], d, with_sr,
                                                     mesh, plan)
             return o, d
-        o = sk.restitution_iteration_fused(tbl, dyn, imp3, d, t.ab, t.pos,
-                                           t.terms_a, t.terms_b)
+        if kern == "K2":
+            o = sk.ngs_iteration_fused(tbl, d, t.ab, t.pos, t.terms_a,
+                                       t.terms_b, *ngs)
+        else:
+            o = sk.restitution_iteration_fused(tbl, dyn, imp3, d, t.ab,
+                                               t.pos, t.terms_a, t.terms_b)
         return o, plan.add(d, mesh)
 
     out, iteration = {}, {}
     for kern, name in (("K1", "solve_iteration_fused"),
-                       ("K3a", "restitution_iteration_fused")):
+                       ("K3a", "restitution_iteration_fused"),
+                       ("K2", "ngs_iteration_fused")):
         o_old, x_old = unfused(kern)
         o_new, d_new = fused(kern, d0.clone())
         terms = t.terms_a.clone()
@@ -605,7 +635,9 @@ def check_fused(inp, with_sr: bool, label: str) -> dict:
                                      f"the {'plain' if 'plain' in what else 'unfused'} "
                                      f"path (max abs {diff}), bit-equal "
                                      "required")
-        if kept and not float((d_new[:, :6] - vel).abs().max()) > 0:
+        # K2 writes zero terms where no row penetrates (a settled pile)
+        moves = (kept if kern != "K2" else bool((terms[:, :6] != 0).any()))
+        if moves and not float((d_new[:, :6] - vel).abs().max()) > 0:
             raise AssertionError(f"[{label}] {name} moved no body")
         # segment_sum alone against index_sum on this iteration's terms
         if kern == "K1":
@@ -622,7 +654,18 @@ def check_fused(inp, with_sr: bool, label: str) -> dict:
             old_call_ms=call_ms(lambda: unfused(kern), 20),
             new_call_ms=call_ms(lambda: fused(kern, d0.clone()), 20),
             old_device_us=profiled_us(lambda: unfused(kern)),
-            new_device_us=profiled_us(lambda: fused(kern, d0.clone())))
+            new_device_us=profiled_us(lambda: fused(kern, d0.clone())),
+            new_device_timed_by="torch.profiler")
+        if iteration[kern]["new_device_us"] is None:
+            # no device event recorded: the fused path's launches replayed
+            # in a CUDA graph, timed with CUDA events
+            iteration[kern].update(
+                new_device_us=1e3 * device_ms([lambda: fused(kern,
+                                                            d0.clone())]),
+                new_device_timed_by="CUDA graph (CUDA events)")
+
+    if stress:
+        out["segment_stress"] = segment_stress(N, dt, tbl.device, label)
 
     # each new kernel alone, L2-cold
     idx_bytes = 4 * 2 * Rp * 2   # ab and pos, int32
@@ -630,6 +673,7 @@ def check_fused(inp, with_sr: bool, label: str) -> dict:
     term_bytes = es * 6 * kept
     k1_rows = sk.rows_read("solve_iteration", with_sr)
     k3_rows = sk.rows_read("restitution_iteration")
+    k2_rows = sk.rows_read("ngs_iteration")
     work = {
         "solve_iteration_fused": (
             es * Rp * (k1_rows + 12) + idx_bytes + term_bytes + body_bytes,
@@ -637,6 +681,9 @@ def check_fused(inp, with_sr: bool, label: str) -> dict:
         "restitution_iteration_fused": (
             es * Rp * (k3_rows + 2 + 6) + idx_bytes + term_bytes + body_bytes,
             Rp * KERNELS["restitution_iteration"][3]),
+        "ngs_iteration_fused": (
+            es * Rp * (k2_rows + 1) + idx_bytes + term_bytes + body_bytes,
+            Rp * KERNELS["ngs_iteration"][3]),
         "segment_sum": (term_bytes + 4 * (N + 1) + 2 * body_bytes, 6 * kept),
     }
 
@@ -649,6 +696,9 @@ def check_fused(inp, with_sr: bool, label: str) -> dict:
             return lambda: sk.restitution_iteration_fused(
                 s["tbl"], dyn, imp3, s["d"], t.ab, t.pos, s["terms"],
                 s["terms"])
+        if name == "ngs_iteration_fused":
+            return lambda: sk.ngs_iteration_fused(
+                s["tbl"], s["d"], t.ab, t.pos, s["terms"], s["terms"], *ngs)
         return lambda: sk.segment_sum(s["terms"], h.offsets, x=s["d"])
 
     def plain_fn(name):
@@ -659,8 +709,12 @@ def check_fused(inp, with_sr: bool, label: str) -> dict:
         if name == "restitution_iteration_fused":
             return lambda: sk.restitution_iteration_fused_plain(
                 tbl, dyn, imp3, d, t.ab, t.pos, ta, ta)
+        if name == "ngs_iteration_fused":
+            return lambda: sk.ngs_iteration_fused_plain(
+                tbl, d, t.ab, t.pos, ta, ta, *ngs)
         return lambda: sk.segment_sum_plain(seg_terms, h.offsets, x=d)
 
+    us = lambda x: "not measured" if x is None else f"{x:.2f} us"
     for name, (nbytes, ops) in work.items():
         moved = (es * C * Rp if name != "segment_sum" else 0) \
             + es * 8 * (N + 2 * Rp)
@@ -669,9 +723,25 @@ def check_fused(inp, with_sr: bool, label: str) -> dict:
                      imp=imp.clone(), d=d0.clone(),
                      terms=seg_terms.clone()) for _ in range(n_sets)]
         ms = device_ms([kernel_fn(name, s) for s in sets])
+        # one input set replayed: for segment_sum the step's case, whose
+        # terms the fused kernel has just written into L2
+        warm_ms = device_ms([kernel_fn(name, sets[0])])
+        if name == "segment_sum":
+            # yardsticks in the same protocol: the kernel with no term to
+            # add (its fixed cost), and a copy of the planned terms
+            none = torch.zeros_like(h.offsets)
+            floor = dict(no_terms_ms=device_ms([
+                lambda s=s: sk.segment_sum(s["terms"], none, x=s["d"])
+                for s in sets]))
+            copies = [(s["terms"][:kept], torch.empty_like(s["terms"][:kept]))
+                      for s in sets]
+            floor["copy_terms_ms"] = device_ms([
+                lambda a=a, b=b: b.copy_(a) for a, b in copies]) \
+                if kept else None
+            del copies
         del sets
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
-        r = dict(ms=ms, plain_ms=call_ms(plain_fn(name), 5),
+        r = dict(ms=ms, warm_ms=warm_ms, plain_ms=call_ms(plain_fn(name), 5),
                  plain_timed_by="one call with its host work (CUDA events)",
                  call_ms=call_ms(kernel_fn(name, dict(
                      tbl=tbl, imp=imp, d=d0.clone(), terms=seg_terms.clone())),
@@ -681,23 +751,28 @@ def check_fused(inp, with_sr: bool, label: str) -> dict:
                  bytes=nbytes, kept_terms=kept, C=C, Rp=Rp, N=N,
                  dtype=str(dt), max_abs_err=0.0, library_ms=None)
         if name == "segment_sum":
+            r.update(floor)
             r["library_ms"] = call_ms(
                 lambda: solver.index_sum(vel, pack.ab_p, src), 20)
             r["library"] = ("solver.index_sum (index_put_ with accumulate), "
                             "one call with its host work (CUDA events)")
         else:
-            kern = "K1" if name == "solve_iteration_fused" else "K3a"
+            kern = {"solve_iteration_fused": "K1", "ngs_iteration_fused": "K2",
+                    "restitution_iteration_fused": "K3a"}[name]
             r["iteration"] = iteration[kern]
         out[name] = r
+        copy_us = r.get("copy_terms_ms") and 1e3 * r["copy_terms_ms"]
         log(f"[{label}] {name}: {dt} C={C} Rp={Rp} N={N}, {kept} live "
             f"terms planned; bit-equal to the unfused path and to its plain "
             f"version; device {ms * 1e3:.2f} us L2-cold ({n_sets} input "
-            f"sets); one call {r['call_ms'] * 1e3:.1f} us; plain (one call) "
+            f"sets), {warm_ms * 1e3:.2f} us L2-warm; one call "
+            f"{r['call_ms'] * 1e3:.1f} us; plain (one call) "
             f"{r['plain_ms'] * 1e3:.1f} us; bound {r['bound_ms'] * 1e3:.2f} "
             f"us ({nbytes / 1e6:.2f} MB)"
-            + (f"; index_sum (one call) {r['library_ms'] * 1e3:.1f} us"
+            + (f"; index_sum (one call) {r['library_ms'] * 1e3:.1f} us; "
+               f"with no term {r['no_terms_ms'] * 1e3:.2f} us, a copy of the "
+               f"planned terms {us(copy_us)} (L2-cold)"
                if name == "segment_sum" else ""))
-    us = lambda x: "not measured" if x is None else f"{x:.2f} us"
     for kern, it in iteration.items():
         log(f"[{label}] one {kern} iteration: unfused (gather, kernel, "
             f"index_sum) {it['old_call_ms'] * 1e3:.1f} us a call, "
@@ -707,16 +782,70 @@ def check_fused(inp, with_sr: bool, label: str) -> dict:
     return out
 
 
+# segment_stress's long run: 12 of segment_sum_kernel's shared-memory stages
+# in float (512 terms each), 24 in double
+STRESS_RUN = 6_000
+
+
+def segment_stress(n: int, dtype, dev, label: str) -> dict:
+    """``segment_sum`` where one movable body has a run of STRESS_RUN terms
+    (the kernel streams it through its double-buffered stages), beside a
+    body with 2 terms before it and one with 3 after it in the same block
+    of bodies, every other run empty; a fifth of the terms zero, some with
+    a -0 component. With x: bit-equal to ``segment_sum_plain`` and to
+    ``solver.index_sum``; with a start value (a chain hop): bit-equal to
+    ``segment_sum_plain``. Also the kernel's time on it (L2-warm)."""
+    import torch
+    from edyn_tpu_torch.dynamics import solver
+    from edyn_tpu_torch.dynamics import solver_kernels as sk
+    g = torch.Generator(device=dev).manual_seed(11)
+    rand = lambda *shape: torch.randn(shape, generator=g, device=dev,
+                                      dtype=dtype)
+    b = 32 * (n // 64) + 5
+    deg = torch.zeros((n,), dtype=torch.long, device=dev)
+    deg[b - 1], deg[b], deg[b + 1] = 2, STRESS_RUN, 3
+    off = torch.cat([deg.new_zeros(1), deg.cumsum(0)]).to(torch.int32)
+    E = int(off[-1])
+    terms = rand(E, 8)
+    terms[:, 6:] = 0.0
+    terms[torch.rand(E, generator=g, device=dev) < 0.2] = 0.0
+    terms[torch.rand(E, generator=g, device=dev) < 0.05, 2] = -0.0
+    x, start = rand(n, 8), rand(n, 8)
+    x[:, 6:] = 0.0
+    start[:, 6:] = 0.0
+    start[torch.rand(n, generator=g, device=dev) < 0.3] = 0.0
+    target = torch.repeat_interleave(torch.arange(n, device=dev), deg)
+    got = sk.segment_sum(terms, off, x=x.clone())
+    lib = solver.index_sum(x[:, :6].contiguous(), target,
+                           terms[:, :6].contiguous())
+    for what, a, want in (
+            ("plain", got, sk.segment_sum_plain(terms, off, x=x.clone())),
+            ("index_sum", got[:, :6], lib),
+            ("plain, start", sk.segment_sum(terms, off, start=start),
+             sk.segment_sum_plain(terms, off, start=start))):
+        if not bits_equal(a, want):
+            raise AssertionError(f"[{label}] segment_sum on a run of "
+                                 f"{STRESS_RUN} terms differs from {what}")
+    xs = x.clone()
+    ms = device_ms([lambda: sk.segment_sum(terms, off, x=xs)])
+    log(f"[{label}] segment_sum, a run of {STRESS_RUN} terms beside runs of "
+        f"2 and 3 and {n - 3} empty ones ({dtype}): bit-equal to its plain "
+        f"version and to index_sum, with a start value to its plain "
+        f"version; device {ms * 1e3:.2f} us L2-warm")
+    return dict(run=STRESS_RUN, terms=E, n=n, ms=ms, dtype=str(dtype))
+
+
 def fused_entry(name: str, r: dict, others: dict, launches: dict,
-                scalar: str = "float") -> dict:
+                scalar: str = "float", unfused: dict = None) -> dict:
     """The kernels line's entry of a fused iteration's kernel or of the
     segment sum (``check_fused``): ``r`` its results at the main path's
     shapes (the landed pile's real step), ``others`` more of them by label
     (random inputs, the mostly-asleep width), ``launches`` its counts by
-    path."""
-    replaces, kernel, unfused = FUSED[name]
+    path, ``unfused`` the unfused kernel's ``check_kernels`` results by
+    label (the card's reference, off the main path)."""
+    replaces, kernel, unf = FUSED[name]
     held = ("bit-equal to its plain version and to the unfused path "
-            f"(gather, {unfused}, index_sum)" if unfused else
+            f"(gather, {unf}, index_sum)" if unf else
             "bit-equal to its plain version and to solver.index_sum")
     e = dict(name=name if scalar == "float" else f"{name}_f64",
              route="cuda", source=SOURCE, replaces=replaces, **launches,
@@ -726,7 +855,8 @@ def fused_entry(name: str, r: dict, others: dict, launches: dict,
              bound_by=r["bound_by"],
              bound_counts="device-memory bytes; the endpoint loads by index "
                           "hit L2 and are not counted",
-             library_ms=r["library_ms"], call_ms=r["call_ms"], C=r["C"],
+             library_ms=r["library_ms"], warm_ms=r["warm_ms"],
+             call_ms=r["call_ms"], C=r["C"],
              Rp=r["Rp"], N=r["N"], kept_terms=r["kept_terms"],
              dtype=r["dtype"])
     if "launches" in launches and scalar == "float":
@@ -735,12 +865,19 @@ def fused_entry(name: str, r: dict, others: dict, launches: dict,
         e["library"] = r["library"]
     if "iteration" in r:
         e["iteration"] = r["iteration"]
+    for k in ("no_terms_ms", "copy_terms_ms"):
+        if k in r:
+            e[k] = r[k]
     for label, o in others.items():
         e.update({f"{label}_{k}": o[k] for k in (
-            "ms", "plain_ms", "bound_ms", "library_ms", "Rp", "N",
+            "ms", "warm_ms", "plain_ms", "bound_ms", "library_ms", "Rp", "N",
             "kept_terms")})
         if "iteration" in o:
             e[f"{label}_iteration"] = o["iteration"]
+    for label, o in (unfused or {}).items():
+        if o is not None and unf in o:
+            e.update({f"unfused_{label}_{k}": o[unf][k]
+                      for k in ("ms", "bound_ms", "Rp")})
     e.update(build_info("solver_kernels", kernel, scalar))
     return e
 
@@ -1241,30 +1378,32 @@ def k5_edge_cases(dev, dtype=None) -> dict:
 
 def max_launches_per_step(s) -> dict:
     """Each counted kernel step's most launches in one unsharded step under
-    Settings ``s``. K1 and K3a run fused on the card: their unfused
+    Settings ``s``. K1, K3a and K2 run fused on the card: their unfused
     entries (the CPU's path) must not launch at all."""
     rest = s.num_restitution_iterations \
         * s.num_individual_restitution_iterations
+    pos = s.num_solver_position_iterations
     return {"solve_iteration_fused": s.num_solver_velocity_iterations,
-            "ngs_iteration": s.num_solver_position_iterations,
+            "ngs_iteration_fused": pos,
             "restitution_iteration_fused": rest,
             "relvel": s.num_restitution_iterations,
-            "segment_sum": s.num_solver_velocity_iterations + rest,
+            "segment_sum": s.num_solver_velocity_iterations + rest + pos,
             "solve_iteration": 0, "restitution_iteration": 0,
+            "ngs_iteration": 0,
             "unified_features": 1, "pair_order": 1, "collide_support": 1,
             "count_overlaps": 0}
 
 
-# the unfused K1 and K3a: never on the card's step
-UNFUSED = ("solve_iteration", "restitution_iteration")
+# the unfused K1, K3a and K2: never on the card's step
+UNFUSED = ("solve_iteration", "restitution_iteration", "ngs_iteration")
 
 
 def no_unfused(launches: dict, label: str):
-    """Fail if the card's step launched K1 or K3a unfused."""
+    """Fail if the card's step launched K1, K3a or K2 unfused."""
     ran = {k: launches[k] for k in UNFUSED if launches.get(k)}
     if ran:
-        raise AssertionError(f"[{label}] the unfused K1/K3a launched on the "
-                             f"step: {ran}")
+        raise AssertionError(f"[{label}] the unfused K1/K3a/K2 launched on "
+                             f"the step: {ran}")
 
 
 def main_path(n_bodies: int, steps: int, dev):
@@ -1771,8 +1910,9 @@ def ragdoll_path(n_ragdolls: int, steps: int, dev):
             raise AssertionError(f"[ragdolls] {name}: {n} launches in "
                                  f"{steps} steps, at most "
                                  f"{per_step[name] * steps}")
-    for name in ("solve_iteration_fused", "segment_sum", "ngs_iteration",
-                 "unified_features", "pair_order", "collide_support"):
+    for name in ("solve_iteration_fused", "segment_sum",
+                 "ngs_iteration_fused", "unified_features", "pair_order",
+                 "collide_support"):
         # (the plain versions on a CPU rehearsal count nothing)
         if launches[name] == 0 and torch.device(dev).type == "cuda":
             raise AssertionError(f"[ragdolls] {name} never launched")
@@ -2070,9 +2210,9 @@ def terrain_path(n_bodies: int, steps: int, dev):
             raise AssertionError(f"[terrain] {name}: {n} launches in "
                                  f"{steps} steps, at most "
                                  f"{per_step[name] * steps}")
-    for name in ("solve_iteration_fused", "segment_sum", "ngs_iteration",
-                 "relvel", "unified_features", "pair_order",
-                 "collide_support"):
+    for name in ("solve_iteration_fused", "segment_sum",
+                 "ngs_iteration_fused", "relvel", "unified_features",
+                 "pair_order", "collide_support"):
         if launches[name] == 0 and torch.device(dev).type == "cuda":
             raise AssertionError(f"[terrain] {name} never launched")
     if launches["count_overlaps"]:
@@ -2291,57 +2431,96 @@ def vehicle_card_vs_cpu(dev) -> dict:
                 largest_difference=diff)
 
 
-def compound_tests_on_card(dev) -> dict:
+def compound_tests_on_card(dev, part: int = 0, parts: int = 1) -> dict:
     """The JAX package's compound behaviour tests (tests/test_compound.py)
-    on the card, through the port's test file. Returns {case: seconds}."""
+    on the card, through the port's test file: every ``parts``-th case
+    from ``part``. Returns {case: seconds}."""
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import test_torch_compound_behaviour as tb
     out = {}
-    for case in tb.CASES:
+    for case in tb.CASES[part::parts]:
         t0 = time.perf_counter()
         case(device=dev)
         out[case.__name__] = time.perf_counter() - t0
     return out
 
 
-def start_compound_tests():
-    """``compound_tests_on_card`` in a process of its own, on the card
-    beside phase 8's other checks (its tiny worlds wait on the host, not
-    on the card): the process, which prints its result as its last line."""
-    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
-            "import chip_smoke; print(json.dumps("
-            "chip_smoke.compound_tests_on_card('cuda')), flush=True)")
-    return subprocess.Popen([sys.executable, "-c", code, ROOT], cwd=ROOT,
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
+COMPOUND_PROCESSES = 3
+CALL_THREADS = 2   # CPU threads of each ``start_call`` process
 
 
-def finish_compound_tests(proc, timeout: float = 600.0) -> dict:
-    """Wait for ``start_compound_tests``' process; fail if a test failed."""
-    try:
-        text, _ = proc.communicate(timeout=timeout)
-    finally:
+def start_call(fn: str, dev: str, *args):
+    """``chip_smoke.<fn>(torch.device(dev), *args)`` in a process of its
+    own, on the card beside the main process's checks (work that times
+    nothing there): the process, which prints its log and then its JSON
+    result as its last line."""
+    code = ("import json, sys, torch; sys.path.insert(0, sys.argv[1]); "
+            f"torch.set_num_threads({CALL_THREADS}); "
+            "import chip_smoke; print(json.dumps(getattr(chip_smoke, "
+            "sys.argv[2])(torch.device(sys.argv[3]), "
+            "*json.loads(sys.argv[4])), default=chip_smoke.json_value), "
+            "flush=True)")
+    return subprocess.Popen([sys.executable, "-c", code, ROOT, fn, dev,
+                             json.dumps(args)], cwd=ROOT,
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def json_value(x):
+    """``json.dumps``' default for numpy and torch scalars."""
+    return x.item() if hasattr(x, "item") else str(x)
+
+
+def stop_calls(procs):
+    for proc in procs:
         if proc.poll() is None:
             proc.kill()
             proc.wait()
-    if proc.returncode != 0:
-        raise AssertionError(f"[compound tests] failed on the card "
-                             f"({proc.returncode}):\n{text[-4000:]}")
-    out = json.loads(text.strip().splitlines()[-1])
-    log(f"[compound tests] passed on the card (a process of their own): "
-        f"{ {k: round(v, 2) for k, v in out.items()} } s")
+
+
+def finish_calls(procs, timeout: float = 900.0) -> list:
+    """Wait for ``start_call``'s processes, print their logs and return
+    their results; fail if one failed."""
+    out = []
+    try:
+        for proc in procs:
+            text, _ = proc.communicate(timeout=timeout)
+            if proc.returncode != 0:
+                raise AssertionError(f"[{proc.args[4]}] failed on the card "
+                                     f"({proc.returncode}):\n{text[-4000:]}")
+            lines = text.strip().splitlines()
+            for line in lines[:-1]:
+                print(line, flush=True)
+            out.append(json.loads(lines[-1]))
+    finally:
+        stop_calls(procs)
     return out
 
 
-def terrain_checks(dev) -> dict:
+def beside(calls, work):
+    """``work()`` in this process while each of ``calls`` ((function name,
+    device, *args)) runs in a process of its own (``start_call``). Returns
+    (work's result, the calls' results in order); fails if any failed."""
+    procs = [start_call(*c) for c in calls]
+    try:
+        out = work()
+    except BaseException:
+        stop_calls(procs)
+        raise
+    return out, finish_calls(procs)
+
+
+def terrain_checks(dev, calls=()) -> tuple:
     """Phase 8: card against CPU on rich_scene(512) settled 240 steps, each
     body held to its own 1-ulp sensitivity with positions and orientations
     nudged (ROADMAP P7); the MESH bucket alone; the opt-in triangle cull
-    (P9); the vehicle; the JAX package's compound tests on the card."""
+    (P9). Beside them, each in a process of its own: the vehicle, the JAX
+    package's compound tests on the card in COMPOUND_PROCESSES shares, and
+    ``calls``. Returns (summary, the results of ``calls``)."""
     from edyn_tpu_torch.shapes.params import ShapeType
     from edyn_tpu_torch.utils.scenes import rich_scene
-    compound = start_compound_tests()
-    try:
+
+    def work():
         builder = rich_scene(n_bodies=512)[0]
         mesh = builder.defs[0].shape
         out = {}
@@ -2351,14 +2530,19 @@ def terrain_checks(dev) -> dict:
         rim = ShapeType.CYLINDER in w8.meta.types_present
         out["mesh_card_vs_cpu"] = mesh_card_vs_cpu(w8.state, rim)
         out["mesh_cull"] = mesh_cull_check(w8, mesh)
-        del w8
-        out["vehicle"] = vehicle_card_vs_cpu(dev)
-    except BaseException:
-        compound.kill()
-        compound.wait()
-        raise
-    out["compound_tests"] = finish_compound_tests(compound)
-    return out
+        return out
+    n = COMPOUND_PROCESSES
+    out, res = beside([("compound_tests_on_card", "cuda", i, n)
+                       for i in range(n)]
+                      + [("vehicle_card_vs_cpu", "cuda")] + list(calls), work)
+    compound = {}
+    for part in res[:n]:
+        compound.update(part)
+    log(f"[compound tests] passed on the card ({n} processes of their "
+        f"own): { {k: round(v, 2) for k, v in compound.items()} } s")
+    out["compound_tests"] = compound
+    out["vehicle"] = res[n]
+    return out, res[n + 1:]
 
 
 def mesh_cull_check(world, mesh) -> dict:
@@ -2591,13 +2775,14 @@ def asleep_path(n_bodies: int, dev):
     # the protocol runs every kernel of the step; the mostly-asleep steps
     # at least the solver's (their awake bodies may have no pair)
     on_card = torch.device(dev).type == "cuda"
-    for name in ("solve_iteration_fused", "ngs_iteration",
+    for name in ("solve_iteration_fused", "ngs_iteration_fused",
                  "restitution_iteration_fused", "segment_sum", "relvel",
                  "unified_features", "pair_order", "collide_support"):
         if on_card and not launches[name]:
             raise AssertionError(f"[bench] {name} never launched")
     no_unfused(launches, "bench")
-    for name in ("solve_iteration_fused", "segment_sum", "ngs_iteration"):
+    for name in ("solve_iteration_fused", "segment_sum",
+                 "ngs_iteration_fused"):
         if on_card and not asleep_launches[name]:
             raise AssertionError(f"[bench] {name} never launched in the "
                                  "mostly-asleep steps")
@@ -3301,7 +3486,7 @@ def networked_path(dev):
         f"{1e3 * statistics.mean(calls):.3f} ms a call (max "
         f"{1e3 * max(calls):.3f}) at {world.state.capacity} bodies; "
         f"launches over the phase {launches}")
-    for name in ("solve_iteration_fused", "ngs_iteration",
+    for name in ("solve_iteration_fused", "ngs_iteration_fused",
                  "restitution_iteration_fused", "segment_sum", "relvel",
                  "unified_features", "pair_order", "collide_support"):
         if not launches[name]:
@@ -3314,7 +3499,7 @@ def networked_path(dev):
 
 
 # Phase 12: the float64 mode and the sweep broadphase.
-F64_KERNELS = ("solve_iteration_fused", "ngs_iteration",
+F64_KERNELS = ("solve_iteration_fused", "ngs_iteration_fused",
                "restitution_iteration_fused", "segment_sum", "relvel",
                "unified_features", "pair_order", "collide_support",
                "count_overlaps")
@@ -3455,7 +3640,8 @@ def f64_kernels(world, dev) -> dict:
     Rp_full = -(-16 * (N_BODIES + 5) // 128) * 128
     inp = f64(random_inputs(C_BASE + C_SR, Rp_full, N_BODIES + 5, 0, dev))
     out = dict(random=check_kernels(inp, True, "f64 random", exact=True),
-               fused_random=check_fused(inp, True, "f64 random"))
+               fused_random=check_fused(inp, True, "f64 random",
+                                        stress=True))
     del inp
     check_kernels(f64(random_inputs(C_BASE, Rp_full, N_BODIES + 5, 1, dev)),
                   False, "f64 random, no spin/roll rows", exact=True)
@@ -3678,9 +3864,10 @@ def f64_kernel_entries(kernels12, launches) -> list:
               + list(kernels12["k5_edges"].values()))
     out = [fused_entry(name, kernels12["fused_real"][name],
                        {"random": kernels12["fused_random"][name]},
-                       {"launches": launches[name]}, "double")
+                       {"launches": launches[name]}, "double",
+                       {"random": rand, "real": real})
            for name in FUSED]
-    for name in ("ngs_iteration", "relvel"):
+    for name in ("relvel",):
         r = rand[name]
         out.append(dict(
             name=f"{name}_f64", route="cuda", source=SOURCE,
@@ -3722,14 +3909,15 @@ def f64_kernel_entries(kernels12, launches) -> list:
     return out
 
 
-def phase12(dev, main: dict, landed) -> tuple:
-    """Phase 12 in order: 12a, 12b, 12c, 12d. Returns (summary, launches of
+def phase12(dev, main: dict, landed, versus=None) -> tuple:
+    """Phase 12 in order: 12a, 12b, 12c, 12d; 12c's summary is ``versus``
+    where it ran earlier (beside phase 5). Returns (summary, launches of
     the double entries on 12a's path, the kernels line's f64 entries)."""
     t0 = time.perf_counter()
     world, launches, f64 = f64_path(N_BODIES, STEPS, dev, main)
     kern = f64_kernels(world, dev)
     del world
-    f64["card_vs_cpu"] = f64_card_vs_cpu(dev)
+    f64["card_vs_cpu"] = versus or f64_card_vs_cpu(dev)
     t1 = time.perf_counter()
     sweep = sweep_path(landed, dev)
     log(f"[phase 12] f64 parts {t1 - t0:.1f} s, sweep "
@@ -3747,7 +3935,7 @@ SHARD_KS = (1, 2, 4)    # 13c: shard counts timed on one card
 SHARD_TIMED = 4         # 13c: steps timed at each k, twice, in turns
 SHARD_PROFILED = 1      # 13c: steps under the profiler and the span timers
 SHARD_LEAD = 25         # 13b: unsharded steps into the first contacts
-SHARD_KERNELS = ("solve_iteration_fused", "ngs_iteration",
+SHARD_KERNELS = ("solve_iteration_fused", "ngs_iteration_fused",
                  "restitution_iteration_fused", "relvel", "unified_features",
                  "pair_order", "collide_support")
 
@@ -4105,19 +4293,58 @@ def shard_timing(landed, settings, meta) -> dict:
     return out
 
 
-def phase13(dev) -> tuple:
-    """Phase 13 in order: 13a, 13b, 13c. Returns (summary, launches of
-    13a's sharded run)."""
+def sharded_pile_call(dev, path: str) -> dict:
+    """13a in a process of its own (``start_call``): ``sharded_pile``'s
+    summary, its launches and its seconds, with its end state, settings and
+    meta pickled to ``path`` for 13c."""
+    import pickle
+    from edyn_tpu_torch.core.convert import state_to_numpy
     t0 = time.perf_counter()
-    a, launches, landed, settings, meta = sharded_pile(dev)
-    t1 = time.perf_counter()
-    b = jax_cases_on_card(dev)
-    t2 = time.perf_counter()
+    summary, launches, got, settings, meta = sharded_pile(dev)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump((state_to_numpy(got), settings, meta), f)
+    return dict(summary=summary, launches=launches,
+                seconds=time.perf_counter() - t0)
+
+
+def jax_cases_call(dev) -> dict:
+    """13b in a process of its own (``start_call``), with its seconds."""
+    t0 = time.perf_counter()
+    out = jax_cases_on_card(dev)
+    return dict(cases=out, seconds=time.perf_counter() - t0)
+
+
+def landed_shards(a: dict, path: str, dev) -> tuple:
+    """``sharded_pile_call``'s result and its pickled end state, on
+    ``dev``: (13a's summary, its launches, the state, settings, meta)."""
+    import pickle
+    from edyn_tpu_torch.core.convert import state_from_numpy
+    with open(path, "rb") as f:
+        tree, settings, meta = pickle.load(f)
+    os.remove(path)
+    return (a["summary"], a["launches"], state_from_numpy(tree, dev),
+            settings, meta)
+
+
+SHARD_STATE = os.path.join(ROOT, "build", "chip_smoke_13a.pkl")
+
+
+def phase13(dev, a=None, b=None) -> tuple:
+    """Phase 13: 13a and 13b (``sharded_pile_call``'s and
+    ``jax_cases_call``'s results where they ran earlier, in processes of
+    their own; else here), then 13c on 13a's end state. Returns (summary,
+    launches of 13a's sharded run)."""
+    a = a or sharded_pile_call(dev, SHARD_STATE)
+    b = b or jax_cases_call(dev)
+    a13, launches, landed, settings, meta = landed_shards(a, SHARD_STATE,
+                                                          dev)
+    t0 = time.perf_counter()
     c = shard_timing(landed, settings, meta)
     del landed
-    log(f"[phase 13] 13a {t1 - t0:.1f} s, 13b {t2 - t1:.1f} s, 13c "
-        f"{time.perf_counter() - t2:.1f} s; gpu: {gpu_line()}")
-    return dict(sharded_pile=a, jax_cases=b, timing=c), launches
+    log(f"[phase 13] 13a {a['seconds']:.1f} s, 13b {b['seconds']:.1f} s, "
+        f"13c {time.perf_counter() - t0:.1f} s; gpu: {gpu_line()}")
+    return dict(sharded_pile=a13, jax_cases=b["cases"], timing=c), launches
 
 
 def run_alone(phases, dev) -> None:
@@ -4128,7 +4355,7 @@ def run_alone(phases, dev) -> None:
     out = {}
     for p in phases:
         if p == 8:
-            out[8] = terrain_checks(dev)
+            out[8], _ = terrain_checks(dev)
         elif p == 9:
             out[9], _, _, bw, bids = asleep_path(N_BODIES, dev)
             inp, with_sr = real_inputs(bw)
@@ -4196,7 +4423,7 @@ def run(argv=None) -> int:
     Rp_full = -(-16 * (N_BODIES + 5) // 128) * 128
     inp = random_inputs(C_BASE + C_SR, Rp_full, N_BODIES + 5, 0, dev)
     rand = check_kernels(inp, True, "random")
-    fused_rand = check_fused(inp, True, "random")
+    fused_rand = check_fused(inp, True, "random", stress=True)
     del inp
     check_kernels(random_inputs(C_BASE, Rp_full, N_BODIES + 5, 1, dev),
                   False, "random, no spin/roll rows")
@@ -4243,8 +4470,14 @@ def run(argv=None) -> int:
 
     mark(4)
 
-    # 5. card against CPU
-    versus, _ = card_vs_cpu(dev)
+    # 5. card against CPU; beside it, each in a process of its own (none
+    #    times anything): phase 6's jointed card-vs-CPU check and the JAX
+    #    package's ragdoll test, 12c (phase 5 at float64) and 13b (the JAX
+    #    package's sharding cases)
+    (versus, _), (joints_versus, one_ragdoll, f64_versus, jax_cases) = beside(
+        [("joints_card_vs_cpu", "cuda"), ("reference_ragdoll", "cuda"),
+         ("f64_card_vs_cpu", "cuda"), ("jax_cases_call", "cuda")],
+        lambda: card_vs_cpu(dev))
 
     mark(5)
 
@@ -4262,8 +4495,8 @@ def run(argv=None) -> int:
     k4_rag["vs_support_sat"] = versus_support_sat(st, ka, kb, rim,
                                                   "ragdoll step")
     del rag_world, tbl, ka, kb, st
-    ragdolls["one_ragdoll"] = reference_ragdoll(dev)
-    ragdolls["card_vs_cpu"] = joints_card_vs_cpu(dev)
+    ragdolls["card_vs_cpu"] = joints_versus
+    ragdolls["one_ragdoll"] = one_ragdoll
 
     mark(6)
 
@@ -4272,6 +4505,7 @@ def run(argv=None) -> int:
     terrain, ter_launches, ter_world = terrain_path(N_TERRAIN, STEPS, dev)
     inp, with_sr = real_inputs(ter_world)
     ter_real = check_kernels(inp, with_sr, "terrain step")
+    ter_fused = check_fused(inp, with_sr, "terrain step")
     del inp
     st = ter_world.state
     tbl, dims = uk.pack_side_table_t(st)
@@ -4285,9 +4519,12 @@ def run(argv=None) -> int:
     mark(7)
 
     # 8. card against CPU on a settled terrain world (the whole step, then
-    #    the mesh bucket alone, then the opt-in triangle cull), the vehicle,
-    #    the JAX package's compound tests on the card
-    terrain.update(terrain_checks(dev))
+    #    the mesh bucket alone, then the opt-in triangle cull); beside it,
+    #    each in a process of its own, the vehicle, the JAX package's
+    #    compound tests on the card and 13a (the sharded pile)
+    checks8, (sharded,) = terrain_checks(
+        dev, [("sharded_pile_call", "cuda", SHARD_STATE)])
+    terrain.update(checks8)
 
     mark(8)
 
@@ -4319,7 +4556,8 @@ def run(argv=None) -> int:
     #     double entries), those entries against their plain versions,
     #     card against CPU at f64; the sweep broadphase against the dense
     #     one on the landed pile and at the key limit
-    phase_12, f64_launches, f64_entries = phase12(dev, main, landed)
+    phase_12, f64_launches, f64_entries = phase12(dev, main, landed,
+                                                  f64_versus)
     del landed
 
     mark(12)
@@ -4327,7 +4565,7 @@ def run(argv=None) -> int:
     # 13. the step sharded over the mesh: the 10k pile over 4 shards bit-
     #     equal to the unsharded step, each shard launching K1-K4; the JAX
     #     package's sharding cases; steps/s at k = 1, 2 and 4
-    phase_13, shard_launches = phase13(dev)
+    phase_13, shard_launches = phase13(dev, sharded, jax_cases)
 
     mark(13)
     launch_sets = dict(launches=launches, ragdoll_launches=rag_launches,
@@ -4339,10 +4577,14 @@ def run(argv=None) -> int:
                        sharded_launches=shard_launches)
     kernels = [fused_entry(name, fused_real[name],
                            {"random": fused_rand[name],
+                            "terrain": ter_fused[name],
                             "asleep": fused_asleep[name]},
-                           {k: v[name] for k, v in launch_sets.items()})
+                           {k: v[name] for k, v in launch_sets.items()},
+                           unfused={"random": rand, "real": real,
+                                    "terrain": ter_real,
+                                    "asleep": asleep_real})
                for name in FUSED]
-    for name in ("ngs_iteration", "relvel"):
+    for name in ("relvel",):
         r = rand[name]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCE,
@@ -4475,7 +4717,7 @@ def run(argv=None) -> int:
     kernels += f64_entries
     log(json.dumps({"main_path": main, "suggest_max_pairs": suggest,
                     "fused": {"random": fused_rand, "real": fused_real,
-                              "asleep": fused_asleep},
+                              "terrain": ter_fused, "asleep": fused_asleep},
                     "k4": {"random": k4_rand, "real": k4_real},
                     "k5": {"random": k5_rand, "real": k5_real,
                            "edge_cases": k5_edges},

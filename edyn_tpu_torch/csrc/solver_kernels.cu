@@ -6,14 +6,16 @@
 //     (_make_vel_kernel), with the gather and scatter-add around it
 //   edyn_restitution_iteration_fused <- restitution_iteration_pallas
 //     (_make_rest_kernel), the same
-//   edyn_ngs_iteration               <- ngs_iteration_pallas (_make_ngs_kernel)
+//   edyn_ngs_iteration_fused         <- ngs_iteration_pallas
+//     (_make_ngs_kernel), the same
 //   edyn_relvel                      <- relvel_pallas (_make_relvel_kernel)
 // and edyn_segment_sum, which replaces none: it adds the fused kernels'
-// update terms per body (see segment_sum_kernel). edyn_solve_iteration and
-// edyn_restitution_iteration are K1 and K3a without the fusion, as the TPU
-// ran them: against gathered endpoint deltas, with the scatter-add left to
-// the caller. The step runs them on the CPU's path only (as their plain
-// versions); on the card they are what the fused iterations are held to.
+// update terms per body (see segment_sum_kernel). edyn_solve_iteration,
+// edyn_restitution_iteration and edyn_ngs_iteration are K1, K3a and K2
+// without the fusion, as the TPU ran them: against gathered endpoint
+// deltas, with the scatter-add left to the caller. The step runs them on
+// the CPU's path only (as their plain versions); on the card they are what
+// the fused iterations are held to.
 //
 // Every kernel reads the component-major [C, Rp] row table of pack_rows_t.
 // The unfused kernels read the gathered endpoint deltas g [6, 2Rp] (a-half,
@@ -334,15 +336,16 @@ __global__ void rest_kernel(const F* __restrict__ tbl,
 // The fused iterations and the segment sum (the card's solver loops)
 // ---------------------------------------------------------------------------
 //
-// vel_fused_kernel and rest_fused_kernel replace the same TPU kernels as
-// vel_kernel and rest_kernel (pallas_solver.py:254/262 and :338/342), with
+// vel_fused_kernel, rest_fused_kernel and ngs_fused_kernel (below, beside
+// ngs_kernel) replace the same TPU kernels as vel_kernel, rest_kernel and
+// ngs_kernel (pallas_solver.py:254/262, :338/342 and :441), with
 // the XLA gather and scatter-add that ran around them on the TPU, where
 // Mosaic could not lower a gather by index inside the kernel. Here a
 // thread loads its row's two endpoint deltas by index from the body table
 // d [N, 8] (lin 0:3 | ang 3:6 | two zeros: one 32-byte sector per body in
 // float, which sits in L2: 10,005 bodies are 320 KB of a 50 MB L2), runs
-// the row's arithmetic (vel_row / rest_row), and writes each of its two
-// update terms as one [8] row of a terms buffer at the position the
+// the row's arithmetic (vel_row / rest_row / ngs_row), and writes each of
+// its two update terms as one [8] row of a terms buffer at the position the
 // step's scatter plan gives it (dynamics/scatter.py), -1 for a term the
 // plan leaves out (an invalid row, or a body with zero inverse mass and
 // inertia, whose terms are zero). segment_sum_kernel then adds each
@@ -465,57 +468,121 @@ __global__ void rest_fused_kernel(const F* __restrict__ tbl,
 //
 // Bound: memory (one add per component and term): the terms read once
 // (32 bytes each in float), the offsets, x (or start) in and the sums out.
-// Design: eight lanes per body, lane c holding component c (6 and 7 are
-// the zero padding), so the eight lanes of a body read one term's 32-byte
-// sector together and a warp serves four bodies; a ballot over the body's
-// six lanes is the live test. Each lane adds its component sequentially,
-// in plan order, as index_sum does. A warp walks as many terms as its
-// busiest body has.
-constexpr int LANES = 8;
+// What held the first design back was latency: eight lanes a body read a
+// term together and a ballot on the loaded value decided whether to add
+// it, so every term of a run cost one L2 round trip. Design: the plan
+// sorts the terms by body, so the terms of SEG_BODIES consecutive bodies
+// are one contiguous span, terms[off[b0] : off[b0 + SEG_BODIES]]. A block
+// stages that span in shared memory with 16-byte asynchronous copies
+// (cp.async), all of a stage's loads in flight at once, in stages of
+// SEG_STAGE_BYTES, double-buffered, so a span longer than one stage
+// streams while the stage before it is summed; x and the start value load
+// meanwhile. Then the eight lanes of a body (lane c holds component c; 6
+// and 7 are the zero padding) add its terms of the stage from shared
+// memory in plan order, a ballot over the body's six lanes being the live
+// test, as the first design did from L2. A warp serves four bodies and
+// walks the busiest one's terms; a block serves 16 bodies (of 8, 16, 32
+// and 64, the fastest on an H100 at the landed 10k pile's step:
+// scripts/torch_kernel_ab.py). There (~12 planned terms a body) a block
+// stages ~6 KB in one stage, and ~630 blocks keep the whole span in
+// flight at once. What remains is latency: the offsets, then the span
+// from device memory, then the sum and the stores, one after the other.
+constexpr int SEG_BODIES = 16;
+constexpr int SEG_LANES = 8;
+constexpr int SEG_THREADS = SEG_BODIES * SEG_LANES;
+constexpr int SEG_STAGE_BYTES = 16384;
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most one group of this thread's copies is in flight
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// copy terms[t0 : t0 + count] ([8] rows) into a stage, 16 bytes a copy
+template <typename F>
+__device__ __forceinline__ void stage_terms(F* stage,
+                                            const F* __restrict__ terms,
+                                            int t0, int count) {
+  constexpr int PIECES = 8 * sizeof(F) / 16;   // 16-byte pieces a term
+  const char* src = reinterpret_cast<const char*>(terms + 8LL * t0);
+  char* dst = reinterpret_cast<char*>(stage);
+  for (int p = threadIdx.x; p < count * PIECES; p += SEG_THREADS)
+    cp_async16(dst + 16 * p, src + 16LL * p);
+}
+
+// g += v where v is live: a component of 0:6 not zero in any of the body's
+// lanes (body_lanes); without a branch, so an unrolled loop can load the
+// next terms while it adds
+template <typename F>
+__device__ __forceinline__ void add_live(F& g, F v, unsigned body_lanes,
+                                         bool& any) {
+  const bool live = (__ballot_sync(0xffffffffu, v != F(0)) & body_lanes) != 0;
+  g = live ? g + v : g;
+  any = any | live;
+}
 
 template <typename F>
-__global__ void segment_sum_kernel(const F* __restrict__ terms,
-                                   const int* __restrict__ off,
-                                   const F* start, const F* x, F* out,
-                                   int n) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long b = t / LANES;
+__global__ void __launch_bounds__(SEG_THREADS)
+segment_sum_kernel(const F* __restrict__ terms, const int* __restrict__ off,
+                   const F* start, const F* x, F* out, int n) {
+  constexpr int STAGE = SEG_STAGE_BYTES / (8 * (int)sizeof(F));  // terms
+  __shared__ __align__(16) F stage[2][STAGE * 8];
   const int lane = threadIdx.x & 31;
-  const int c = lane & (LANES - 1);
-  const unsigned body_lanes = 0x3fu << (lane & ~(LANES - 1));
+  const int c = lane & (SEG_LANES - 1);
+  const unsigned body_lanes = 0x3fu << (lane & ~(SEG_LANES - 1));
+  const long long b0 = (long long)blockIdx.x * SEG_BODIES;
+  const long long b = b0 + threadIdx.x / SEG_LANES;
   const bool has = b < n;
-  int s = 0, len = 0;
-  if (has) {
-    s = off[b];
-    len = off[b + 1] - s;
-  }
-  int most = len;  // the warp walks its busiest body's run
-  for (int o = 16; o > 0; o >>= 1)
-    most = max(most, __shfl_xor_sync(0xffffffffu, most, o));
+  const int lo = off[b0];
+  const int hi = off[min((long long)n, b0 + SEG_BODIES)];
+  const int s = has ? off[b] : 0, e = has ? off[b + 1] : 0;
+  const int stages = (hi - lo + STAGE - 1) / STAGE;
+  if (stages > 0) stage_terms(stage[0], terms, lo, min(STAGE, hi - lo));
+  cp_async_commit();
+  const long long i = b * SEG_LANES + c;
+  const F xv = x != nullptr && has ? x[i] : F(0);
+  const F sv = start != nullptr && has ? start[i] : F(0);
   F g = F(0);
   bool any = false;
-  if (start != nullptr) {
-    const F v = has ? start[b * LANES + c] : F(0);
-    if (__ballot_sync(0xffffffffu, v != F(0)) & body_lanes) {
-      g = g + v;
-      any = true;
+  add_live(g, sv, body_lanes, any);  // the running sum is a first term
+  for (int k = 0; k < stages; ++k) {
+    const int t0 = lo + k * STAGE;
+    if (k + 1 < stages)
+      stage_terms(stage[(k + 1) & 1], terms, t0 + STAGE,
+                  min(STAGE, hi - t0 - STAGE));
+    cp_async_commit();
+    cp_async_wait_one();  // stage k has landed (this thread's copies)
+    __syncthreads();      // and every other thread's
+    const F* buf = stage[k & 1] + c;
+    const int from = max(s, t0);
+    const int len = max(0, min(e, t0 + STAGE) - from);
+    int most = len;       // the warp walks its busiest body's run
+    for (int o = 16; o > 0; o >>= 1)
+      most = max(most, __shfl_xor_sync(0xffffffffu, most, o));
+#pragma unroll 4
+    for (int j = 0; j < most; ++j) {
+      const F v = j < len ? buf[8 * (from - t0 + j)] : F(0);
+      add_live(g, v, body_lanes, any);
     }
-  }
-  for (int k = 0; k < most; ++k) {
-    const F v = k < len ? terms[(long long)(s + k) * LANES + c] : F(0);
-    if (__ballot_sync(0xffffffffu, v != F(0)) & body_lanes) {
-      g = g + v;
-      any = true;
-    }
+    __syncthreads();      // stage k is read before it is overwritten
   }
   if (!has) return;
-  const long long i = b * LANES + c;
   if (x == nullptr)
     out[i] = any ? F(0) + g : F(0);
   else if (any)
-    out[i] = x[i] + g;
+    out[i] = xv + g;
   else if (out != x)
-    out[i] = x[i];
+    out[i] = xv;
 }
 
 template <typename F>
@@ -535,17 +602,15 @@ __global__ void relvel_kernel(const F* __restrict__ tbl,
   out[j] = drel(n, ja, jb, va, wa, vb, wb);
 }
 
+// K2's arithmetic on row j against its endpoints' position and rotation
+// deltas (dpa, daa, dpb, dab): returns the row's error and writes its twelve
+// update terms. ngs_kernel and ngs_fused_kernel share it, as vel_row.
 template <typename F>
-__global__ void ngs_kernel(const F* __restrict__ tbl,
-                           const F* __restrict__ g, F* __restrict__ oupd,
-                           F* __restrict__ oerr, int rp_, F rate,
-                           F max_corr) {
-  const long long rp = rp_;
-  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= rp) return;
-  Row<F> T{tbl, rp, j};
-  F dpa[3], daa[3], dpb[3], dab[3];
-  load_g(g, rp, j, dpa, daa, dpb, dab);
+__device__ __forceinline__ F ngs_row(const Row<F>& T, const F dpa[3],
+                                     const F daa[3], const F dpb[3],
+                                     const F dab[3], F rate, F max_corr,
+                                     F ual[3], F uaa[3], F ubl[3],
+                                     F uba[3]) {
   F n[3], ra[3], rb[3];
   T.vec(N_, n);
   T.vec(RA, ra);
@@ -566,15 +631,54 @@ __global__ void ngs_kernel(const F* __restrict__ tbl,
   F tan[3], tbn[3];
   T.vec(TA_N, tan);
   T.vec(TB_N, tbn);
-  F ual[3], uaa[3], ubl[3], uba[3];
   for (int c = 0; c < 3; ++c) {
     ual[c] = inv_ma * n[c] * lam;
     uaa[c] = tan[c] * lam;
     ubl[c] = -inv_mb * n[c] * lam;
     uba[c] = tbn[c] * lam;
   }
+  return error;
+}
+
+template <typename F>
+__global__ void ngs_kernel(const F* __restrict__ tbl,
+                           const F* __restrict__ g, F* __restrict__ oupd,
+                           F* __restrict__ oerr, int rp_, F rate,
+                           F max_corr) {
+  const long long rp = rp_;
+  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= rp) return;
+  Row<F> T{tbl, rp, j};
+  F dpa[3], daa[3], dpb[3], dab[3];
+  load_g(g, rp, j, dpa, daa, dpb, dab);
+  F ual[3], uaa[3], ubl[3], uba[3];
+  oerr[j] = ngs_row(T, dpa, daa, dpb, dab, rate, max_corr, ual, uaa, ubl,
+                    uba);
   store_upd(oupd, rp, j, ual, uaa, ubl, uba);
-  oerr[j] = error;
+}
+
+// The fused K2: ngs_kernel with its endpoint gather inside and its terms
+// written where the step's plan puts them, as vel_fused_kernel. The body
+// table d [N, 8] holds the position deltas (0:3) and the rotation deltas
+// (3:6). A soft row (valid, ngs_valid 0) keeps its planned positions and
+// writes a zero term there, which segment_sum skips as index_sum does.
+template <typename F>
+__global__ void ngs_fused_kernel(const F* __restrict__ tbl,
+                                 const F* __restrict__ d,
+                                 const int* __restrict__ ab,
+                                 const int* __restrict__ pos, F* terms_a,
+                                 F* terms_b, F* __restrict__ oerr, int rp_,
+                                 F rate, F max_corr) {
+  const long long rp = rp_;
+  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= rp) return;
+  Row<F> T{tbl, rp, j};
+  F dpa[3], daa[3], dpb[3], dab[3];
+  load_ends(d, ab, rp, j, dpa, daa, dpb, dab);
+  F ual[3], uaa[3], ubl[3], uba[3];
+  oerr[j] = ngs_row(T, dpa, daa, dpb, dab, rate, max_corr, ual, uaa, ubl,
+                    uba);
+  store_ends(pos, terms_a, terms_b, rp, j, ual, uaa, ubl, uba);
 }
 
 inline dim3 grid_for(int rp) { return dim3((rp + THREADS - 1) / THREADS); }
@@ -625,9 +729,8 @@ template <typename F>
 int segment_sum(const F* terms, const int* off, const F* start, const F* x,
                 F* out, int n, void* stream) {
   if (n > 0) {
-    const long long threads = (long long)n * LANES;
-    const dim3 grid((unsigned)((threads + THREADS - 1) / THREADS));
-    segment_sum_kernel<F><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+    const dim3 grid((unsigned)((n + SEG_BODIES - 1) / SEG_BODIES));
+    segment_sum_kernel<F><<<grid, SEG_THREADS, 0, (cudaStream_t)stream>>>(
         terms, off, start, x, out, n);
   }
   return (int)cudaGetLastError();
@@ -647,6 +750,16 @@ int ngs_iteration(const F* tbl, const F* g, F* oupd, F* oerr, int Rp,
   if (Rp > 0)
     ngs_kernel<F><<<grid_for(Rp), THREADS, 0, (cudaStream_t)stream>>>(
         tbl, g, oupd, oerr, Rp, rate, max_corr);
+  return (int)cudaGetLastError();
+}
+
+template <typename F>
+int ngs_iteration_fused(const F* tbl, const F* d, const int* ab,
+                        const int* pos, F* terms_a, F* terms_b, F* oerr,
+                        int Rp, F rate, F max_corr, void* stream) {
+  if (Rp > 0)
+    ngs_fused_kernel<F><<<grid_for(Rp), THREADS, 0, (cudaStream_t)stream>>>(
+        tbl, d, ab, pos, terms_a, terms_b, oerr, Rp, rate, max_corr);
   return (int)cudaGetLastError();
 }
 
@@ -723,6 +836,23 @@ int edyn_ngs_iteration(const float* tbl, const float* g, float* oupd,
                        float* oerr, int Rp, float rate, float max_corr,
                        void* stream) {
   return ngs_iteration(tbl, g, oupd, oerr, Rp, rate, max_corr, stream);
+}
+
+int edyn_ngs_iteration_fused(const float* tbl, const float* d,
+                             const int* ab, const int* pos, float* terms_a,
+                             float* terms_b, float* oerr, int Rp, float rate,
+                             float max_corr, void* stream) {
+  return ngs_iteration_fused(tbl, d, ab, pos, terms_a, terms_b, oerr, Rp,
+                             rate, max_corr, stream);
+}
+
+int edyn_ngs_iteration_fused_f64(const double* tbl, const double* d,
+                                 const int* ab, const int* pos,
+                                 double* terms_a, double* terms_b,
+                                 double* oerr, int Rp, double rate,
+                                 double max_corr, void* stream) {
+  return ngs_iteration_fused(tbl, d, ab, pos, terms_a, terms_b, oerr, Rp,
+                             rate, max_corr, stream);
 }
 
 int edyn_solve_iteration_f64(const double* tbl, const double* imp,

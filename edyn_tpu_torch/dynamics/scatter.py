@@ -1,24 +1,30 @@
 """The scatter plan of the card's solver loops, built once a step.
 
-On the card the velocity iterations (K1) and the restitution inner
-iterations (K3a) run as two launches: the fused kernel, which reads each
-row's endpoint deltas from the [N,8] body table by index and writes the
-row's two update terms ([8] rows: lin 0:3 | ang 3:6 | two zeros) into a
-terms buffer, and ``segment_sum``, which adds each body's run of terms
-(``solver_kernels``). The plan says where each term goes: the terms of the
-step's endpoint list, ``cat([a_0 ... a_{k-1}, b_0 ... b_{k-1}])`` over the
-k shards (``solver.chain_upd_t``'s order), sorted stably by target body,
-so each body's terms lie together in row order, a-halves first, which is
-the order ``solver.index_sum`` adds them in (it sorts the same targets
+On the card the velocity iterations (K1), the restitution inner
+iterations (K3a) and the position iterations (K2) run as two launches: the
+fused kernel, which reads each row's endpoint deltas from the [N,8] body
+table by index and writes the row's two update terms ([8] rows: lin 0:3 |
+ang 3:6 | two zeros) into a terms buffer, and ``segment_sum``, which adds
+each body's run of terms (``solver_kernels``). The plan says where each
+term goes: the terms of the step's endpoint list,
+``cat([a_0 ... a_{k-1}, b_0 ... b_{k-1}])`` over the k shards
+(``solver.chain_upd_t``'s order), sorted stably by target body, so each
+body's terms lie together in row order, a-halves first, which is the
+order ``solver.index_sum`` adds them in (it sorts the same targets
 stably, every call). The rows do not change within a step, so one sort
-serves the restitution pre-pass and all the velocity iterations.
+serves the restitution pre-pass, all the velocity iterations and all the
+position iterations.
 
 Two kinds of term are left out: those of invalid rows, and those into a
 body with zero inverse mass and zero inverse inertia (a static plane, a
 kinematic body). Both are zero in every component: the kernels multiply
 them by a zero valid flag or a zero inverse mass and inertia. A zero term
 changes no sum of ``index_sum`` (it skips them), and leaving them out
-keeps one thread from walking the ground plane's tens of thousands.
+keeps one thread from walking the ground plane's tens of thousands. K2
+gates on ``valid & ~soft``, a subset of the valid rows: a soft row keeps
+its positions and writes zero terms there, which the segment sum skips
+as ``index_sum`` does. Every kept position is written by every fused
+iteration, so the buffers are never zeroed between loops.
 
 Parts on one device are one hop, one ``segment_sum`` into the deltas in
 place; with ``Mesh.hop_each_shard``, or shards on several cards, the hops
@@ -69,8 +75,8 @@ def movable(state) -> torch.Tensor:
 
 @dataclasses.dataclass
 class ScatterPlan:
-    """Where the shards' fused K1 and K3a write their terms, and the hops
-    that add them (see the module's note)."""
+    """Where the shards' fused K1, K3a and K2 write their terms, and the
+    hops that add them (see the module's note)."""
     hops: list      # [Hop]
     shards: list    # [Targets], one per shard
 

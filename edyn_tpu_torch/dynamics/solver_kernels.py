@@ -10,10 +10,11 @@ layout as the JAX package's). On the TPU every iteration runs as
 
 with the gather and the scatter-add in XLA around the Pallas kernel. The
 port's CPU path keeps that shape (the plain versions, ``index_add``). On
-the card the velocity and restitution iterations run fused: the kernel
-reads its rows' endpoint deltas by index and writes its update terms where
-the step's scatter plan puts them (``dynamics/scatter.py``), and
-``segment_sum`` adds each body's terms in the order of ``solver.index_sum``.
+the card the velocity, restitution and position iterations run fused: the
+kernel reads its rows' endpoint deltas by index and writes its update
+terms where the step's scatter plan puts them (``dynamics/scatter.py``),
+and ``segment_sum`` adds each body's terms in the order of
+``solver.index_sum``.
 
 Kernels (CUDA C++ in ``edyn_tpu_torch/csrc/solver_kernels.cu``, built with
 nvcc for sm_90a at first use and loaded with ctypes by ``utils/cuda_lib``):
@@ -24,13 +25,13 @@ nvcc for sm_90a at first use and loaded with ctypes by ``utils/cuda_lib``):
   same way (K3a, replaces ``restitution_iteration_pallas``);
 - ``segment_sum``: the per-body sums of those terms (replaces no TPU
   kernel: it is the scatter-add XLA did);
-- ``ngs_iteration``: one NGS position iteration (K2, replaces
-  ``ngs_iteration_pallas``);
+- ``ngs_iteration_fused``: one NGS position iteration, the same way (K2,
+  replaces ``ngs_iteration_pallas``);
 - ``relvel``: normal relative velocity per row (K3b, replaces
   ``relvel_pallas``);
-- ``solve_iteration``, ``restitution_iteration``: K1 and K3a unfused,
-  against gathered deltas (the CPU's path, and on the card the reference
-  the fused iterations are held to).
+- ``solve_iteration``, ``restitution_iteration``, ``ngs_iteration``: K1,
+  K3a and K2 unfused, against gathered deltas (the CPU's path, and on the
+  card the reference the fused iterations are held to).
 
 Each kernel is one CUDA source templated on the scalar type, with a float
 and a double entry point (``edyn_*`` and ``edyn_*_f64``). Each wrapper takes
@@ -98,7 +99,7 @@ def rows_read(name: str, with_sr: bool = False) -> int:
 LAUNCHES = {"solve_iteration": 0, "ngs_iteration": 0,
             "restitution_iteration": 0, "relvel": 0,
             "solve_iteration_fused": 0, "restitution_iteration_fused": 0,
-            "segment_sum": 0}
+            "ngs_iteration_fused": 0, "segment_sum": 0}
 LAUNCHES_F64 = dict.fromkeys(LAUNCHES, 0)
 
 
@@ -356,6 +357,18 @@ def restitution_iteration_fused_plain(tbl, dyn, imp3_t, d, ab, pos, terms_a,
     return oimp
 
 
+def ngs_iteration_fused_plain(tbl, d, ab, pos, terms_a, terms_b,
+                              rate: float, max_corr: float):
+    """The fused K2's plain version (see ``solve_iteration_fused_plain``):
+    ``ngs_iteration_plain`` on the position and rotation deltas gathered
+    from ``d`` [N,8]. Returns the errors [1,Rp]."""
+    Rp = tbl.shape[1]
+    upd, err = ngs_iteration_plain(tbl, d[ab.long(), :6].T, rate, max_corr)
+    _place(terms_a, pos[:Rp], upd[:6])
+    _place(terms_b, pos[Rp:], upd[6:])
+    return err
+
+
 def segment_sum_plain(terms, offsets, x=None, start=None):
     """``segment_sum``'s plain version: a loop over the largest number of
     terms a body has, vectorised over the bodies, each step adding one
@@ -401,6 +414,8 @@ for _sfx in ("", "_f64"):
     SIGNATURES.update({
         f"edyn_solve_iteration_fused{_sfx}": [_P] * 8 + [_I, _I, _P],
         f"edyn_restitution_iteration_fused{_sfx}": [_P] * 9 + [_I, _P],
+        f"edyn_ngs_iteration_fused{_sfx}": [_P] * 7 + [
+            _I, _D if _sfx else _F, _D if _sfx else _F, _P],
         f"edyn_segment_sum{_sfx}": [_P] * 5 + [_I, _P],
     })
 
@@ -553,6 +568,27 @@ def restitution_iteration_fused(tbl, dyn, imp3_t, d, ab, pos, terms_a,
     return oimp
 
 
+def ngs_iteration_fused(tbl, d, ab, pos, terms_a, terms_b, rate: float,
+                        max_corr: float):
+    """The fused K2: one NGS position iteration of the rows against the
+    body position and rotation deltas ``d`` [N,8], as
+    ``solve_iteration_fused``. Returns the errors [1,Rp]; the terms
+    buffers are written in place."""
+    if cuda_lib.on_cpu(tbl, d, ab, pos, terms_a, terms_b):
+        return ngs_iteration_fused_plain(tbl, d, ab, pos, terms_a, terms_b,
+                                         rate, max_corr)
+    C, Rp = _table_dims(tbl, False)
+    fn, counts = _entry("ngs_iteration_fused", tbl.dtype)
+    cuda_lib.check(tbl, "tbl", (C, Rp), tbl.dtype)
+    _check_plan_args(tbl, d, ab, pos, terms_a, terms_b)
+    err = torch.empty((1, Rp), dtype=tbl.dtype, device=tbl.device)
+    rc = fn(tbl.data_ptr(), d.data_ptr(), ab.data_ptr(), pos.data_ptr(),
+            terms_a.data_ptr(), terms_b.data_ptr(), err.data_ptr(), Rp,
+            float(rate), float(max_corr), cuda_lib.stream(tbl))
+    cuda_lib.launched(counts, "ngs_iteration_fused", rc, tbl.device)
+    return err
+
+
 def segment_sum(terms, offsets, x=None, start=None):
     """Per body b, the terms ``terms[offsets[b]:offsets[b+1]]`` ([E,8]
     rows, int32 offsets [N+1]) summed from zero in order, each term only
@@ -572,6 +608,8 @@ def segment_sum(terms, offsets, x=None, start=None):
     for name, t in (("x", x), ("start", start)):
         if t is not None:
             cuda_lib.check(t, name, (n, 8), dt)
+    if terms.data_ptr() % 16:  # the kernel copies 16 bytes at a time
+        raise ValueError("terms: 16-byte aligned data expected")
     out = x if x is not None else torch.empty((n, 8), dtype=dt,
                                               device=terms.device)
     ptr = lambda t: None if t is None else t.data_ptr()

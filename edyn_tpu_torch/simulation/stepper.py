@@ -276,7 +276,7 @@ def _solve_phase(state, man, parts, settings: Settings, meta: SceneMeta,
     for s, rows in enumerate(parts):
         with mesh.scope(s):
             packs.append(solver_mod.ShardPack.of_rows(rows))
-    # on the card: where the fused K3a and K1 write their terms, one
+    # on the card: where the fused K3a, K1 and K2 write their terms, one
     # stable sort for the whole phase (None on the CPU: the unfused path)
     plan = scatter.for_step(state, packs, mesh)
 
@@ -365,7 +365,8 @@ def _solve_phase(state, man, parts, settings: Settings, meta: SceneMeta,
 
     state = integrate_velocities(state, dvw[:, 0:3], dvw[:, 3:6], dt)
     state = solve_positions_sharded(state, packs, mesh,
-                                    settings.num_solver_position_iterations)
+                                    settings.num_solver_position_iterations,
+                                    plan)
     if meta.has_joints:
         state = joints_mod.solve_joint_positions(
             state, settings.num_solver_position_iterations,

@@ -83,7 +83,7 @@ def profile_step(world, repeats: int = 3) -> Dict[str, float]:
     from ..dynamics import scatter
     from ..dynamics import solver as sm
     from ..dynamics import solver_kernels as sk
-    from ..dynamics.position import solve_positions
+    from ..dynamics.position import solve_positions_sharded
     from ..parallel.collectives import Mesh
     from ..shapes.aabb import compute_aabbs
     from ..simulation.stepper import broadphase, physics_step
@@ -153,8 +153,8 @@ def profile_step(world, repeats: int = 3) -> Dict[str, float]:
                                    plan)[1]
 
     timed("solve", vel)
-    timed("position_correction", lambda s: solve_positions(
-        s, tbl, ab_p, S.num_solver_position_iterations), st)
+    timed("position_correction", lambda s: solve_positions_sharded(
+        s, packs, mesh, S.num_solver_position_iterations, plan), st)
 
     s0 = physics_step(world.state, S, meta)
     sync()

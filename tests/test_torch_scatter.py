@@ -1,6 +1,6 @@
 """The card's fused solver iterations and their scatter plan, on the CPU.
 
-On the card K1's and K3a's iterations run as the fused kernel (the
+On the card K1's, K3a's and K2's iterations run as the fused kernel (the
 endpoint gather inside it, the update terms written where the step's
 ``dynamics.scatter.ScatterPlan`` puts them) and ``segment_sum`` (each
 body's terms added in ``solver.index_sum``'s order on the card). Here the
@@ -12,8 +12,9 @@ wrappers take their plain versions, which are held:
   ``solver.chain_index_sum``, to the bit;
 - the fused plain iterations against the JAX package's Pallas kernels
   (interpret mode) with an XLA gather and scatter-add;
-- the planned loops against the unfused ones summed in the card's order,
-  to the bit, over one shard, three, and three with a hop each;
+- the planned velocity and position loops against the unfused ones
+  summed in the card's order, to the bit, over one shard, three, and three
+  with a hop each;
 - whole steps taken through the plan against the CPU's own step.
 
 The CUDA kernels are held against these plain versions, and against the
@@ -26,6 +27,8 @@ import torch
 
 import edyn_tpu_torch as et
 from edyn_tpu.dynamics import pallas_solver as ps
+from edyn_tpu_torch.config import CONTACT_POSITION_CORRECTION_RATE
+from edyn_tpu_torch.dynamics import position as tposition
 from edyn_tpu_torch.dynamics import scatter
 from edyn_tpu_torch.dynamics import solver as tsolver
 from edyn_tpu_torch.dynamics import solver_kernels as sk
@@ -35,13 +38,15 @@ from edyn_tpu_torch.simulation import stepper
 from edyn_tpu_torch.utils.scenes import mixed_pile
 
 from test_torch_sharding_behaviour import leaves
-from test_torch_solver import jax_rows, port_rows, random_rows
+from test_torch_solver import _bodies, jax_rows, port_rows, random_rows
 from test_torch_step import TOL as STEP_TOL
 from test_torch_step import one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 N = 48          # bodies of random_rows
 STATIC = (0, 5)  # bodies given zero inverse mass and inertia
+RATE = float(CONTACT_POSITION_CORRECTION_RATE)
+MAX_CORR = tposition.MAX_CORRECTION
 
 
 def static_rows(seed, with_sr=True, R=96):
@@ -200,13 +205,14 @@ def _xla_scatter(x_t, ab, upd):
     return x_t.at[:, ab].add(jnp.concatenate([upd[:6], upd[6:]], axis=1))
 
 
-@pytest.mark.parametrize("kernel", ["K1", "K1-no-sr", "K3a"])
+@pytest.mark.parametrize("kernel", ["K1", "K1-no-sr", "K3a", "K2"])
 def test_fused_iterations_match_the_pallas_kernels(kernel):
     """The plan, the fused plain iteration and ``segment_sum_plain`` from
     [N,8] body deltas against the JAX package's Pallas kernel in interpret
     mode between an XLA gather and scatter-add, at 1e-5 (absolute and
     relative): the scatter-add adds the terms to x one by one, the segment
-    sum from zero and then to x."""
+    sum from zero and then to x. K2's soft rows (about a fifth of
+    ``random_rows``) keep their planned positions and write zero terms."""
     with_sr = kernel == "K1"
     d = static_rows(seed=2, with_sr=with_sr)
     rows = port_rows(d)
@@ -219,7 +225,19 @@ def test_fused_iterations_match_the_pallas_kernels(kernel):
     body = scatter.body_table(torch.from_numpy(dvw))
     jab = jnp.concatenate([ja, jb])
     x_t = jnp.asarray(dvw.T)
-    if kernel == "K3a":
+    if kernel == "K2":
+        jupd, jimp = ps.ngs_iteration_pallas(jt, x_t[:, jab], RATE, MAX_CORR,
+                                             interpret=True)
+        timp = sk.ngs_iteration_fused(pack.tbl, body, t.ab, t.pos,
+                                      t.terms_a, t.terms_b, RATE, MAX_CORR)
+        soft = torch.from_numpy(np.pad(d["soft"] & d["valid"],
+                                       (0, Rp - len(d["soft"]))))
+        soft_pos = torch.cat([t.pos[:Rp][soft], t.pos[Rp:][soft]])
+        soft_pos = soft_pos[soft_pos >= 0].long()
+        assert soft_pos.numel() > 0
+        assert not t.terms_a[soft_pos].any()
+        assert float(timp.max()) > 0
+    elif kernel == "K3a":
         # active rows are valid ones, as solve_restitution_sharded makes them
         active = (rng.rand(Rp) > 0.3) & (pack.tbl[55].numpy() > 0.5)
         dyn = np.stack([rng.randn(Rp), active]).astype(np.float32)
@@ -260,21 +278,68 @@ def unfused_in_card_order(rows, imp_t, dvw, iterations, with_sr):
     return imp_t, dvw
 
 
-@pytest.mark.parametrize("k,hops", [(1, False), (3, False), (3, True)],
-                         ids=["k1", "k3", "k3-hops"])
-def test_planned_velocity_loop_is_the_unfused_one_in_card_order(k, hops):
+def unfused_positions_in_card_order(rows, iterations):
+    """The unfused position iterations (gather, K2's plain version) with
+    each scatter-add summed in the card's order and the early exit; returns
+    the [N,6] deltas and the iterations run."""
+    tbl, a_p, b_p, _ = sk.pack_rows_t(rows)
+    ab = torch.cat([a_p, b_p])
+    dpq = torch.zeros((N, 6))
+    for it in range(1, iterations + 1):
+        upd, err = sk.ngs_iteration_plain(tbl, dpq[ab].T, RATE, MAX_CORR)
+        dpq = card_order_sum(dpq, ab, torch.cat([upd[:6], upd[6:]], 1).T)
+        if not bool(err.max() >= tposition.ERROR_EXIT):
+            break
+    return dpq, it
+
+
+# (shards, a hop each, loop): the velocity loop's cases keep their ids
+LOOPS = [(1, False, "K1"), (3, False, "K1"), (3, True, "K1"),
+         (1, False, "K2"), (3, False, "K2"), (3, True, "K2")]
+
+
+@pytest.mark.parametrize("k,hops,loop", LOOPS,
+                         ids=["k1", "k3", "k3-hops", "K2-k1", "K2-k3",
+                              "K2-k3-hops"])
+def test_planned_velocity_loop_is_the_unfused_one_in_card_order(k, hops,
+                                                                 loop):
     """``solver.solve_velocities`` under a plan, over k shards (merged into
     one hop, or a hop each), equals the unfused iterations summed in the
-    card's order, to the bit, impulses and deltas."""
-    rows = port_rows(static_rows(seed=6))
+    card's order, to the bit, impulses and deltas. With ``loop`` K2, the
+    same for ``position.solve_positions_sharded``: the corrected positions
+    and orientations equal the unfused loop's, to the bit, over three
+    iterations and with errors under the exit threshold, where both exit
+    after the first; the terms buffers, shared with K1 and K3a and never
+    zeroed, start with another loop's terms in them."""
+    d = static_rows(seed=6)
+    rows = port_rows(d)
+    packs = shard_packs(rows, k)
+    mesh = Mesh((CPU,) * k, hop_each_shard=hops)
+    plan = scatter.ScatterPlan.build(packs, moves(), mesh)
+    if loop == "K2":
+        start = _bodies(N, 12, "torch")
+        d["base_dist"] = np.linspace(-0.004, 0.01, len(d["base_dist"]),
+                                     dtype=np.float32)
+        for case, ran in ((rows, 3), (port_rows(d), 1)):
+            want, it = unfused_positions_in_card_order(case, 3)
+            assert it == ran
+            want = tposition._apply_correction(start, want.T.contiguous())
+            packs = shard_packs(case, k)
+            for h in plan.hops:     # what an earlier loop left there
+                h.terms.normal_()
+            got = tposition.solve_positions_sharded(start, packs, mesh, 3,
+                                                    plan)
+            assert bits_equal(got.pos, want.pos)
+            assert bits_equal(got.orn, want.orn)
+            assert float((got.pos - start.pos).abs().max()) > 1e-4
+            assert torch.equal(got.pos[list(STATIC)],
+                               start.pos[list(STATIC)])
+        return
     Rp = sk.pack_rows_t(rows)[3]
     rng = np.random.RandomState(7)
     imp = torch.from_numpy(rng.rand(6, Rp).astype(np.float32))
     dvw = torch.from_numpy((rng.randn(N, 6) * 0.1).astype(np.float32))
     want_imp, want = unfused_in_card_order(rows, imp, dvw, 2, True)
-    packs = shard_packs(rows, k)
-    mesh = Mesh((CPU,) * k, hop_each_shard=hops)
-    plan = scatter.ScatterPlan.build(packs, moves(), mesh)
     cuts = ranges(rows.valid.shape[0], k)
     imp_ts = [torch.nn.functional.pad(imp[:, r0:r1], (0, p.Rp - (r1 - r0)))
               for (r0, r1), p in zip(cuts, packs)]
@@ -300,6 +365,13 @@ def test_fused_wrappers_take_the_plain_version_only_on_the_cpu():
         torch.zeros((2, Rp))
     meta = lambda x: x.to("meta")
     with pytest.raises(ValueError):
+        sk.ngs_iteration_fused(pack.tbl, meta(body), t.ab, t.pos, t.terms_a,
+                               t.terms_b, RATE, MAX_CORR)
+    with pytest.raises(ValueError):
+        sk.ngs_iteration_fused(*map(meta, (
+            pack.tbl, body, t.ab, t.pos, t.terms_a, t.terms_b)), RATE,
+            MAX_CORR)
+    with pytest.raises(ValueError):
         sk.solve_iteration_fused(pack.tbl, imp6, meta(body), t.ab, t.pos,
                                  t.terms_a, t.terms_b, True)
     with pytest.raises(ValueError):
@@ -313,6 +385,8 @@ def test_fused_wrappers_take_the_plain_version_only_on_the_cpu():
                              t.terms_b, True)
     sk.restitution_iteration_fused(pack.tbl, dyn, imp3, body, t.ab, t.pos,
                                    t.terms_a, t.terms_b)
+    sk.ngs_iteration_fused(pack.tbl, body, t.ab, t.pos, t.terms_a, t.terms_b,
+                           RATE, MAX_CORR)
     sk.segment_sum(h.terms, h.offsets, x=body)
     assert (sk.LAUNCHES, sk.LAUNCHES_F64) == before
     assert scatter.for_step(None, [pack], Mesh((CPU,))) is None
@@ -334,18 +408,34 @@ def test_planned_steps(pile, monkeypatch):
     which sums the same terms in another order (each added to x in turn,
     where the segment sum adds them from zero and then to x). Later steps
     are not compared: while the pile lands, a rounding difference grows
-    past those tolerances within a few steps."""
+    past those tolerances within a few steps. The planned steps' position
+    iterations run the fused K2 (its plain version counted), never the
+    unfused one."""
     w = pile
     start = w.state
+    calls = {"fused": 0, "unfused": 0}
+
+    def counted(key, fn):
+        def call(*a, **k):
+            calls[key] += 1
+            return fn(*a, **k)
+        return call
+    monkeypatch.setattr(sk, "ngs_iteration_fused_plain",
+                        counted("fused", sk.ngs_iteration_fused_plain))
+    monkeypatch.setattr(sk, "ngs_iteration",
+                        counted("unfused", sk.ngs_iteration))
     ref = [start]
     for _ in range(5):
         ref.append(stepper.physics_step(ref[-1], w.settings, w.meta))
+    assert calls["fused"] == 0 and calls["unfused"] > 0
+    calls["unfused"] = 0
     monkeypatch.setattr(scatter, "for_step", lambda state, packs, mesh:
                         scatter.ScatterPlan.build(
                             packs, scatter.movable(state), mesh))
     planned = [start]
     for _ in range(5):
         planned.append(stepper.physics_step(planned[-1], w.settings, w.meta))
+    assert calls["fused"] > 0 and calls["unfused"] == 0
     for hops in (False, True):
         mesh = make_mesh([CPU] * 3, hop_each_shard=hops)
         step, got = make_sharded_step(mesh, start, w.settings, w.meta)
