@@ -28,13 +28,18 @@ prints no result):
    ``vel_kernel``, ``rest_kernel`` or ``ngs_kernel``, ``solver.index_sum``)
    and to the fused path's plain versions; ``segment_sum`` bit-equal to
    ``index_sum`` on the same terms, and on a run of ``STRESS_RUN`` terms
-   beside empty runs (``segment_stress``); each new kernel timed L2-cold
-   beside its bound, its plain version and, for ``segment_sum``,
-   ``index_sum`` (its ``library_ms``); both paths' time per iteration.
+   beside empty runs (``segment_stress``); one restitution outer pass by
+   the fused K3b (``relvel_fused_kernel``: the velocities read by index,
+   rhs, activity and the early-exit flag written) bit-equal, dyn and flag,
+   to the unfused pass (gather, ``relvel_kernel``, the glue, ``any``) and
+   to its plain version, no flag with the velocities zero; each new
+   kernel timed L2-cold beside its bound, its plain version and, for
+   ``segment_sum``, ``index_sum`` (its ``library_ms``); both paths' time
+   per iteration (K3b: per pass, in turns).
 3. The main path: ``mixed_pile(10_000)`` -> ``make_world`` (cuda) ->
    ``World.step_n(120)``, with every kernel's launch count set to 0 just
    before and read just after. Checks finite state, launch counts within
-   (0, per-step maximum x steps] (K1, K3a and K2 fused, with
+   (0, per-step maximum x steps] (K1, K3a, K2 and K3b fused, with
    ``segment_sum``; their unfused kernels never), and the pile checks of
    the JAX package's
    ``test_mixed_pile_settles_and_no_tunnel`` (see ``FLOOR_BURIAL``); then
@@ -165,7 +170,9 @@ prints no result):
    from the same start (else the first differing step and leaves), every
    shard's device launching K1, K2, K3a, K3b and K4 and none K5 (counts by
    device and shard, ``cuda_lib.DEVICE_LAUNCHES``), no overflow, phase 3's
-   pile checks; the ordered chain against one ``index_sum`` on random rows.
+   pile checks; the fused K3b held as in phase 2 on every shard's rows of
+   a step from the end state; the ordered chain against one ``index_sum``
+   on random rows.
    13b: the three cases of the JAX package's ``tests/test_sharding.py``
    at their sizes on 8 shards, equal to the unsharded step at every step,
    the asleep case solved at the ladder's narrow tier (quantum 256 x 8).
@@ -489,7 +496,12 @@ FUSED = {
     "segment_sum": ("none (the XLA scatter-add around "
                     "edyn_tpu/dynamics/pallas_solver.py:262, :342 and :441)",
                     "segment_sum_kernel", None),
+    "relvel_fused": ("edyn_tpu/dynamics/pallas_solver.py:384",
+                     "relvel_fused_kernel", "relvel"),
 }
+# the fused K3b's float operations a row: relvel_kernel's 23, then the
+# pass's glue (negate, add, multiply, three compares, two ands)
+RELVEL_FUSED_FLOPS = 31
 
 
 def bits_equal(a, b) -> bool:
@@ -524,12 +536,73 @@ def profiled_us(fn, reps: int = 10):
     return total / reps if total else None
 
 
+def unfused_pass(tbl, vel_t, ab_p):
+    """One restitution outer pass's rows as the step ran them on the card
+    before K3b moved onto the plan: the [6,N] velocities gathered into
+    [6,2Rp], the unfused K3b, the pass's glue in PyTorch, ``any(active)``
+    read on the host. Returns (dyn [2,Rp], whether a row is active)."""
+    import torch
+    from edyn_tpu_torch.dynamics import solver_kernels as sk
+    valid, restit = tbl[55:56] > 0.5, tbl[56:57]
+    relv = sk.relvel(tbl, vel_t[:, ab_p])
+    active = valid & (relv < sk.RELVEL_THRESHOLD) & (restit > 0)
+    dyn = torch.cat([-relv * (1.0 + restit), active.to(tbl.dtype)], dim=0)
+    return dyn, bool(torch.any(active))
+
+
+def fused_pass(tbl, d, t, plan, out=None):
+    """The same pass as the planned step runs it on one shard's rows: the
+    fused K3b on the [N,8] velocities ``d`` by the shard's targets ``t``
+    with the next generation of their ``plan``, then the shard's flag read
+    on the host. Returns (dyn, whether a row is active)."""
+    from edyn_tpu_torch.dynamics import solver_kernels as sk
+    gen = plan.next_generation()
+    dyn = sk.relvel_fused(tbl, d, t.ab, t.flag, gen, out)
+    return dyn, gen in t.flag.tolist()
+
+
+def hold_k3b(tbl, vel, t, plan, label: str) -> bool:
+    """``relvel_fused`` on one shard's rows (its table ``tbl``, targets
+    ``t`` of ``plan``, the [N,6] velocities ``vel``) against the unfused
+    pass and against its plain version: dyn and the flag bit-equal; with the
+    velocities zero, no row active and no flag raised. Returns whether a
+    row was active."""
+    import torch
+    from edyn_tpu_torch.dynamics import scatter
+    from edyn_tpu_torch.dynamics import solver_kernels as sk
+    seen = []
+    for case, v in (("", vel), (", zero velocities", torch.zeros_like(vel))):
+        d = scatter.body_table(v)
+        old, old_any = unfused_pass(tbl, v.T.contiguous(), t.ab.long())
+        new, new_any = fused_pass(tbl, d, t, plan)
+        flag = torch.zeros_like(t.flag)
+        plain = sk.relvel_fused_plain(tbl, d, t.ab, flag, 1)
+        torch.cuda.synchronize()
+        for what, a, b in (("the unfused pass", new, old),
+                           ("its plain version", plain, new)):
+            if not bits_equal(a, b):
+                diff = float((a - b).abs().max())
+                raise AssertionError(f"[{label}{case}] relvel_fused differs "
+                                     f"from {what} (max abs {diff}), "
+                                     "bit-equal required")
+        if not old_any == new_any == (int(flag) == 1):
+            raise AssertionError(f"[{label}{case}] relvel_fused's flag "
+                                 f"{new_any}, unfused any(active) {old_any},"
+                                 f" plain flag {int(flag)}")
+        seen.append(new_any)
+    if seen[1]:
+        raise AssertionError(f"[{label}] relvel_fused raised its flag with "
+                             "the velocities zero")
+    return seen[0]
+
+
 def check_fused(inp, with_sr: bool, label: str,
                 stress: bool = False) -> dict:
-    """The fused K1, K3a and K2 iterations and ``segment_sum`` on one input
-    set (``inp``: a packed table, impulses, ``dyn``, the endpoints ``ab``
-    [2Rp], the body velocities ``vel`` [N,6] as the deltas, the bodies that
-    can move ``moves``), through the step's own functions over one shard:
+    """The fused K1, K3a and K2 iterations, the fused K3b and
+    ``segment_sum`` on one input set (``inp``: a packed table, impulses,
+    ``dyn``, the endpoints ``ab`` [2Rp], the body velocities ``vel`` [N,6]
+    as the deltas, the bodies that can move ``moves``), through the step's
+    own functions over one shard:
 
     - one velocity iteration by the fused path
       (``solver.solve_contacts_planned``) and by the unfused one
@@ -538,6 +611,10 @@ def check_fused(inp, with_sr: bool, label: str,
       velocities taken as position deltas) each way: impulses (K2: errors)
       and deltas equal to the bit; also the fused path's plain versions
       (``*_fused_plain``, ``segment_sum_plain``) on the card, to the bit;
+    - one restitution outer pass by the fused K3b and by the unfused path
+      (gather, K3b, the glue, ``any``) and the fused K3b's plain version
+      (``hold_k3b``): dyn and the flag equal to the bit, and no flag with
+      the velocities zero;
     - ``segment_sum`` against ``solver.index_sum`` (``index_put_`` with
       ``accumulate``) on the same terms, to the bit; with ``stress``, also
       on ``segment_stress``'s long run beside empty ones;
@@ -546,14 +623,15 @@ def check_fused(inp, with_sr: bool, label: str,
       plain version's and, for ``segment_sum``, ``index_sum``'s
       (``library_ms``), each as one call with its host work (CUDA events;
       the plain versions sync with the host); and the per-iteration time of
-      both paths, one call with its host work and, from the profiler, the
-      device time of all its kernels.
+      both paths (K3b: one outer pass, in turns), one call with its host
+      work and, from the profiler, the device time of all its kernels.
 
     Bounds: bytes from device memory over its rate (the table rows the
     kernel reads, impulses in and out, the int32 endpoints and positions,
     the live terms' six components out, the [N,6] deltas once); the
-    endpoint loads by index hit L2 and are not counted. For the segment
-    sum: the live terms in, the offsets, x in and out."""
+    endpoint loads by index hit L2 and are not counted; the fused K3b
+    writes dyn [2,Rp] and no terms. For the segment sum: the live terms in,
+    the offsets, x in and out."""
     import torch
     from edyn_tpu_torch.config import CONTACT_POSITION_CORRECTION_RATE
     from edyn_tpu_torch.dynamics import scatter
@@ -664,6 +742,28 @@ def check_fused(inp, with_sr: bool, label: str,
                                                             d0.clone())]),
                 new_device_timed_by="CUDA graph (CUDA events)")
 
+    # K3b: one restitution outer pass each way, then each timed in turns
+    any_active = hold_k3b(tbl, vel, t, plan, label)
+    vel_t, dyn_buf = vel.T.contiguous(), torch.empty_like(dyn)
+    passes = {"old": lambda: unfused_pass(tbl, vel_t, pack.ab_p),
+              "new": lambda: fused_pass(tbl, d0, t, plan, dyn_buf)}
+    turns = {"old": [], "new": []}
+    for which in ("old", "new", "new", "old"):
+        turns[which].append(call_ms(passes[which], 20))
+    iteration["K3b"] = dict(
+        old_call_ms=statistics.median(turns["old"]),
+        new_call_ms=statistics.median(turns["new"]), call_turns=turns,
+        old_device_us=profiled_us(passes["old"]),
+        new_device_us=profiled_us(passes["new"]),
+        new_device_timed_by="torch.profiler", any_active=any_active)
+    if iteration["K3b"]["new_device_us"] is None:
+        # the kernel alone (the flag's host read cannot be captured)
+        gen = plan.next_generation()
+        iteration["K3b"].update(
+            new_device_us=1e3 * device_ms([lambda: sk.relvel_fused(
+                tbl, d0, t.ab, t.flag, gen, dyn_buf)]),
+            new_device_timed_by="CUDA graph of the kernel (CUDA events)")
+
     if stress:
         out["segment_stress"] = segment_stress(N, dt, tbl.device, label)
 
@@ -685,7 +785,11 @@ def check_fused(inp, with_sr: bool, label: str,
             es * Rp * (k2_rows + 1) + idx_bytes + term_bytes + body_bytes,
             Rp * KERNELS["ngs_iteration"][3]),
         "segment_sum": (term_bytes + 4 * (N + 1) + 2 * body_bytes, 6 * kept),
+        "relvel_fused": (
+            es * Rp * (sk.rows_read("relvel_fused") + 2) + 4 * 2 * Rp
+            + body_bytes, Rp * RELVEL_FUSED_FLOPS),
     }
+    k3b_gen = plan.next_generation()
 
     def kernel_fn(name, s):
         if name == "solve_iteration_fused":
@@ -699,6 +803,9 @@ def check_fused(inp, with_sr: bool, label: str,
         if name == "ngs_iteration_fused":
             return lambda: sk.ngs_iteration_fused(
                 s["tbl"], s["d"], t.ab, t.pos, s["terms"], s["terms"], *ngs)
+        if name == "relvel_fused":
+            return lambda: sk.relvel_fused(s["tbl"], s["d"], t.ab, t.flag,
+                                           k3b_gen)
         return lambda: sk.segment_sum(s["terms"], h.offsets, x=s["d"])
 
     def plain_fn(name):
@@ -712,13 +819,15 @@ def check_fused(inp, with_sr: bool, label: str,
         if name == "ngs_iteration_fused":
             return lambda: sk.ngs_iteration_fused_plain(
                 tbl, d, t.ab, t.pos, ta, ta, *ngs)
+        if name == "relvel_fused":
+            flag = torch.zeros_like(t.flag)
+            return lambda: sk.relvel_fused_plain(tbl, d, t.ab, flag, k3b_gen)
         return lambda: sk.segment_sum_plain(seg_terms, h.offsets, x=d)
 
     us = lambda x: "not measured" if x is None else f"{x:.2f} us"
     for name, (nbytes, ops) in work.items():
-        moved = (es * C * Rp if name != "segment_sum" else 0) \
-            + es * 8 * (N + 2 * Rp)
-        n_sets = max(2, -(-3 * L2_BYTES // moved))
+        # the sets' bytes this kernel moves come to three times the L2
+        n_sets = max(2, -(-3 * L2_BYTES // nbytes))
         sets = [dict(tbl=tbl.clone() if name != "segment_sum" else tbl,
                      imp=imp.clone(), d=d0.clone(),
                      terms=seg_terms.clone()) for _ in range(n_sets)]
@@ -758,7 +867,8 @@ def check_fused(inp, with_sr: bool, label: str,
                             "one call with its host work (CUDA events)")
         else:
             kern = {"solve_iteration_fused": "K1", "ngs_iteration_fused": "K2",
-                    "restitution_iteration_fused": "K3a"}[name]
+                    "restitution_iteration_fused": "K3a",
+                    "relvel_fused": "K3b"}[name]
             r["iteration"] = iteration[kern]
         out[name] = r
         copy_us = r.get("copy_terms_ms") and 1e3 * r["copy_terms_ms"]
@@ -774,10 +884,13 @@ def check_fused(inp, with_sr: bool, label: str,
                f"planned terms {us(copy_us)} (L2-cold)"
                if name == "segment_sum" else ""))
     for kern, it in iteration.items():
-        log(f"[{label}] one {kern} iteration: unfused (gather, kernel, "
-            f"index_sum) {it['old_call_ms'] * 1e3:.1f} us a call, "
-            f"{us(it['old_device_us'])} on the device; fused (kernel, "
-            f"segment_sum) {it['new_call_ms'] * 1e3:.1f} us a call, "
+        old, new = (("gather, kernel, the glue, any", "kernel, flag read")
+                    if kern == "K3b" else
+                    ("gather, kernel, index_sum", "kernel, segment_sum"))
+        log(f"[{label}] one {kern} {'pass' if kern == 'K3b' else 'iteration'}"
+            f": unfused ({old}) {it['old_call_ms'] * 1e3:.1f} us a call, "
+            f"{us(it['old_device_us'])} on the device; fused ({new}) "
+            f"{it['new_call_ms'] * 1e3:.1f} us a call, "
             f"{us(it['new_device_us'])} on the device")
     return out
 
@@ -847,6 +960,10 @@ def fused_entry(name: str, r: dict, others: dict, launches: dict,
     held = ("bit-equal to its plain version and to the unfused path "
             f"(gather, {unf}, index_sum)" if unf else
             "bit-equal to its plain version and to solver.index_sum")
+    if name == "relvel_fused":
+        held = ("dyn bit-equal to its plain version's and to the unfused "
+                "pass's (gather, relvel, the glue), its flag to their "
+                "any(active)")
     e = dict(name=name if scalar == "float" else f"{name}_f64",
              route="cuda", source=SOURCE, replaces=replaces, **launches,
              max_abs_err=r["max_abs_err"], tol=held, ms=r["ms"],
@@ -1378,32 +1495,33 @@ def k5_edge_cases(dev, dtype=None) -> dict:
 
 def max_launches_per_step(s) -> dict:
     """Each counted kernel step's most launches in one unsharded step under
-    Settings ``s``. K1, K3a and K2 run fused on the card: their unfused
-    entries (the CPU's path) must not launch at all."""
+    Settings ``s``. K1, K3a, K2 and K3b run fused on the card: their
+    unfused entries (the CPU's path) must not launch at all."""
     rest = s.num_restitution_iterations \
         * s.num_individual_restitution_iterations
     pos = s.num_solver_position_iterations
     return {"solve_iteration_fused": s.num_solver_velocity_iterations,
             "ngs_iteration_fused": pos,
             "restitution_iteration_fused": rest,
-            "relvel": s.num_restitution_iterations,
+            "relvel_fused": s.num_restitution_iterations,
             "segment_sum": s.num_solver_velocity_iterations + rest + pos,
             "solve_iteration": 0, "restitution_iteration": 0,
-            "ngs_iteration": 0,
+            "ngs_iteration": 0, "relvel": 0,
             "unified_features": 1, "pair_order": 1, "collide_support": 1,
             "count_overlaps": 0}
 
 
-# the unfused K1, K3a and K2: never on the card's step
-UNFUSED = ("solve_iteration", "restitution_iteration", "ngs_iteration")
+# the unfused K1, K3a, K2 and K3b: never on the card's step
+UNFUSED = ("solve_iteration", "restitution_iteration", "ngs_iteration",
+           "relvel")
 
 
 def no_unfused(launches: dict, label: str):
-    """Fail if the card's step launched K1, K3a or K2 unfused."""
+    """Fail if the card's step launched K1, K3a, K2 or K3b unfused."""
     ran = {k: launches[k] for k in UNFUSED if launches.get(k)}
     if ran:
-        raise AssertionError(f"[{label}] the unfused K1/K3a/K2 launched on "
-                             f"the step: {ran}")
+        raise AssertionError(f"[{label}] the unfused K1/K3a/K2/K3b launched "
+                             f"on the step: {ran}")
 
 
 def main_path(n_bodies: int, steps: int, dev):
@@ -1911,8 +2029,8 @@ def ragdoll_path(n_ragdolls: int, steps: int, dev):
                                  f"{steps} steps, at most "
                                  f"{per_step[name] * steps}")
     for name in ("solve_iteration_fused", "segment_sum",
-                 "ngs_iteration_fused", "unified_features", "pair_order",
-                 "collide_support"):
+                 "ngs_iteration_fused", "relvel_fused", "unified_features",
+                 "pair_order", "collide_support"):
         # (the plain versions on a CPU rehearsal count nothing)
         if launches[name] == 0 and torch.device(dev).type == "cuda":
             raise AssertionError(f"[ragdolls] {name} never launched")
@@ -2211,7 +2329,7 @@ def terrain_path(n_bodies: int, steps: int, dev):
                                  f"{steps} steps, at most "
                                  f"{per_step[name] * steps}")
     for name in ("solve_iteration_fused", "segment_sum",
-                 "ngs_iteration_fused", "relvel", "unified_features",
+                 "ngs_iteration_fused", "relvel_fused", "unified_features",
                  "pair_order", "collide_support"):
         if launches[name] == 0 and torch.device(dev).type == "cuda":
             raise AssertionError(f"[terrain] {name} never launched")
@@ -2776,13 +2894,14 @@ def asleep_path(n_bodies: int, dev):
     # at least the solver's (their awake bodies may have no pair)
     on_card = torch.device(dev).type == "cuda"
     for name in ("solve_iteration_fused", "ngs_iteration_fused",
-                 "restitution_iteration_fused", "segment_sum", "relvel",
-                 "unified_features", "pair_order", "collide_support"):
+                 "restitution_iteration_fused", "segment_sum",
+                 "relvel_fused", "unified_features", "pair_order",
+                 "collide_support"):
         if on_card and not launches[name]:
             raise AssertionError(f"[bench] {name} never launched")
     no_unfused(launches, "bench")
     for name in ("solve_iteration_fused", "segment_sum",
-                 "ngs_iteration_fused"):
+                 "ngs_iteration_fused", "relvel_fused"):
         if on_card and not asleep_launches[name]:
             raise AssertionError(f"[bench] {name} never launched in the "
                                  "mostly-asleep steps")
@@ -3487,8 +3606,9 @@ def networked_path(dev):
         f"{1e3 * max(calls):.3f}) at {world.state.capacity} bodies; "
         f"launches over the phase {launches}")
     for name in ("solve_iteration_fused", "ngs_iteration_fused",
-                 "restitution_iteration_fused", "segment_sum", "relvel",
-                 "unified_features", "pair_order", "collide_support"):
+                 "restitution_iteration_fused", "segment_sum",
+                 "relvel_fused", "unified_features", "pair_order",
+                 "collide_support"):
         if not launches[name]:
             raise AssertionError(f"[net] {name} never launched")
     no_unfused(launches, "net")
@@ -3499,10 +3619,6 @@ def networked_path(dev):
 
 
 # Phase 12: the float64 mode and the sweep broadphase.
-F64_KERNELS = ("solve_iteration_fused", "ngs_iteration_fused",
-               "restitution_iteration_fused", "segment_sum", "relvel",
-               "unified_features", "pair_order", "collide_support",
-               "count_overlaps")
 SWEEP_STEPS = 60        # steps of the landed 10k pile under each broadphase
 SWEEP_CALLS = 10        # broadphase calls timed on one state
 N_SWEEP_BIG = 65_531    # mixed_pile bodies: 65,536 slots, the key limit
@@ -3936,7 +4052,8 @@ SHARD_TIMED = 4         # 13c: steps timed at each k, twice, in turns
 SHARD_PROFILED = 1      # 13c: steps under the profiler and the span timers
 SHARD_LEAD = 25         # 13b: unsharded steps into the first contacts
 SHARD_KERNELS = ("solve_iteration_fused", "ngs_iteration_fused",
-                 "restitution_iteration_fused", "relvel", "unified_features",
+                 "restitution_iteration_fused", "relvel_fused",
+                 "unified_features",
                  "pair_order", "collide_support")
 
 
@@ -4033,13 +4150,39 @@ def batch_products(dev) -> dict:
     return out
 
 
+def shard_k3b(state, settings, meta, mesh) -> list:
+    """13a: the fused K3b held by ``hold_k3b`` on every shard's rows of a
+    sharded step from ``state`` (the rows cut as the step cuts them, each
+    shard's table and targets on its device). Returns whether each shard
+    had an active row."""
+    import dataclasses
+    import torch
+    from edyn_tpu_torch.dynamics import scatter, solver
+    from edyn_tpu_torch.simulation import stepper
+    meta = dataclasses.replace(meta, shard_mesh=mesh)
+    st, _, rows, _ = stepper.prepare_rows(state, settings, meta)
+    packs = []
+    for s, r in enumerate(stepper._shard_rows(rows, meta, mesh)):
+        with mesh.scope(s):
+            packs.append(solver.ShardPack.of_rows(r))
+    plan = scatter.ScatterPlan.build(packs, scatter.movable(st), mesh)
+    vel = torch.cat([st.linvel, st.angvel], 1)
+    active = []
+    for s, p in enumerate(packs):
+        with mesh.scope(s):
+            active.append(hold_k3b(p.tbl, vel.to(p.device), plan.shards[s],
+                                   plan, f"sharded, shard {s}"))
+    return active
+
+
 def sharded_pile(dev) -> tuple:
     """Phase 13a: phase 3's pile stepped sharded over SHARDS shards, held
     bit-equal to the unsharded step from the same start, twice: the second
     run with every shard's part of each body-space sum a hop of its own
     (``hop_each_shard``, the path of shards on distinct cards); each shard
-    launching each kernel of the path. Returns (summary, launches of the
-    first sharded run, the end state, settings, meta)."""
+    launching each kernel of the path; the fused K3b held on every shard
+    (``shard_k3b``). Returns (summary, launches of the first sharded run,
+    the end state, settings, meta)."""
     import torch
     import edyn_tpu_torch as et
     from edyn_tpu_torch.parallel import make_mesh, make_sharded_step
@@ -4078,7 +4221,7 @@ def sharded_pile(dev) -> tuple:
         runs.append(dict(seconds=time.perf_counter() - t0,
                          launches=_read_counts(),
                          per_shard=_shard_counts(mesh), step=step,
-                         start=dev0, state=ds))
+                         start=dev0, state=ds, mesh=mesh))
         log(f"[sharded] run {run + 1}: {SHARD_STEPS} steps over {SHARDS} "
             f"shards on {[str(d) for d in mesh.devices]}, a hop per "
             f"{'shard' if hops else 'device'}, in "
@@ -4111,6 +4254,10 @@ def sharded_pile(dev) -> tuple:
     if int(got.overflow.abs().sum()):
         raise AssertionError(f"[sharded] overflow {got.overflow.tolist()}")
     lowest = check_pile(got, -FLOOR_BURIAL, "sharded")
+    k3b_active = shard_k3b(got, settings, meta, runs[0]["mesh"])
+    log(f"[sharded] relvel_fused on every shard of a step from the end "
+        f"state: bit-equal to the unfused pass and to its plain version, "
+        f"flags equal; rows active per shard {k3b_active}")
     chains = chain_hops(dev)
     log(f"[sharded] chain against index_sum, bit-equal: {chains}")
     summary = dict(chain_bit_equal=chains, batch_products=batch_products(dev),
@@ -4120,6 +4267,7 @@ def sharded_pile(dev) -> tuple:
         unsharded_steps_per_s=SHARD_STEPS / t_ref,
         sharded_steps_per_s=[SHARD_STEPS / r["seconds"] for r in runs],
         launches=launches, per_shard_launches=runs[0]["per_shard"],
+        k3b_bit_equal_per_shard=True, k3b_active_per_shard=k3b_active,
         live_points=int(got.contacts.point_valid.sum()),
         lowest_centre=lowest)
     del ref, runs

@@ -8,14 +8,16 @@
 //     (_make_rest_kernel), the same
 //   edyn_ngs_iteration_fused         <- ngs_iteration_pallas
 //     (_make_ngs_kernel), the same
-//   edyn_relvel                      <- relvel_pallas (_make_relvel_kernel)
+//   edyn_relvel_fused                <- relvel_pallas
+//     (_make_relvel_kernel), with the gather and the pass's glue
 // and edyn_segment_sum, which replaces none: it adds the fused kernels'
 // update terms per body (see segment_sum_kernel). edyn_solve_iteration,
-// edyn_restitution_iteration and edyn_ngs_iteration are K1, K3a and K2
-// without the fusion, as the TPU ran them: against gathered endpoint
-// deltas, with the scatter-add left to the caller. The step runs them on
-// the CPU's path only (as their plain versions); on the card they are what
-// the fused iterations are held to.
+// edyn_restitution_iteration, edyn_ngs_iteration and edyn_relvel are K1,
+// K3a, K2 and K3b without the fusion, as the TPU ran them: against
+// gathered endpoint velocities or deltas, with the scatter-add (and K3b's
+// glue) left to the caller. The step runs them on the CPU's path only (as
+// their plain versions); on the card they are what the fused kernels are
+// held to.
 //
 // Every kernel reads the component-major [C, Rp] row table of pack_rows_t.
 // The unfused kernels read the gathered endpoint deltas g [6, 2Rp] (a-half,
@@ -602,6 +604,48 @@ __global__ void relvel_kernel(const F* __restrict__ tbl,
   out[j] = drel(n, ja, jb, va, wa, vb, wb);
 }
 
+// K3b on the plan: one restitution outer pass's row-wise work in one
+// launch, where the unfused pass ran a PyTorch gather of the velocities
+// into [6, 2Rp], relvel_kernel and about ten PyTorch ops of glue. Thread j
+// loads its row's endpoint velocities by index from the [N, 8] velocity
+// table (load_ends, as rest_fused_kernel loads its deltas), computes
+// relvel_kernel's r = drel(n, JaA_n, JaB_n, ...) in its order, and writes
+// the pass's glue (edyn_tpu/dynamics/solver.py:624-628) in PyTorch's order:
+// dyn[0, j] = (-r) * (1 + restitution) and dyn[1, j] = valid & (r < -0.005)
+// & (restitution > 0) as 0/1. The pass's early-exit flag takes no memset
+// and no atomic: each block ORs its rows' activity (__syncthreads_or), and
+// thread 0 of a block with an active row stores the pass's generation
+// number gen (new for each pass, from the host) to the persistent int32
+// flag. Every writer stores the same value, so the host reads flag == gen
+// as any(active). Bound: memory (11 table rows, the two int32 endpoints
+// and the two outputs a row; the endpoint loads hit L2, 10,005 bodies being
+// 320 KB of the velocity table).
+template <typename F>
+__global__ void relvel_fused_kernel(const F* __restrict__ tbl,
+                                    const F* __restrict__ vel,
+                                    const int* __restrict__ ab,
+                                    F* __restrict__ dyn, int* flag, int gen,
+                                    int rp_) {
+  const long long rp = rp_;
+  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  bool active = false;
+  if (j < rp) {  // no early return: every thread meets __syncthreads_or
+    Row<F> T{tbl, rp, j};
+    F va[3], wa[3], vb[3], wb[3];
+    load_ends(vel, ab, rp, j, va, wa, vb, wb);
+    F n[3], ja[3], jb[3];
+    T.vec(N_, n);
+    T.vec(JAA_N, ja);
+    T.vec(JAB_N, jb);
+    const F r = drel(n, ja, jb, va, wa, vb, wb);
+    const F e = T(RESTITUTION);
+    active = T(VALID) > F(0.5) && r < F(-0.005) && e > F(0);
+    dyn[j] = (-r) * (F(1) + e);
+    dyn[rp + j] = active ? F(1) : F(0);
+  }
+  if (__syncthreads_or(active) && threadIdx.x == 0) *flag = gen;
+}
+
 // K2's arithmetic on row j against its endpoints' position and rotation
 // deltas (dpa, daa, dpb, dab): returns the row's error and writes its twelve
 // update terms. ngs_kernel and ngs_fused_kernel share it, as vel_row.
@@ -745,6 +789,16 @@ int relvel(const F* tbl, const F* g, F* out, int Rp, void* stream) {
 }
 
 template <typename F>
+int relvel_fused(const F* tbl, const F* vel, const int* ab, F* dyn,
+                 int* flag, int gen, int Rp, void* stream) {
+  if (Rp > 0)
+    relvel_fused_kernel<F><<<grid_for(Rp), THREADS, 0,
+                             (cudaStream_t)stream>>>(tbl, vel, ab, dyn, flag,
+                                                     gen, Rp);
+  return (int)cudaGetLastError();
+}
+
+template <typename F>
 int ngs_iteration(const F* tbl, const F* g, F* oupd, F* oerr, int Rp,
                   F rate, F max_corr, void* stream) {
   if (Rp > 0)
@@ -830,6 +884,17 @@ int edyn_segment_sum_f64(const double* terms, const int* off,
 int edyn_relvel(const float* tbl, const float* g, float* out, int Rp,
                 void* stream) {
   return relvel(tbl, g, out, Rp, stream);
+}
+
+int edyn_relvel_fused(const float* tbl, const float* vel, const int* ab,
+                      float* dyn, int* flag, int gen, int Rp, void* stream) {
+  return relvel_fused(tbl, vel, ab, dyn, flag, gen, Rp, stream);
+}
+
+int edyn_relvel_fused_f64(const double* tbl, const double* vel,
+                          const int* ab, double* dyn, int* flag, int gen,
+                          int Rp, void* stream) {
+  return relvel_fused(tbl, vel, ab, dyn, flag, gen, Rp, stream);
 }
 
 int edyn_ngs_iteration(const float* tbl, const float* g, float* oupd,

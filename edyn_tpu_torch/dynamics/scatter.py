@@ -13,7 +13,11 @@ body's terms lie together in row order, a-halves first, which is the
 order ``solver.index_sum`` adds them in (it sorts the same targets
 stably, every call). The rows do not change within a step, so one sort
 serves the restitution pre-pass, all the velocity iterations and all the
-position iterations.
+position iterations. The restitution pre-pass's outer passes (K3b) read
+the velocities by the same endpoints and write no terms: each shard's
+kernel raises the shard's early-exit flag (``Targets.flag``) to the
+pass's generation number (``ScatterPlan.next_generation``), which the
+host reads once a pass (``ScatterPlan.raised``).
 
 Two kinds of term are left out: those of invalid rows, and those into a
 body with zero inverse mass and zero inverse inertia (a static plane, a
@@ -62,6 +66,7 @@ class Targets:
     pos: torch.Tensor       # [2Rp] int32: each term's row in its buffer, -1
     terms_a: torch.Tensor   # the a-half's hop buffer
     terms_b: torch.Tensor   # the b-half's hop buffer (may be terms_a)
+    flag: torch.Tensor      # [1] int32: the last generation with a live row
 
 
 def movable(state) -> torch.Tensor:
@@ -79,6 +84,7 @@ class ScatterPlan:
     hops that add them (see the module's note)."""
     hops: list      # [Hop]
     shards: list    # [Targets], one per shard
+    generation: int = 0     # the last restitution pass's number
 
     @classmethod
     def build(cls, packs, moves, mesh: Mesh):
@@ -120,9 +126,24 @@ class ScatterPlan:
         shards = []
         for s, p in enumerate(packs):
             (ha, pa), (hb, pb) = where[s, 0], where[s, 1]
+            flag = torch.zeros((1,), dtype=torch.int32, device=p.device)
             shards.append(Targets(p.ab_p.to(torch.int32), torch.cat([pa, pb]),
-                                  hops[ha].terms, hops[hb].terms))
+                                  hops[ha].terms, hops[hb].terms, flag))
         return cls(hops, shards)
+
+    def next_generation(self) -> int:
+        """A number no earlier pass over this plan's flags used (they start
+        at 0)."""
+        self.generation += 1
+        return self.generation
+
+    def raised(self, gen: int, home) -> bool:
+        """Whether a shard's K3b raised its flag to ``gen``: the flags
+        read on the host in one copy."""
+        flags = [t.flag for t in self.shards]
+        if len(flags) > 1:
+            flags = [torch.cat([f.to(home) for f in flags])]
+        return gen in flags[0].tolist()
 
     def add(self, d, mesh: Mesh):
         """The body deltas ``d`` [N,8] plus every term the shards' fused

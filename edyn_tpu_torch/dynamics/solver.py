@@ -11,11 +11,12 @@ The JAX package has two variants of the iteration and restitution loops
 (jnp and Pallas, chosen by ``SceneMeta.pallas_solver``). The port has one:
 the loops run over the packed row table (``solver_kernels.pack_rows_t``)
 and call the ``solver_kernels`` wrappers, which take the CUDA kernel on the
-card and the plain version on the CPU. On the card the velocity and
-restitution inner iterations run fused over the step's scatter plan
-(``scatter.ScatterPlan``: the kernel gathers its endpoints itself and
-``segment_sum`` adds the terms); on the CPU they gather, run the plain
-version and ``index_add``, as the JAX package's XLA path does.
+card and the plain version on the CPU. On the card the velocity
+iterations and the restitution passes, outer (K3b) and inner, run fused
+over the step's scatter plan (``scatter.ScatterPlan``: the kernel gathers
+its endpoints itself and ``segment_sum`` adds the terms); on the CPU they
+gather, run the plain version and ``index_add``, as the JAX package's XLA
+path does.
 """
 from __future__ import annotations
 
@@ -643,9 +644,11 @@ def solve_restitution_sharded(state, packs, mesh: Mesh, num_iterations: int,
     per shard on its device, the early exit takes every shard's rows, and
     each inner iteration's updates meet in ``chain_upd_t``. Equal to
     ``solve_restitution`` over the concatenated rows, bit for bit. Under a
-    ``plan`` (the card) the inner iterations run the fused K3a and the
-    plan's segment sums on [N,8] deltas, with the same result."""
-    relvel_threshold = -0.005
+    ``plan`` (the card) the passes run fused (``solve_restitution_planned``)
+    with the same result."""
+    if plan is not None:
+        return solve_restitution_planned(state, packs, mesh, num_iterations,
+                                         num_individual_iterations, plan)
     N = state.capacity
     home = mesh.home
     velp_t = torch.cat([state.linvel, state.angvel], dim=1).T.contiguous()
@@ -656,7 +659,7 @@ def solve_restitution_sharded(state, packs, mesh: Mesh, num_iterations: int,
                 valid_p = p.tbl[55:56, :] > 0.5
                 restit_p = p.tbl[56:57, :]
                 relvel = sk.relvel(p.tbl, velp_t.to(p.device)[:, p.ab_p])
-                active = valid_p & (relvel < relvel_threshold) \
+                active = valid_p & (relvel < sk.RELVEL_THRESHOLD) \
                     & (restit_p > 0)
                 rhs = -relvel * (1.0 + restit_p)
                 dyns.append(torch.cat([rhs, active.to(p.tbl.dtype)], dim=0))
@@ -670,18 +673,6 @@ def solve_restitution_sharded(state, packs, mesh: Mesh, num_iterations: int,
             break
         imp3 = [torch.zeros((3, p.Rp), dtype=p.tbl.dtype, device=p.device)
                 for p in packs]
-        if plan is not None:
-            d = torch.zeros((N, 8), dtype=velp_t.dtype, device=home)
-            for _ in range(num_individual_iterations):
-                for s, p in enumerate(packs):
-                    with mesh.scope(s):
-                        t = plan.shards[s]
-                        imp3[s] = sk.restitution_iteration_fused(
-                            p.tbl, dyns[s], imp3[s], d.to(p.device), t.ab,
-                            t.pos, t.terms_a, t.terms_b)
-                d = plan.add(d, mesh)
-            velp_t = velp_t + d[:, :6].T
-            continue
         dvw_t = torch.zeros((6, N), dtype=velp_t.dtype, device=home)
         for _ in range(num_individual_iterations):
             upds = []
@@ -694,4 +685,48 @@ def solve_restitution_sharded(state, packs, mesh: Mesh, num_iterations: int,
             dvw_t = chain_upd_t(dvw_t, packs, upds, mesh)
         velp_t = velp_t + dvw_t
     velp = velp_t.T
+    return velp[:, 0:3], velp[:, 3:6]
+
+
+def solve_restitution_planned(state, packs, mesh: Mesh, num_iterations: int,
+                              num_individual_iterations: int, plan):
+    """``solve_restitution_sharded`` on the card, over the step's
+    ``scatter.ScatterPlan``: the velocities stay an [N,8] body table; each
+    outer pass is one fused K3b per shard (``sk.relvel_fused``: the rows'
+    rhs and activity into a buffer kept for the whole pre-pass, and the
+    shard's early-exit flag), one host read of the flags, then the fused
+    K3a and the plan's segment sums. Equal to the unfused passes bit for
+    bit. Returns (linvel, angvel)."""
+    N = state.capacity
+    home = mesh.home
+    velp = body_table(torch.cat([state.linvel, state.angvel], dim=1))
+    dyns = [torch.empty((2, p.Rp), dtype=p.tbl.dtype, device=p.device)
+            for p in packs]
+    for _ in range(num_iterations):
+        gen = plan.next_generation()
+        for s, p in enumerate(packs):
+            with mesh.scope(s):
+                t = plan.shards[s]
+                sk.relvel_fused(p.tbl, velp.to(p.device), t.ab, t.flag, gen,
+                                dyns[s])
+        # device branches (solver.py:643 and :730 in the JAX package):
+        # host-synced, one read of every shard's flag, as above.
+        if not plan.raised(gen, home):
+            break
+        imp3 = [torch.zeros((3, p.Rp), dtype=p.tbl.dtype, device=p.device)
+                for p in packs]
+        d = torch.zeros((N, 8), dtype=velp.dtype, device=home)
+        for _ in range(num_individual_iterations):
+            for s, p in enumerate(packs):
+                with mesh.scope(s):
+                    t = plan.shards[s]
+                    imp3[s] = sk.restitution_iteration_fused(
+                        p.tbl, dyns[s], imp3[s], d.to(p.device), t.ab, t.pos,
+                        t.terms_a, t.terms_b)
+            d = plan.add(d, mesh)
+        velp = velp + d
+    # returned in the unfused path's layout (views of a [6,N] table), which
+    # the state keeps from step to step: on the card, views of the [N,8]
+    # table made the step's later ops round differently
+    velp = velp[:, :6].T.contiguous().T
     return velp[:, 0:3], velp[:, 3:6]

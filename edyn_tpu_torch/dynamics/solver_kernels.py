@@ -27,11 +27,15 @@ nvcc for sm_90a at first use and loaded with ctypes by ``utils/cuda_lib``):
   kernel: it is the scatter-add XLA did);
 - ``ngs_iteration_fused``: one NGS position iteration, the same way (K2,
   replaces ``ngs_iteration_pallas``);
-- ``relvel``: normal relative velocity per row (K3b, replaces
-  ``relvel_pallas``);
-- ``solve_iteration``, ``restitution_iteration``, ``ngs_iteration``: K1,
-  K3a and K2 unfused, against gathered deltas (the CPU's path, and on the
-  card the reference the fused iterations are held to).
+- ``relvel_fused``: one restitution outer pass's rows: the normal
+  relative velocity from the [N,8] velocity table read by index, the rhs
+  and activity the inner iterations take, and the pass's early-exit flag
+  (K3b, replaces ``relvel_pallas``, with the gather and the glue around
+  it);
+- ``solve_iteration``, ``restitution_iteration``, ``ngs_iteration``,
+  ``relvel``: K1, K3a, K2 and K3b unfused, against gathered deltas or
+  velocities (the CPU's path, and on the card the reference the fused
+  kernels are held to).
 
 Each kernel is one CUDA source templated on the scalar type, with a float
 and a double entry point (``edyn_*`` and ``edyn_*_f64``). Each wrapper takes
@@ -87,6 +91,7 @@ ROWS_READ = {
     "ngs_iteration": 20,  # n, tA_n, tB_n, em_n, inv_m x2, rA, rB, dist, ngs
     "restitution_iteration": 51,  # n,t1,t2, 3 dirs x4, 3 em, inv_m x2, fr
     "relvel": 9,                  # n, JaA_n, JaB_n
+    "relvel_fused": 11,           # n, JaA_n, JaB_n, valid, restitution
 }
 
 
@@ -99,7 +104,7 @@ def rows_read(name: str, with_sr: bool = False) -> int:
 LAUNCHES = {"solve_iteration": 0, "ngs_iteration": 0,
             "restitution_iteration": 0, "relvel": 0,
             "solve_iteration_fused": 0, "restitution_iteration_fused": 0,
-            "ngs_iteration_fused": 0, "segment_sum": 0}
+            "ngs_iteration_fused": 0, "segment_sum": 0, "relvel_fused": 0}
 LAUNCHES_F64 = dict.fromkeys(LAUNCHES, 0)
 
 
@@ -298,6 +303,27 @@ def relvel_plain(tbl, g):
     return _drel(C["n"], C["JaA_n"], C["JaB_n"], va, wa, vb, wb)[None, :]
 
 
+# a row approaching faster than this (m/s) is active in the restitution
+# pre-pass (edyn_tpu/dynamics/solver.py:609)
+RELVEL_THRESHOLD = -0.005
+
+
+def relvel_fused_plain(tbl, vel, ab, flag, gen: int, out=None):
+    """The fused K3b's plain version: ``relvel_plain`` on the endpoint
+    velocities gathered from the [N,8] table ``vel`` by ``ab`` [2Rp], then
+    the restitution pass's glue: ``out`` [2,Rp] (new when None) gets rhs_n
+    = -r * (1 + restitution) and active = valid & (r < -0.005) &
+    (restitution > 0) as 0/1; ``flag`` [1] int32 is set to ``gen`` where a
+    row is active. Returns the [2,Rp] rows."""
+    relv = relvel_plain(tbl, vel[ab.long(), :6].T)
+    restit = tbl[56:57]
+    active = (tbl[55:56] > 0.5) & (relv < RELVEL_THRESHOLD) & (restit > 0)
+    dyn = torch.cat([-relv * (1.0 + restit), active.to(tbl.dtype)], dim=0)
+    if bool(active.any()):
+        flag.fill_(gen)
+    return dyn if out is None else out.copy_(dyn)
+
+
 def ngs_iteration_plain(tbl, g, rate: float, max_corr: float):
     """K2's plain version. g [6,2Rp] gathered position/rotation deltas.
     Returns (upd [12,Rp], err [1,Rp])."""
@@ -404,10 +430,12 @@ SIGNATURES = {
     "edyn_solve_iteration": [_P, _P, _P, _P, _P, _I, _I, _P],
     "edyn_restitution_iteration": [_P, _P, _P, _P, _P, _P, _I, _P],
     "edyn_relvel": [_P, _P, _P, _I, _P],
+    "edyn_relvel_fused": [_P] * 5 + [_I, _I, _P],
     "edyn_ngs_iteration": [_P, _P, _P, _P, _I, _F, _F, _P],
     "edyn_solve_iteration_f64": [_P, _P, _P, _P, _P, _I, _I, _P],
     "edyn_restitution_iteration_f64": [_P, _P, _P, _P, _P, _P, _I, _P],
     "edyn_relvel_f64": [_P, _P, _P, _I, _P],
+    "edyn_relvel_fused_f64": [_P] * 5 + [_I, _I, _P],
     "edyn_ngs_iteration_f64": [_P, _P, _P, _P, _I, _D, _D, _P],
 }
 for _sfx in ("", "_f64"):
@@ -493,6 +521,32 @@ def relvel(tbl, g):
     rc = fn(tbl.data_ptr(), g.data_ptr(), out.data_ptr(), Rp,
             cuda_lib.stream(tbl))
     cuda_lib.launched(counts, "relvel", rc, tbl.device)
+    return out
+
+
+def relvel_fused(tbl, vel, ab, flag, gen: int, out=None):
+    """The fused K3b: one restitution outer pass over the rows against the
+    body velocities ``vel`` [N,8], read by the rows' endpoints ``ab`` [2Rp]
+    int32 inside the kernel. Writes rhs_n | active into ``out`` [2,Rp]
+    (new when None) and returns it; sets ``flag`` [1] int32 to ``gen``
+    (an int32 above 0, new for each pass) where a row is active, else
+    leaves it as it was (see ``relvel_fused_plain``)."""
+    ts = [t for t in (tbl, vel, ab, flag, out) if t is not None]
+    if cuda_lib.on_cpu(*ts):
+        return relvel_fused_plain(tbl, vel, ab, flag, gen, out)
+    C, Rp = _table_dims(tbl, False)
+    dt = tbl.dtype
+    fn, counts = _entry("relvel_fused", dt)
+    cuda_lib.check(tbl, "tbl", (C, Rp), dt)
+    cuda_lib.check(vel, "vel", (vel.shape[0], 8), dt)
+    cuda_lib.check(ab, "ab", (2 * Rp,), torch.int32)
+    cuda_lib.check(flag, "flag", (1,), torch.int32)
+    if out is None:
+        out = torch.empty((2, Rp), dtype=dt, device=tbl.device)
+    cuda_lib.check(out, "out", (2, Rp), dt)
+    rc = fn(tbl.data_ptr(), vel.data_ptr(), ab.data_ptr(), out.data_ptr(),
+            flag.data_ptr(), int(gen), Rp, cuda_lib.stream(tbl))
+    cuda_lib.launched(counts, "relvel_fused", rc, tbl.device)
     return out
 
 

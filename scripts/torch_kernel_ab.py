@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
-"""K4 and K5 against their first CUDA versions, or the segment sum and K2
-against an earlier ``solver_kernels.cu``, in one process on one card, timed
-in turns (old, new, new, old).
+"""K4 and K5 against their first CUDA versions, or the segment sum, K2 and
+K3b against an earlier ``solver_kernels.cu``, in one process on one card,
+timed in turns (old, new, new, old).
 
     python3 scripts/torch_kernel_ab.py --old <dir>
     python3 scripts/torch_kernel_ab.py --solver --old <dir> [--old <dir>]
 
 With ``--solver``, each ``<dir>`` holds an earlier ``solver_kernels.cu``
-whose ``edyn_segment_sum`` and ``edyn_ngs_iteration`` have today's C
-interfaces (e.g. the parent commit's, ``git archive <commit>
+whose ``edyn_segment_sum``, ``edyn_ngs_iteration`` and ``edyn_relvel``
+have today's C interfaces (e.g. the parent commit's, ``git archive <commit>
 edyn_tpu_torch/csrc``, or a copy of this checkout's with the segment
 sum's ``SEG_BODIES`` edited); see ``solver_ab``. Without it:
 
@@ -49,7 +49,7 @@ def main() -> int:
     ap.add_argument("--n-bodies", type=int, default=10_000)
     ap.add_argument("--steps", type=int, default=120)
     ap.add_argument("--solver", action="store_true",
-                    help="the segment sum and K2 against --old's "
+                    help="the segment sum, K2 and K3b against --old's "
                          "solver_kernels.cu")
     args = ap.parse_args()
     if not args.solver and len(args.old) != 1:
@@ -172,7 +172,7 @@ def main() -> int:
 
 
 def solver_ab(args, cs) -> dict:
-    """The segment sum and K2 of this checkout against those of each
+    """The segment sum, K2 and K3b of this checkout against those of each
     ``--old`` directory's ``solver_kernels.cu``, at the real step of
     ``mixed_pile(--n-bodies)`` landed for ``--steps`` steps
     (``chip_smoke.real_inputs``, the step's scatter plan):
@@ -188,7 +188,14 @@ def solver_ab(args, cs) -> dict:
       ``solver.index_sum``) against new (``ngs_fused_kernel``, new
       ``segment_sum``): deltas and errors equal to the bit; one call with
       its host work (CUDA events), in turns, and the device time of all
-      its kernels (``torch.profiler``).
+      its kernels (``torch.profiler``);
+    - K3b alone, the old ``relvel_kernel`` on gathered velocities against
+      the new ``relvel_fused_kernel`` (``relvel_fused``) reading them by
+      index, L2-cold in turns; and one restitution outer pass, old (the
+      gather, ``relvel_kernel``, the pass's glue in PyTorch, ``any`` read
+      on the host) against new (``relvel_fused``, the flag read on the
+      host): the rows' rhs and activity equal to the bit and the flag
+      equal to ``any``, timed as the position iteration.
 
     The body velocities stand in for the position deltas, as in
     ``chip_smoke.check_fused``. Returns the times by directory."""
@@ -246,6 +253,7 @@ def solver_ab(args, cs) -> dict:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.edyn_segment_sum.argtypes = [P] * 5 + [I, P]
         lib.edyn_ngs_iteration.argtypes = [P, P, P, P, I, F, F, P]
+        lib.edyn_relvel.argtypes = [P, P, P, I, P]
 
         def seg_old(terms, off, x, lib=lib):
             rc = lib.edyn_segment_sum(terms.data_ptr(), off.data_ptr(), None,
@@ -265,7 +273,73 @@ def solver_ab(args, cs) -> dict:
                 raise RuntimeError(f"old K2 launch failed ({rc})")
             return upd, err
 
+        def relvel_old(tbl, g, lib=lib):
+            out = torch.empty((1, Rp), dtype=tbl.dtype, device=tbl.device)
+            rc = lib.edyn_relvel(tbl.data_ptr(), g.data_ptr(), out.data_ptr(),
+                                 Rp, cuda_lib.stream(tbl))
+            if rc:
+                raise RuntimeError(f"old K3b launch failed ({rc})")
+            return out
+
         out[old] = one_old(cs, ctx, seg_old, seg_new, ngs_old, ngs_new)
+        out[old]["K3b"] = k3b_old_new(cs, ctx, relvel_old)
+    return out
+
+
+def k3b_old_new(cs, ctx, relvel_old) -> dict:
+    """K3b against the earlier build's ``relvel_kernel`` on the inputs
+    ``ctx`` (see ``solver_ab``)."""
+    import torch
+    from edyn_tpu_torch.dynamics import solver_kernels as sk
+    tbl, vel, d0, t, pack, plan = (ctx.tbl, ctx.vel, ctx.d0, ctx.t, ctx.pack,
+                                   ctx.plan)
+    vel_t = vel.T.contiguous()
+    dyn_buf = torch.empty((2, tbl.shape[1]), dtype=tbl.dtype,
+                          device=tbl.device)
+
+    def pass_old():
+        relv = relvel_old(tbl, vel_t[:, pack.ab_p])
+        valid, restit = tbl[55:56] > 0.5, tbl[56:57]
+        active = valid & (relv < -0.005) & (restit > 0)
+        dyn = torch.cat([-relv * (1.0 + restit), active.to(tbl.dtype)])
+        return dyn, bool(torch.any(active))
+
+    def pass_new():
+        return cs.fused_pass(tbl, d0, t, plan, dyn_buf)
+
+    (a, a_any), (b, b_any) = pass_old(), pass_new()
+    if not (cs.bits_equal(a, b) and a_any == b_any):
+        raise AssertionError("old and new restitution passes differ")
+    g = vel_t[:, pack.ab_p].contiguous()
+    # sized by the new kernel's bytes, the fewer: 13 table rows, endpoints
+    k = n_sets(cs, tbl.element_size() * tbl.shape[1]
+               * (sk.rows_read("relvel_fused") + 2) + 8 * tbl.shape[1])
+    sets = [(tbl.clone(), g.clone(), d0.clone()) for _ in range(k)]
+    gen = plan.next_generation()
+    r = {"old": [], "new": []}
+    for which in ("old", "new", "new", "old"):
+        r[which].append(cs.device_ms(
+            [lambda s=s: relvel_old(s[0], s[1]) for s in sets]
+            if which == "old" else
+            [lambda s=s: sk.relvel_fused(s[0], s[2], t.ab, t.flag, gen)
+             for s in sets]))
+    del sets
+    calls = {"old": [], "new": []}
+    for which in ("old", "new", "new", "old"):
+        calls[which].append(cs.call_ms(pass_old if which == "old"
+                                       else pass_new, 20))
+    out = dict(n_sets=k, kernel_ms=r, any_active=a_any, pass_call_ms=calls,
+               old_device_us=cs.profiled_us(pass_old),
+               new_device_us=cs.profiled_us(pass_new))
+    us = {w: [round(x * 1e3, 2) for x in r[w]] for w in r}
+    cs.log(f"K3b alone, Rp {tbl.shape[1]}: old relvel_kernel {us['old']} "
+           f"us, new relvel_fused_kernel {us['new']} us (L2-cold, {k} sets)")
+    cs.log(f"one restitution outer pass: old (gather, relvel_kernel, glue, "
+           f"any) {[round(x * 1e3, 1) for x in calls['old']]} us a call, "
+           f"{out['old_device_us']} us on the device; new (relvel_fused, "
+           f"flag read) {[round(x * 1e3, 1) for x in calls['new']]} us a "
+           f"call, {out['new_device_us']} us on the device; bit-equal, a "
+           f"row active: {a_any}")
     return out
 
 
@@ -278,6 +352,7 @@ def one_old(cs, ctx, seg_old, seg_new, ngs_old, ngs_new) -> dict:
     """``solver_ab``'s comparisons against one earlier build, on the
     inputs ``ctx``."""
     from edyn_tpu_torch.dynamics import solver
+    from edyn_tpu_torch.dynamics import solver_kernels as sk
     tbl, vel, d0, h, t = ctx.tbl, ctx.vel, ctx.d0, ctx.h, ctx.t
     pack, plan, mesh = ctx.pack, ctx.plan, ctx.mesh
     Rp = tbl.shape[1]
@@ -311,8 +386,9 @@ def one_old(cs, ctx, seg_old, seg_new, ngs_old, ngs_new) -> dict:
         del sets
 
     g = vel.T.contiguous()[:, pack.ab_p].contiguous()
-    k = n_sets(cs, tbl.numel() * tbl.element_size()
-               + 4 * 8 * (vel.shape[0] + 2 * Rp))
+    # sized by the bytes K2 moves (its 20 table rows, not the table's 97)
+    k = n_sets(cs, tbl.element_size() * Rp
+               * (sk.rows_read("ngs_iteration") + 1) + 8 * Rp)
     sets_old = [(tbl.clone(), g.clone()) for _ in range(k)]
     sets_new = [(s[0], d0.clone(), t.terms_a.clone()) for s in sets_old]
     r = turns({"old": [lambda s=s: ngs_old(*s) for s in sets_old],

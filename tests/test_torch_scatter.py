@@ -3,23 +3,28 @@
 On the card K1's, K3a's and K2's iterations run as the fused kernel (the
 endpoint gather inside it, the update terms written where the step's
 ``dynamics.scatter.ScatterPlan`` puts them) and ``segment_sum`` (each
-body's terms added in ``solver.index_sum``'s order on the card). Here the
-wrappers take their plain versions, which are held:
+body's terms added in ``solver.index_sum``'s order on the card); each
+restitution outer pass is one fused K3b (the velocities read by the plan's
+endpoints, the pass's rhs, activity and early-exit flag written). Here
+the wrappers take their plain versions, which are held:
 
 - the plan against a direct stable sort of the endpoint list;
 - ``segment_sum_plain`` against a Python loop in the card's order, to the
   bit, and with a start value against one hop of
   ``solver.chain_index_sum``, to the bit;
 - the fused plain iterations against the JAX package's Pallas kernels
-  (interpret mode) with an XLA gather and scatter-add;
+  (interpret mode) with an XLA gather and scatter-add, and the fused
+  K3b against ``relvel_pallas`` and the JAX pass's glue;
 - the planned velocity and position loops against the unfused ones
   summed in the card's order, to the bit, over one shard, three, and three
-  with a hop each;
+  with a hop each; the planned restitution pre-pass the same way;
 - whole steps taken through the plan against the CPU's own step.
 
 The CUDA kernels are held against these plain versions, and against the
 unfused path, on the card by ``chip_smoke.py``.
 """
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -205,14 +210,58 @@ def _xla_scatter(x_t, ab, upd):
     return x_t.at[:, ab].add(jnp.concatenate([upd[:6], upd[6:]], axis=1))
 
 
-@pytest.mark.parametrize("kernel", ["K1", "K1-no-sr", "K3a", "K2"])
+def k3b_matches_the_pallas_kernel(dtype):
+    """``relvel_fused_plain`` from the [N,8] velocity table against
+    ``relvel_pallas`` (interpret mode) on an XLA gather, then the JAX
+    pass's glue (``edyn_tpu/dynamics/solver.py:624-628``): the rhs within
+    1e-5 (``test_torch_solver.test_relvel_kernel``'s tolerance), the
+    activity equal, and the flag raised to the pass's number exactly where
+    a row is active; once with the velocities and once with them zero (no
+    row active: the flag keeps the last pass's number). At float64 the
+    port takes the same float32 inputs widened; the JAX package runs in
+    float32."""
+    d = static_rows(seed=2)
+    jt, ja, jb, _ = ps.pack_rows_t(jax_rows(d))
+    (pack,) = packs = shard_packs(port_rows(d), 1)
+    plan = scatter.ScatterPlan.build(packs, moves(), Mesh((CPU,)))
+    t = plan.shards[0]
+    vel = (np.random.RandomState(3).randn(N, 6) * 0.1).astype(np.float32)
+    for scale, raised in ((1.0, True), (0.0, False)):
+        v = vel * np.float32(scale)
+        relv = ps.relvel_pallas(jt, jnp.asarray(v.T)[:, jnp.concatenate(
+            [ja, jb])], interpret=True)
+        restit = jt[56:57]
+        active = (jt[55:56] > 0.5) & (relv < -0.005) & (restit > 0)
+        want = np.asarray(jnp.concatenate([-relv * (1.0 + restit),
+                                           active.astype(jnp.float32)]))
+        gen = plan.next_generation()
+        got = sk.relvel_fused(pack.tbl.to(dtype), scatter.body_table(
+            torch.from_numpy(v).to(dtype)), t.ab, t.flag, gen)
+        assert got.dtype == dtype and got.shape == want.shape
+        np.testing.assert_allclose(got[0].numpy(), want[0], rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_array_equal(got[1].numpy(), want[1])
+        assert bool(jnp.any(active)) == raised
+        assert (int(t.flag) == gen) == raised
+        if raised:
+            assert 0 < int(want[1].sum()) < int((d["valid"]).sum())
+    assert int(t.flag) == gen - 1
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K1-no-sr", "K3a", "K2", "K3b",
+                                    "K3b-f64"])
 def test_fused_iterations_match_the_pallas_kernels(kernel):
     """The plan, the fused plain iteration and ``segment_sum_plain`` from
     [N,8] body deltas against the JAX package's Pallas kernel in interpret
     mode between an XLA gather and scatter-add, at 1e-5 (absolute and
     relative): the scatter-add adds the terms to x one by one, the segment
     sum from zero and then to x. K2's soft rows (about a fifth of
-    ``random_rows``) keep their planned positions and write zero terms."""
+    ``random_rows``) keep their planned positions and write zero terms.
+    K3b, at float32 and float64: ``k3b_matches_the_pallas_kernel``."""
+    if kernel.startswith("K3b"):
+        k3b_matches_the_pallas_kernel(torch.float64 if kernel.endswith("f64")
+                                      else torch.float32)
+        return
     with_sr = kernel == "K1"
     d = static_rows(seed=2, with_sr=with_sr)
     rows = port_rows(d)
@@ -352,6 +401,63 @@ def test_planned_velocity_loop_is_the_unfused_one_in_card_order(k, hops,
     assert bits_equal(cat, want_imp[:, :R])
 
 
+def unfused_restitution_in_card_order(rows, vel, passes, inner):
+    """The unfused restitution pre-pass (gather, K3b's plain version and
+    the pass's glue, the host-read exit, K3a's plain version) with each
+    scatter-add summed in the card's order; returns the [N,6] velocities
+    and the passes that solved."""
+    tbl, a_p, b_p, Rp = sk.pack_rows_t(rows)
+    ab = torch.cat([a_p, b_p])
+    valid, restit = tbl[55:56] > 0.5, tbl[56:57]
+    for ran in range(passes):
+        relv = sk.relvel_plain(tbl, vel[ab].T)
+        active = valid & (relv < -0.005) & (restit > 0)
+        if not bool(active.any()):
+            return vel, ran
+        dyn = torch.cat([-relv * (1.0 + restit), active.to(tbl.dtype)])
+        imp3, dvw = torch.zeros((3, Rp)), torch.zeros_like(vel)
+        for _ in range(inner):
+            imp3, upd = sk.restitution_iteration_plain(tbl, dyn, imp3,
+                                                       dvw[ab].T)
+            dvw = card_order_sum(dvw, ab, torch.cat([upd[:6], upd[6:]], 1).T)
+        vel = vel + dvw
+    return vel, passes
+
+
+@pytest.mark.parametrize("k,hops,scale", [(1, False, 0.1), (3, False, 0.1),
+                                          (3, True, 0.1), (1, False, 0.0)],
+                         ids=["k1", "k3", "k3-hops", "k1-none-active"])
+def test_planned_restitution_is_the_unfused_one_in_card_order(k, hops,
+                                                               scale):
+    """``solver.solve_restitution_sharded`` under a plan (the fused K3b a
+    pass on the [N,8] velocity table, one read of the shards' flags, the
+    fused K3a), over k shards merged into one hop or a hop each, equals the
+    unfused pre-pass summed in the card's order, to the bit, and exits
+    after the same pass; with no row active it reads the flags once and
+    returns the velocities as they were."""
+    rows = port_rows(static_rows(seed=6))
+    packs = shard_packs(rows, k)
+    mesh = Mesh((CPU,) * k, hop_each_shard=hops)
+    plan = scatter.ScatterPlan.build(packs, moves(), mesh)
+    rng = np.random.RandomState(11)
+    vel = torch.from_numpy((rng.randn(N, 6) * scale).astype(np.float32))
+    state = SimpleNamespace(capacity=N, linvel=vel[:, :3], angvel=vel[:, 3:])
+    passes, inner = 8, 3
+    want, ran = unfused_restitution_in_card_order(rows, vel, passes, inner)
+    lin, ang = tsolver.solve_restitution_sharded(state, packs, mesh, passes,
+                                                 inner, plan)
+    got = torch.cat([lin, ang], 1)
+    assert bits_equal(got, want)
+    # a pass that solves reads the flags once, and so does the one that exits
+    assert plan.generation == min(ran + 1, passes)
+    if scale:
+        assert ran > 1
+        assert float((got - vel).abs().max()) > 1e-3
+        assert torch.equal(got[list(STATIC)], vel[list(STATIC)])
+    else:
+        assert ran == 0 and torch.equal(got, vel)
+
+
 def test_fused_wrappers_take_the_plain_version_only_on_the_cpu():
     """Tensors not on the CPU never reach a plain version: tensors on two
     devices, or on a device without the kernels, raise; the CPU's calls
@@ -377,6 +483,11 @@ def test_fused_wrappers_take_the_plain_version_only_on_the_cpu():
     with pytest.raises(ValueError):
         sk.restitution_iteration_fused(*map(meta, (
             pack.tbl, dyn, imp3, body, t.ab, t.pos, t.terms_a, t.terms_b)))
+    with pytest.raises(ValueError):
+        sk.relvel_fused(pack.tbl, meta(body), t.ab, t.flag, 1)
+    with pytest.raises(ValueError):
+        sk.relvel_fused(*map(meta, (pack.tbl, body, t.ab, t.flag)), 1,
+                        out=meta(dyn))
     h = plan.hops[0]
     with pytest.raises(ValueError):
         sk.segment_sum(h.terms, h.offsets, x=meta(body))
@@ -388,6 +499,7 @@ def test_fused_wrappers_take_the_plain_version_only_on_the_cpu():
     sk.ngs_iteration_fused(pack.tbl, body, t.ab, t.pos, t.terms_a, t.terms_b,
                            RATE, MAX_CORR)
     sk.segment_sum(h.terms, h.offsets, x=body)
+    sk.relvel_fused(pack.tbl, body, t.ab, t.flag, 1, out=dyn)
     assert (sk.LAUNCHES, sk.LAUNCHES_F64) == before
     assert scatter.for_step(None, [pack], Mesh((CPU,))) is None
 
@@ -410,10 +522,11 @@ def test_planned_steps(pile, monkeypatch):
     are not compared: while the pile lands, a rounding difference grows
     past those tolerances within a few steps. The planned steps' position
     iterations run the fused K2 (its plain version counted), never the
-    unfused one."""
+    unfused one, and so do their restitution outer passes (the fused K3b,
+    never ``relvel``)."""
     w = pile
     start = w.state
-    calls = {"fused": 0, "unfused": 0}
+    calls = {"fused": 0, "unfused": 0, "fused K3b": 0, "unfused K3b": 0}
 
     def counted(key, fn):
         def call(*a, **k):
@@ -424,11 +537,15 @@ def test_planned_steps(pile, monkeypatch):
                         counted("fused", sk.ngs_iteration_fused_plain))
     monkeypatch.setattr(sk, "ngs_iteration",
                         counted("unfused", sk.ngs_iteration))
+    monkeypatch.setattr(sk, "relvel_fused_plain",
+                        counted("fused K3b", sk.relvel_fused_plain))
+    monkeypatch.setattr(sk, "relvel", counted("unfused K3b", sk.relvel))
     ref = [start]
     for _ in range(5):
         ref.append(stepper.physics_step(ref[-1], w.settings, w.meta))
     assert calls["fused"] == 0 and calls["unfused"] > 0
-    calls["unfused"] = 0
+    assert calls["fused K3b"] == 0 and calls["unfused K3b"] > 0
+    calls["unfused"] = calls["unfused K3b"] = 0
     monkeypatch.setattr(scatter, "for_step", lambda state, packs, mesh:
                         scatter.ScatterPlan.build(
                             packs, scatter.movable(state), mesh))
@@ -436,6 +553,7 @@ def test_planned_steps(pile, monkeypatch):
     for _ in range(5):
         planned.append(stepper.physics_step(planned[-1], w.settings, w.meta))
     assert calls["fused"] > 0 and calls["unfused"] == 0
+    assert calls["fused K3b"] > 0 and calls["unfused K3b"] == 0
     for hops in (False, True):
         mesh = make_mesh([CPU] * 3, hop_each_shard=hops)
         step, got = make_sharded_step(mesh, start, w.settings, w.meta)
