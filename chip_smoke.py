@@ -1808,10 +1808,15 @@ def card_vs_cpu(dev, n_bodies: int = 1000, settle: int = 240,
     if width < rows.valid.shape[0]:
         rows = rows_prefix(rows, width)
     use_rest = s.num_restitution_iterations > 0
-    got = stepper._solve_phase(_to(st, dev), _to(man, dev), [_to(rows, dev)],
-                               s, meta, use_rest, make_mesh([dev]))
-    want = stepper._solve_phase(st, man, [rows], s, meta, use_rest,
-                                make_mesh(["cpu"]))
+    def solve_phase(st, man, rows, mesh):
+        parts = [rows]
+        return stepper._solve_phase(st, man, parts,
+                                    stepper._pack(parts, mesh), s, meta,
+                                    use_rest, mesh)
+
+    got = solve_phase(_to(st, dev), _to(man, dev), _to(rows, dev),
+                      make_mesh([dev]))
+    want = solve_phase(st, man, rows, make_mesh(["cpu"]))
     solve = _hold("solve phase", [(f, getattr(got, f), getattr(want, f), r, a)
                                   for f, r, a in STEP_TOL])
 
@@ -4357,15 +4362,17 @@ def shard_timing(landed, settings, meta) -> dict:
     """Phase 13c: the landed pile stepped unsharded and at each k of
     SHARD_KS on one card (and over every card where there are several),
     SHARD_TIMED steps each, in turns (unsharded, 1, 2, 4, 4, 2, 1,
-    unsharded); then per k, SHARD_PROFILED steps with the gathers, splits
-    and chains synchronised and timed, SHARD_PROFILED steps under the
-    profiler (kernels a step, device busy), and the peak memory of each
-    device over the timed steps."""
+    unsharded); then per k, SHARD_PROFILED steps with the step's spans
+    recorded (``utils.profile``: the gathers, splits and chains on the
+    device's clock), SHARD_PROFILED steps under the profiler (kernels a
+    step, device busy), and the peak memory of each device over the timed
+    steps."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
-    from edyn_tpu_torch.parallel import collectives, make_mesh
+    from edyn_tpu_torch.parallel import make_mesh
     from edyn_tpu_torch.parallel import make_sharded_step
+    from edyn_tpu_torch.utils import profile
     from edyn_tpu_torch.simulation.stepper import physics_step
 
     configs = [("unsharded", None)] + [
@@ -4415,18 +4422,25 @@ def shard_timing(landed, settings, meta) -> dict:
 
     out = {}
     for name in runs:
-        with collectives.timed() as spans:
-            _sync_all()
-            t0 = time.perf_counter()
+        profile.reset()
+        _sync_all()
+        t0 = time.perf_counter()
+        with profile.enable():
             runs[name](SHARD_PROFILED)
-            _sync_all()
-            wall = time.perf_counter() - t0
+        _sync_all()
+        wall = time.perf_counter() - t0
+        rec = profile.recorded()["spans"]
+        spans = {k: rec.get(k, {}).get("device_ms", 0.0) * 1e-3
+                 for k in ("gather", "split", "chain")}
         with torch.profiler.profile(activities=[ProfilerActivity.CPU,
                                                 ProfilerActivity.CUDA]) as pr:
             runs[name](SHARD_PROFILED)
             _sync_all()
+        # the spans recorded under the profiler are annotations, not work
+        names = set(profile.recorded()["spans"])
         kern = [(dev_us(e), e.count) for e in pr.key_averages()
-                if e.device_type != DeviceType.CPU and dev_us(e) > 0]
+                if e.device_type != DeviceType.CPU and dev_us(e) > 0
+                and e.key not in names]
         ms = times[name]
         out[name] = dict(
             ms_per_step=ms, steps_per_s=[1e3 / m for m in ms],

@@ -23,6 +23,7 @@ from ..core.state import INVALID_KEY, KIND_DYNAMIC
 from ..math import quat
 from ..parallel.collectives import Mesh, gather, ranges, replicas
 from ..shapes.params import ShapeType
+from ..utils.profile import host
 
 PLANE_PAIR_MARGIN = 0.05
 ROW_BLOCK = 2048  # mask rows built at a time (bounds the [B, N] temporaries)
@@ -42,7 +43,8 @@ def pack_keys(a, b, N: int, ok):
 def compact(flat_mask, size: int):
     """Indices of set bits, ascending, padded with -1 to ``size``; and the
     count of set bits (which may exceed ``size``)."""
-    idx = torch.nonzero(flat_mask).flatten().to(torch.int32)
+    idx = host("broadphase.compact",
+               torch.nonzero(flat_mask)).flatten().to(torch.int32)
     count = idx.shape[0]
     out = torch.full((size,), -1, dtype=torch.int32, device=flat_mask.device)
     n = min(count, size)
@@ -163,7 +165,8 @@ def _mask_rows(state, n0: int, n1: int, wide_cap: int, should_collide_fn):
         if should_collide_fn is not None:
             mw &= should_collide_fn(state, i2, jw)
         mw &= _overlap_elt(state, i2, jw)
-        nz = torch.nonzero(torch.cat([m, mw], dim=1))
+        nz = host("broadphase.dense_pairs",
+                  torch.nonzero(torch.cat([m, mw], dim=1)))
         rows.append(nz[:, 0] + r0)
         cols.append(nz[:, 1])
     return torch.cat(rows), torch.cat(cols), wj_ids, wcnt
@@ -202,11 +205,11 @@ def find_pairs_sweep(state, max_pairs: int, window: int = 128,
     # axis: largest variance of the box centres of valid bodies (first
     # index among equal variances, as jnp.argmax)
     cen = 0.5 * (amin + amax)
-    nv = max(int(validb.sum()), 1)
+    nv = max(host("sweep.valid_count", int(validb.sum())), 1)
     zero = torch.zeros_like(cen)
     mean = torch.sum(torch.where(validb[:, None], cen, zero), 0) / nv
     var = torch.sum(torch.where(validb[:, None], (cen - mean) ** 2, zero), 0)
-    ax = int(torch.argmax(var))
+    ax = host("sweep.axis", int(torch.argmax(var)))
     smin, smax = amin[:, ax], amax[:, ax]
 
     inf = torch.full_like(smin, float("inf"))
@@ -241,7 +244,7 @@ def find_pairs_sweep(state, max_pairs: int, window: int = 128,
         m &= _overlap_boxes(state, i2, j2)
         if should_collide_fn is not None:
             m &= should_collide_fn(state, i2, j2)
-        nz = torch.nonzero(m)
+        nz = host("sweep.pairs", torch.nonzero(m))
         rows.append(nz[:, 0] + r0)
         cols.append(nz[:, 1])
     rows = torch.cat(rows)
@@ -250,7 +253,8 @@ def find_pairs_sweep(state, max_pairs: int, window: int = 128,
     # beyond-window alarm: the (W+1)-th body still overlaps on the axis
     pos = torch.arange(N, device=dev)
     beyond = torch.clamp(pos + W + 1, max=N - 1)
-    alarms = int(((os_min[beyond] <= os_max) & (pos + W + 1 < N)).sum())
+    alarms = host("sweep.alarms", int(
+        ((os_min[beyond] <= os_max) & (pos + W + 1 < N)).sum()))
 
     # wide rows: dense against every body; wide-wide pairs by index order
     wloc, wcnt = compact(wide, wide_cap)
@@ -262,7 +266,7 @@ def find_pairs_sweep(state, max_pairs: int, window: int = 128,
     mw &= ~wide[None, :] | (jw > iw)
     if should_collide_fn is not None:
         mw &= should_collide_fn(state, iw, jw)
-    nzw = torch.nonzero(mw)
+    nzw = host("sweep.wide_pairs", torch.nonzero(mw))
 
     # the first max_pairs set bits of [narrow block | wide block]
     a_ = torch.cat([order[rows], wi[nzw[:, 0]]])

@@ -8,6 +8,7 @@ from __future__ import annotations
 import torch
 
 from ...math import geom, quat, vec
+from ...utils.profile import host
 from .common import ATTACH_A, ATTACH_B, gather_points, make_result, \
     reduce_to_4, take1
 
@@ -88,8 +89,9 @@ def collide_box_box(pos_a, orn_a, params_a, pos_b, orn_b, params_b,
     hju = take1(inc_h, ju)
     hjv = take1(inc_h, jv)
     inc_center = inc_pos + inc_n * hj[:, None]
-    corner_signs = torch.tensor([[1, 1], [1, -1], [-1, -1], [-1, 1]],
-                                dtype=inc_pos.dtype, device=dev)
+    corner_signs = host("box_box.corner_signs", torch.tensor(
+        [[1, 1], [1, -1], [-1, -1], [-1, 1]], dtype=inc_pos.dtype,
+        device=dev))
     inc_corners = (inc_center[:, None, :]
                    + iu[:, None, :] * (corner_signs[None, :, 0, None]
                                        * hju[:, None, None])

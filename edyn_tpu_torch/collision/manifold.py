@@ -19,6 +19,7 @@ from ..config import (
 from ..core.state import INVALID_KEY, ContactTable
 from ..math import quat as _q
 from ..math import vec
+from ..utils.profile import host
 from .broadphase import compact
 
 
@@ -48,7 +49,7 @@ def update_slots(old: ContactTable, keys, body_a, body_b, pair_valid):
     if P < M:
         same_t &= torch.all(old.sort_key[P:] == INVALID_KEY)
     # device branch (manifold.py:114 in the JAX package): host-synced here
-    same = bool(same_t)
+    same = host("manifold.same", bool(same_t))
     if same:
         return old, torch.zeros((M,), dtype=torch.bool, device=dev), 0, True
 
@@ -62,6 +63,7 @@ def update_slots(old: ContactTable, keys, body_a, body_b, pair_valid):
 
     keep = torch.zeros((M,), dtype=torch.bool, device=dev)
     keep[slot_mc[matched]] = True
+    host("manifold.keep", n=2)      # a mask index and the scalar's copy
     dropped_slots = old.valid & ~keep
 
     is_new = pair_valid & ~matched
@@ -69,7 +71,8 @@ def update_slots(old: ContactTable, keys, body_a, body_b, pair_valid):
     free_slot, free_cnt = compact(~keep, M)
     slot_n = free_slot[torch.clamp(new_rank, 0, M - 1).long()]
     alloc = is_new & (new_rank < free_cnt) & (slot_n >= 0)
-    n_dropped = int(is_new.sum()) - int(alloc.sum())
+    n_dropped = host("manifold.dropped", int(is_new.sum())
+                     - int(alloc.sum()), n=2)
 
     written = matched | alloc
     slot_new = torch.clamp(slot_n, 0, M - 1).long()

@@ -35,6 +35,7 @@ from ..core.state import KIND_STATIC
 from ..math import quat
 from ..parallel.collectives import Mesh, gather, ranges, replicas, to_device
 from ..shapes.params import ShapeType
+from ..utils.profile import count, host, span
 from .kernels import box_box
 from .kernels.compound import (
     collide_compound_compound, collide_compound_convex, collide_compound_mesh,
@@ -52,6 +53,12 @@ S = ShapeType
 # present: its _classes_present does not return it)
 B_UNIFIED, B_BOXBOX, B_PLANE, B_MESH = 0, 1, 2, 4
 B_COMP_CONVEX, B_COMP_PLANE, B_COMP_COMP, B_COMP_MESH = 5, 6, 7, 8
+# each class's name in its span (``narrowphase.<CLASS>``) and counter
+# (``bucket_pairs.<CLASS>``)
+CLASS_NAMES = {B_UNIFIED: "UNIFIED", B_BOXBOX: "BOXBOX", B_PLANE: "PLANE",
+               B_MESH: "MESH", B_COMP_CONVEX: "COMP_CONVEX",
+               B_COMP_PLANE: "COMP_PLANE", B_COMP_COMP: "COMP_COMP",
+               B_COMP_MESH: "COMP_MESH"}
 CONVEX_TYPES = (S.SPHERE, S.BOX, S.CAPSULE, S.CYLINDER, S.POLYHEDRON)
 MESH_TYPES = (S.MESH, S.PAGED_MESH)
 SUPPORTED_TYPES = frozenset(S)
@@ -239,44 +246,56 @@ def update_contacts_sharded(state, man, threshold: float,
     UNIFIED bucket) and merges its slots' points. The shards' selections, concatenated
     in shard order and cut at the bucket's capacity, are the selections
     over all slots, so the table (gathered on the home device) and the
-    drop count are the same for any number of shards."""
+    drop count are the same for any number of shards. Spans:
+    ``narrowphase.classify``, ``narrowphase.<CLASS>`` for each bucket
+    class (attr ``pairs``, also counted as ``bucket_pairs.<CLASS>``) and
+    ``narrowphase.merge``."""
     _check_types(types_present)
     M = man.key.shape[0]
     cap = bucket_cap or M
-    states = replicas(state, mesh)
-    parts, sels = [], []
-    for s, (m0, m1) in enumerate(ranges(M, mesh.size)):
-        with mesh.scope(s):
-            man_s = to_device(slice_table(man, m0, m1), mesh.devices[s])
-            cls, swap, frozen, stale = live_classes(states[s], man_s)
-            man_s = dataclasses.replace(
-                man_s, point_valid=man_s.point_valid & ~stale[:, None])
-            parts.append((man_s, swap, frozen))
-            sels.append({b: torch.nonzero(cls == b).flatten()
-                         for b in _classes_present(types_present)})
-    # padded bucket rows produce nothing the JAX path keeps, so only the
-    # live prefix of each selection is computed
-    dropped = 0
-    for bucket in _classes_present(types_present):
-        this_cap = _bucket_cap(bucket, cap, M)
-        counts = [sel[bucket].shape[0] for sel in sels]
-        dropped += max(sum(counts) - this_cap, 0)
-        off = 0
-        for sel, c in zip(sels, counts):
-            sel[bucket] = sel[bucket][:max(0, min(c, this_cap - off))]
-            off += c
-    out, tables = [], {}
+    classes = _classes_present(types_present)
+    with span("narrowphase.classify"):
+        states = replicas(state, mesh)
+        parts, sels = [], []
+        for s, (m0, m1) in enumerate(ranges(M, mesh.size)):
+            with mesh.scope(s):
+                man_s = to_device(slice_table(man, m0, m1), mesh.devices[s])
+                cls, swap, frozen, stale = live_classes(states[s], man_s)
+                man_s = dataclasses.replace(
+                    man_s, point_valid=man_s.point_valid & ~stale[:, None])
+                parts.append((man_s, swap, frozen))
+                sels.append({b: host("narrowphase.select",
+                                     torch.nonzero(cls == b)).flatten()
+                             for b in classes})
+        # padded bucket rows produce nothing the JAX path keeps, so only
+        # the live prefix of each selection is computed
+        dropped = 0
+        for bucket in classes:
+            this_cap = _bucket_cap(bucket, cap, M)
+            counts = [sel[bucket].shape[0] for sel in sels]
+            dropped += max(sum(counts) - this_cap, 0)
+            off = 0
+            for sel, c in zip(sels, counts):
+                sel[bucket] = sel[bucket][:max(0, min(c, this_cap - off))]
+                off += c
+    pts, tables = [], {}
     for s, (man_s, swap, frozen) in enumerate(parts):
         with mesh.scope(s):
             # the side tables are per body: one build per device
             dev = mesh.devices[s]
             if dev not in tables:
                 tables[dev] = SideTables(states[s])
-            new_pts = fresh_points(states[s], man_s, swap, sels[s],
-                                   threshold, types_present, tri_cull,
-                                   tables[dev])
-            out.append(merge_fresh(states[s], man_s, new_pts, frozen, dt))
-    return gather_tables(out, mesh.home), dropped
+            pts.append(fresh_points(states[s], man_s, swap, sels[s],
+                                    threshold, types_present, tri_cull,
+                                    tables[dev]))
+    with span("narrowphase.merge"):
+        out = []
+        for s, ((man_s, swap, frozen), new_pts) in enumerate(zip(parts,
+                                                                 pts)):
+            with mesh.scope(s):
+                out.append(merge_fresh(states[s], man_s, new_pts, frozen,
+                                       dt))
+        return gather_tables(out, mesh.home), dropped
 
 
 def slice_table(tab, m0: int, m1: int):
@@ -332,23 +351,27 @@ def fresh_points(state, man, swap, sels: dict, threshold: float,
     new_pts = torch.zeros((M + 1, 4, 14), dtype=state.dtype, device=dev)
     has_cyl = S.CYLINDER in types_present
     for bucket, s in sels.items():
+        name = CLASS_NAMES[bucket]
+        count("bucket_pairs." + name, s.shape[0])
         if not s.shape[0]:
             continue
-        if bucket == B_UNIFIED and dev.type == "cuda":
-            # K4 over the whole live prefix; the bucket needs no swap, and
-            # its friction/restitution scales are ones (narrowphase.py:266
-            # in the JAX package)
-            tbl_t, dims_t = tables.k4
-            out = collide_support_unified(tbl_t, ba[s], bb[s], dims_t,
-                                          threshold, rim_axes=has_cyl)
-            new_pts[s] = torch.cat([
-                out[..., :12], torch.ones(out.shape[:2] + (2,),
-                                          dtype=out.dtype,
-                                          device=dev)], dim=-1)
-            continue
-        packed, dims = tables.plain
-        new_pts[s] = bucket_points(bucket, state, man, s, swap, threshold,
-                                   has_cyl, packed, dims, tri_cull)
+        with span("narrowphase." + name, pairs=s.shape[0]):
+            if bucket == B_UNIFIED and dev.type == "cuda":
+                # K4 over the whole live prefix; the bucket needs no swap,
+                # and its friction/restitution scales are ones
+                # (narrowphase.py:266 in the JAX package)
+                tbl_t, dims_t = tables.k4
+                out = collide_support_unified(tbl_t, ba[s], bb[s], dims_t,
+                                              threshold, rim_axes=has_cyl)
+                new_pts[s] = torch.cat([
+                    out[..., :12], torch.ones(out.shape[:2] + (2,),
+                                              dtype=out.dtype,
+                                              device=dev)], dim=-1)
+                continue
+            packed, dims = tables.plain
+            new_pts[s] = bucket_points(bucket, state, man, s, swap,
+                                       threshold, has_cyl, packed, dims,
+                                       tri_cull)
     return new_pts[:M]
 
 

@@ -26,6 +26,7 @@ from ..core.state import MAX_JOINT_ROWS, JointTable
 from ..dynamics.solver import (BIG, degree_counts, gather_ab, index_sum,
                                 scatter_add_ab)
 from ..math import quat, vec
+from ..utils.profile import host
 
 # Default positional-error reduction (reference:
 # constraint_row_options.hpp:15).
@@ -152,7 +153,8 @@ def _where(c, x, y, dtype=None):
 
 
 def _axis(v, Jn, device):
-    return torch.tensor(v, dtype=torch.float32, device=device).expand(Jn, 3)
+    return host("joints.axis", torch.tensor(
+        v, dtype=torch.float32, device=device)).expand(Jn, 3)
 
 
 def build_joint_rows(state, dt: float, mass_splitting: bool = True, *,
@@ -528,8 +530,9 @@ def build_joint_rows(state, dt: float, mass_splitting: bool = True, *,
     Iw = state.inertia_world_inv()
     inv_IA = Iw[a_r] * valid_r[:, None, None]
     inv_IB = Iw[b_r] * valid_r[:, None, None]
-    slot_groups = torch.tensor([_slot_group(s) for s in range(MAX_JOINT_ROWS)],
-                               dtype=torch.int32, device=dev)
+    slot_groups = host("joints.slot_groups", torch.tensor(
+        [_slot_group(s) for s in range(MAX_JOINT_ROWS)], dtype=torch.int32,
+        device=dev))
     group_r = slot_groups.repeat(Jn)
     if mass_splitting:
         # degree = incident JOINTS per body per solve group: within a group
@@ -658,8 +661,8 @@ def solve_joint_positions(state, num_iterations: int = 3,
     align = bool(present & {JointType.HINGE, JointType.CVJOINT})
     pivots = bool(present & POINT_LIKE)
     generic = JointType.GENERIC in present
-    ident = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=state.dtype,
-                         device=dev).expand(N, 4)
+    ident = host("joints.ident", torch.tensor(
+        [0.0, 0.0, 0.0, 1.0], dtype=state.dtype, device=dev)).expand(N, 4)
 
     def unmoved(pos, orn, rows: int):
         for _ in range(rows):

@@ -14,6 +14,7 @@ from ..config import (
     ISLAND_TIME_TO_SLEEP,
 )
 from ..math import vec
+from ..utils.profile import host
 
 RESET_PERIOD = 8  # steps between label re-seeds (split correctness)
 
@@ -31,7 +32,8 @@ def compute_islands(state, man, num_iters: int = 16):
     dev = state.device
     dyn = state.is_dynamic
     ident = torch.arange(N, dtype=torch.int32, device=dev)
-    reset = int(state.step_count) % RESET_PERIOD == 0
+    reset = host("islands.step_count", int(state.step_count)) \
+        % RESET_PERIOD == 0
     labels = ident if reset else torch.minimum(state.island_id, ident)
     labels = torch.where(state.island_id < 0, ident, labels)
 
@@ -54,7 +56,8 @@ def compute_islands(state, man, num_iters: int = 16):
         m = torch.where(ev, torch.minimum(l2[:E], l2[E:]), big)
         labels = _scatter_min(labels, idx_safe, torch.cat([m, m]))
         labels = torch.minimum(labels, labels[labels.long()])
-    return labels, bool(torch.all(labels == prev))
+    return labels, host("islands.converged",
+                        bool(torch.all(labels == prev)))
 
 
 def update_sleep(state, man, dt: float, enable: bool, num_iters: int = 4,
@@ -65,11 +68,13 @@ def update_sleep(state, man, dt: float, enable: bool, num_iters: int = 4,
     N = state.capacity
     dev = state.device
     # device branch (islands.py:156 in the JAX package): host-synced here
-    if skip_labels and bool(state.labels_stable):
+    if skip_labels and host("islands.labels_stable",
+                            bool(state.labels_stable)):
         labels, converged = state.island_id, True
     else:
         labels, converged = compute_islands(state, man, num_iters)
-    converged_t = torch.tensor(converged, device=dev)
+    converged_t = host("islands.converged_flag",
+                       torch.tensor(converged, device=dev))
     if not enable:
         return dataclasses.replace(
             state, island_id=labels, labels_stable=converged_t,

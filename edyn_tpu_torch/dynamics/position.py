@@ -19,6 +19,7 @@ import torch
 from ..config import CONTACT_POSITION_CORRECTION_RATE
 from ..math import quat, vec
 from ..parallel.collectives import Mesh
+from ..utils.profile import host
 from . import solver_kernels as sk
 from .scatter import ScatterPlan
 from .solver import ShardPack, chain_upd_t
@@ -69,7 +70,7 @@ def solve_positions_sharded(state, packs, mesh: Mesh, num_iterations: int,
              else plan.add(d, mesh))
         # device branch (position.py:59 and :109 in the JAX package):
         # host-synced early exit
-        if not bool(err_max >= ERROR_EXIT):
+        if not host("position.early_exit", bool(err_max >= ERROR_EXIT)):
             break
     return _apply_correction(
         state, d if plan is None else d[:, :6].T.contiguous())

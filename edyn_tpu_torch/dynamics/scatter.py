@@ -46,7 +46,8 @@ import dataclasses
 
 import torch
 
-from ..parallel.collectives import Mesh, span
+from ..parallel.collectives import Mesh
+from ..utils.profile import host, span
 from . import solver_kernels as sk
 
 
@@ -143,15 +144,14 @@ class ScatterPlan:
         flags = [t.flag for t in self.shards]
         if len(flags) > 1:
             flags = [torch.cat([f.to(home) for f in flags])]
-        return gen in flags[0].tolist()
+        return gen in host("scatter.raised", flags[0].tolist())
 
     def add(self, d, mesh: Mesh):
         """The body deltas ``d`` [N,8] plus every term the shards' fused
         kernels wrote this iteration, in ``solver.index_sum``'s order: one
         hop adds into d in place; several chain the running sum and add d
-        at the end. Returns the deltas on the home device. Timed as the
-        chain (``collectives.timed``) over more than one shard, as
-        ``solver.chain_upd_t``."""
+        at the end. Returns the deltas on the home device. A span
+        ``chain`` over more than one shard, as ``solver.chain_upd_t``."""
         if len(self.shards) == 1 and len(self.hops) == 1:
             return self._sum(d, mesh)
         with span("chain"):

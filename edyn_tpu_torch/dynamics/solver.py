@@ -28,7 +28,8 @@ import torch
 from ..config import LARGE_SCALAR
 from ..core.state import KIND_STATIC
 from ..math import quat, vec
-from ..parallel.collectives import Mesh, span
+from ..parallel.collectives import Mesh
+from ..utils.profile import count, host, span
 from . import solver_kernels as sk
 from .scatter import body_table
 
@@ -159,7 +160,7 @@ def build_contact_rows(state, man, dt: float, use_restitution_solver: bool,
 
     R = max_rows or Rfull
     if R < Rfull:
-        src = torch.nonzero(valid0).flatten()
+        src = host("rows.compact", torch.nonzero(valid0)).flatten()
         cnt = src.shape[0]
         row_slot = torch.full((R,), Rfull - 1, dtype=torch.int64, device=dev)
         live = min(cnt, R)
@@ -669,8 +670,9 @@ def solve_restitution_sharded(state, packs, mesh: Mesh, num_iterations: int,
         # host-synced, once for all shards. The JAX loop exits one pass
         # later, after a pass that adds a zero update; stopping here gives
         # the same velocities.
-        if not bool(any_active):
+        if not host("restitution.any_active", bool(any_active)):
             break
+        count("restitution_passes")
         imp3 = [torch.zeros((3, p.Rp), dtype=p.tbl.dtype, device=p.device)
                 for p in packs]
         dvw_t = torch.zeros((6, N), dtype=velp_t.dtype, device=home)
@@ -713,6 +715,7 @@ def solve_restitution_planned(state, packs, mesh: Mesh, num_iterations: int,
         # host-synced, one read of every shard's flag, as above.
         if not plan.raised(gen, home):
             break
+        count("restitution_passes")
         imp3 = [torch.zeros((3, p.Rp), dtype=p.tbl.dtype, device=p.device)
                 for p in packs]
         d = torch.zeros((N, 8), dtype=velp.dtype, device=home)

@@ -4,48 +4,18 @@ process group): contiguous shard ranges and gathers onto one device. The
 ordered chain that adds every shard's terms into one body-space sum lives
 beside ``index_sum``, whose order of summation it follows
 (``dynamics.solver.chain_index_sum``).
+
+Inside a recorded step the gathers of several slices, the splits and the
+chains are spans of ``utils.profile`` (``gather``, ``split``, ``chain``).
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import time
 
 import torch
 
 from ..utils import cuda_lib
-
-
-# seconds of the gathers, splits and chains while ``timed()`` is on
-_TIMES = None
-
-
-@contextlib.contextmanager
-def timed():
-    """Inside, every ``gather``, ``split`` and chain is synchronised on
-    the card and its seconds added to the yielded dict. Off by default:
-    one test of a global a call."""
-    global _TIMES
-    _TIMES = {"gather": 0.0, "split": 0.0, "chain": 0.0}
-    try:
-        yield _TIMES
-    finally:
-        _TIMES = None
-
-
-@contextlib.contextmanager
-def span(name: str):
-    """Time the block under ``name`` while ``timed()`` is on."""
-    if _TIMES is None:
-        yield
-        return
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    yield
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-    _TIMES[name] += time.perf_counter() - t0
+from ..utils.profile import span
 
 
 def ranges(n: int, k: int) -> list:
@@ -86,10 +56,11 @@ def replicas(state, mesh) -> list:
 
 def gather(parts, device):
     """The shards' slices concatenated in shard order on ``device`` (one
-    slice is returned as it is, moved if it lies elsewhere)."""
+    slice is returned as it is, moved if it lies elsewhere; several are a
+    span ``gather``)."""
+    if len(parts) == 1:
+        return parts[0].to(device)
     with span("gather"):
-        if len(parts) == 1:
-            return parts[0].to(device)
         return torch.cat([p.to(device) for p in parts])
 
 

@@ -28,7 +28,8 @@ import dataclasses
 import torch
 
 from ..core.device import resolve_device
-from .collectives import Mesh, gather, ranges, span, to_device
+from ..utils.profile import span
+from .collectives import Mesh, gather, ranges, to_device
 
 BODY_AXIS = "b"
 REPLICATED = None

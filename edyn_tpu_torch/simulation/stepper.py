@@ -8,9 +8,20 @@ stepper_sequential.cpp:28-152, solver.cpp:387-468). Phase order:
   velocity iterations, each followed by the joint solve -> impulse
   writeback -> integrate -> position iterations -> joint positions)
 
+Each phase is a span of ``utils.profile`` (recorded while tracing is on):
+``step`` at the root; ``aabbs``, ``broadphase`` (the carry decision and
+the dense or sweep pass), ``manifold_slots``, ``narrowphase`` (children
+``narrowphase.classify``, one ``narrowphase.<CLASS>`` per bucket class,
+``narrowphase.merge``), ``islands``, ``rows`` (row build, ladder width,
+shard cut, pack) and ``solve`` (children ``scatter_plan``,
+``restitution``, ``rhs_refresh`` with gravity, ``joint_rows``,
+``warm_start``, ``velocity``, ``writeback_integrate``, ``position``,
+``joint_positions``).
+
 PyTorch runs eagerly, so each device-side branch of the JAX step
 (``lax.cond`` / ``while_loop``) is a host-synced Python branch here; each
-site says so where it is taken.
+site says so where it is taken, and counts itself
+(``profile.host``).
 
 The step runs over a mesh of devices (``parallel.Mesh``):
 ``SceneMeta.shard_mesh``, set by ``parallel.make_sharded_step``, or one
@@ -46,6 +57,8 @@ from ..math import quat
 from ..parallel.collectives import Mesh, gather, ranges
 from ..shapes.aabb import compute_aabbs
 from ..shapes.params import ShapeType
+from ..utils import profile
+from ..utils.profile import host, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,22 +153,23 @@ def prepare_contacts(state, settings: Settings, meta: SceneMeta):
     """``prepare_rows`` without the rows: (state, man, counters). The dense
     broadphase and the narrowphase run over the step's mesh."""
     dt = settings.fixed_dt
-    amin, amax = compute_aabbs(state.shape_type, state.origin_pos(),
-                               state.orn, state.convex, state.shape_index,
-                               state.mesh)
-    # carried pair-admission boxes: re-seated (swept tight box + margin)
-    # only when the swept tight box escapes them
-    swept = state.linvel * dt
-    tmin = amin + torch.clamp(swept, max=0.0)
-    tmax = amax + torch.clamp(swept, min=0.0)
-    escaped = torch.any((tmin < state.bp_aabb_min)
-                        | (tmax > state.bp_aabb_max), dim=-1)
-    bp_min = torch.where(escaped[:, None], tmin - PAIR_SEPARATION_MARGIN,
-                         state.bp_aabb_min)
-    bp_max = torch.where(escaped[:, None], tmax + PAIR_SEPARATION_MARGIN,
-                         state.bp_aabb_max)
-    state = dataclasses.replace(state, aabb_min=amin, aabb_max=amax,
-                                bp_aabb_min=bp_min, bp_aabb_max=bp_max)
+    with span("aabbs"):
+        amin, amax = compute_aabbs(state.shape_type, state.origin_pos(),
+                                   state.orn, state.convex,
+                                   state.shape_index, state.mesh)
+        # carried pair-admission boxes: re-seated (swept tight box +
+        # margin) only when the swept tight box escapes them
+        swept = state.linvel * dt
+        tmin = amin + torch.clamp(swept, max=0.0)
+        tmax = amax + torch.clamp(swept, min=0.0)
+        escaped = torch.any((tmin < state.bp_aabb_min)
+                            | (tmax > state.bp_aabb_max), dim=-1)
+        bp_min = torch.where(escaped[:, None],
+                             tmin - PAIR_SEPARATION_MARGIN, state.bp_aabb_min)
+        bp_max = torch.where(escaped[:, None],
+                             tmax + PAIR_SEPARATION_MARGIN, state.bp_aabb_max)
+        state = dataclasses.replace(state, aabb_min=amin, aabb_max=amax,
+                                    bp_aabb_min=bp_min, bp_aabb_max=bp_max)
 
     # pair-list carry: when no valid body's box re-seated, last step's
     # sorted pair list is what find_pairs would emit. Reused only when the
@@ -164,50 +178,61 @@ def prepare_contacts(state, settings: Settings, meta: SceneMeta):
     # package, whose carry reports 0 and so never grows). A user pair
     # filter turns the carry off (stepper.py:350-354 in the JAX package).
     # device branch (stepper.py:367 in the JAX package): host-synced here
-    validb = state.valid & (state.shape_type != ShapeType.NONE)
-    can_reuse = (meta.should_collide_fn is None
-                 and bool(state.bp_carry_ok)
-                 and not bool(torch.any(escaped & validb))
-                 and int(state.overflow[0]) == 0)
-    P = meta.max_pairs
-    if can_reuse:
-        keys = state.contacts.sort_key[:P]
-        pvalid = state.contacts.sort_pvalid[:P]
-        _, pa, pb = decode_keys(keys, state.capacity)
-        bp_dropped = bp_alarms = 0
-    else:
-        keys, pa, pb, pvalid, bp_dropped, bp_alarms = broadphase(
-            state, meta)
-    state = dataclasses.replace(
-        state, bp_carry_ok=torch.tensor(True, device=state.device))
+    with span("broadphase"):
+        validb = state.valid & (state.shape_type != ShapeType.NONE)
+        can_reuse = (
+            meta.should_collide_fn is None
+            and host("stepper.carry_ok", bool(state.bp_carry_ok))
+            and not host("stepper.escaped",
+                         bool(torch.any(escaped & validb)))
+            and host("stepper.last_dropped", int(state.overflow[0])) == 0)
+        P = meta.max_pairs
+        if can_reuse:
+            keys = state.contacts.sort_key[:P]
+            pvalid = state.contacts.sort_pvalid[:P]
+            _, pa, pb = decode_keys(keys, state.capacity)
+            bp_dropped = bp_alarms = 0
+        else:
+            keys, pa, pb, pvalid, bp_dropped, bp_alarms = broadphase(
+                state, meta)
+        state = dataclasses.replace(state, bp_carry_ok=host(
+            "stepper.carry_flag", torch.tensor(True, device=state.device)))
 
-    old = state.contacts
-    man, edge_dropped, man_dropped, pairs_same = update_slots(
-        old, keys, pa, pb, pvalid)
-    # bodies whose near-contact manifold was destroyed must wake
-    edge_wake = edge_dropped & torch.any(old.point_valid, -1)
-    wake_bodies = torch.zeros((state.capacity,), dtype=torch.bool,
-                              device=state.device)
-    wake_bodies[old.body_a[edge_wake].long()] = True
-    wake_bodies[old.body_b[edge_wake].long()] = True
-    man, np_dropped = update_contacts_sharded(
-        state, man, settings.collision_threshold, meta.types_present,
-        meta.bucket_cap, dt, settings.mesh_triangle_cull,
-        step_mesh(state, meta))
+    with span("manifold_slots"):
+        old = state.contacts
+        man, edge_dropped, man_dropped, pairs_same = update_slots(
+            old, keys, pa, pb, pvalid)
+        # bodies whose near-contact manifold was destroyed must wake (each
+        # write: a mask index and the scalar's copy)
+        edge_wake = edge_dropped & torch.any(old.point_valid, -1)
+        wake_bodies = torch.zeros((state.capacity,), dtype=torch.bool,
+                                  device=state.device)
+        wake_bodies[old.body_a[edge_wake].long()] = True
+        host("stepper.wake_a", n=2)
+        wake_bodies[old.body_b[edge_wake].long()] = True
+        host("stepper.wake_b", n=2)
+    with span("narrowphase"):
+        man, np_dropped = update_contacts_sharded(
+            state, man, settings.collision_threshold, meta.types_present,
+            meta.bucket_cap, dt, settings.mesh_triangle_cull,
+            step_mesh(state, meta))
 
-    # steady-state island skip: unchanged pair list and pointed mask for
-    # >= 2*RESET_PERIOD steps
-    pointed = man.valid & torch.any(man.point_valid, -1)
-    steady = pairs_same and bool(torch.all(pointed == state.edge_pointed))
-    stable_steps = (state.island_stable_steps + 1 if steady
-                    else torch.zeros_like(state.island_stable_steps))
-    state = dataclasses.replace(state, contacts=man, edge_pointed=pointed,
-                                island_stable_steps=stable_steps)
-    skip_labels = int(stable_steps) >= 2 * islands_mod.RESET_PERIOD
-    state = islands_mod.update_sleep(state, man, dt, settings.enable_sleeping,
-                                     meta.island_iters,
-                                     wake_bodies=wake_bodies,
-                                     skip_labels=skip_labels)
+    with span("islands"):
+        # steady-state island skip: unchanged pair list and pointed mask
+        # for >= 2*RESET_PERIOD steps
+        pointed = man.valid & torch.any(man.point_valid, -1)
+        steady = pairs_same and host("stepper.pointed_same", bool(
+            torch.all(pointed == state.edge_pointed)))
+        stable_steps = (state.island_stable_steps + 1 if steady
+                        else torch.zeros_like(state.island_stable_steps))
+        state = dataclasses.replace(state, contacts=man,
+                                    edge_pointed=pointed,
+                                    island_stable_steps=stable_steps)
+        skip_labels = host("stepper.stable_steps", int(stable_steps)) \
+            >= 2 * islands_mod.RESET_PERIOD
+        state = islands_mod.update_sleep(
+            state, man, dt, settings.enable_sleeping, meta.island_iters,
+            wake_bodies=wake_bodies, skip_labels=skip_labels)
     return state, man, (bp_dropped, np_dropped, man_dropped, bp_alarms)
 
 
@@ -232,20 +257,28 @@ def physics_step(state, settings: Settings, meta: SceneMeta):
     """One fixed-dt step of the whole world, over ``meta.shard_mesh`` when
     it is set (the state then lives on its home device) and else as one
     shard on the state's device."""
-    dt = settings.fixed_dt
-    use_rest = settings.num_restitution_iterations > 0
-    mesh = step_mesh(state, meta)
-    state, man, rows, (bp_dropped, np_dropped, man_dropped,
-                       bp_alarms) = prepare_rows(state, settings, meta)
-    state = _solve_phase(state, man, _shard_rows(rows, meta, mesh), settings,
-                         meta, use_rest, mesh)
-    return dataclasses.replace(
-        state,
-        step_count=state.step_count + 1,
-        sim_time=state.sim_time + dt,
-        overflow=torch.tensor([bp_dropped, np_dropped, rows.dropped,
-                               bp_alarms, man_dropped], dtype=torch.int32,
-                              device=state.device))
+    with profile.step(state.device):
+        dt = settings.fixed_dt
+        use_rest = settings.num_restitution_iterations > 0
+        mesh = step_mesh(state, meta)
+        state, man, (bp_dropped, np_dropped, man_dropped,
+                     bp_alarms) = prepare_contacts(state, settings, meta)
+        with span("rows"):
+            rows = solver_mod.build_contact_rows(
+                state, man, dt, use_rest, settings.mass_splitting,
+                meta.has_spin_roll, meta.max_rows)
+            parts = _shard_rows(rows, meta, mesh)
+            packs = _pack(parts, mesh)
+        with span("solve"):
+            state = _solve_phase(state, man, parts, packs, settings, meta,
+                                 use_rest, mesh)
+        return dataclasses.replace(
+            state,
+            step_count=state.step_count + 1,
+            sim_time=state.sim_time + dt,
+            overflow=host("stepper.overflow", torch.tensor(
+                [bp_dropped, np_dropped, rows.dropped, bp_alarms,
+                 man_dropped], dtype=torch.int32, device=state.device)))
 
 
 def _shard_rows(rows, meta: SceneMeta, mesh: Mesh) -> list:
@@ -259,116 +292,134 @@ def _shard_rows(rows, meta: SceneMeta, mesh: Mesh) -> list:
             for s, (r0, r1) in enumerate(ranges(width, mesh.size))]
 
 
-def _solve_phase(state, man, parts, settings: Settings, meta: SceneMeta,
-                 use_rest: bool, mesh: Mesh):
+def _pack(parts, mesh: Mesh) -> list:
+    """Each shard's rows packed on its device (``solver.ShardPack``)."""
+    packs = []
+    for s, rows in enumerate(parts):
+        with mesh.scope(s):
+            packs.append(solver_mod.ShardPack.of_rows(rows))
+    return packs
+
+
+def _solve_phase(state, man, parts, packs, settings: Settings,
+                 meta: SceneMeta, use_rest: bool, mesh: Mesh):
     """Everything row-dependent between narrowphase and the step epilogue
     (restitution -> gravity -> rhs refresh -> joint rows -> warm start ->
     velocity iterations, each followed by the joint solve -> impulse
     writeback -> integrate -> position iterations -> joint positions),
     over the shards' contact rows (``parts``, one ``ContactRows`` on each
-    shard's device): each shard packs its table and launches its own K3b,
-    K3a, K1 and K2; the deltas meet in ordered chains on the home device,
-    where the joints (always at their full width), the impulse writeback
-    and the integration run."""
+    shard's device) and their packed tables (``packs``, ``_pack``'s): each
+    shard launches its own K3b, K3a, K1 and K2; the deltas meet in ordered
+    chains on the home device, where the joints (always at their full
+    width), the impulse writeback and the integration run."""
     dt = settings.fixed_dt
     home = mesh.home
-    packs = []
-    for s, rows in enumerate(parts):
-        with mesh.scope(s):
-            packs.append(solver_mod.ShardPack.of_rows(rows))
     # on the card: where the fused K3a, K1 and K2 write their terms, one
     # stable sort for the whole phase (None on the CPU: the unfused path)
-    plan = scatter.for_step(state, packs, mesh)
+    with span("scatter_plan"):
+        plan = scatter.for_step(state, packs, mesh)
 
     if use_rest:
-        linvel, angvel = solver_mod.solve_restitution_sharded(
-            state, packs, mesh, settings.num_restitution_iterations,
-            settings.num_individual_restitution_iterations, plan)
-        state = dataclasses.replace(state, linvel=linvel, angvel=angvel)
+        with span("restitution"):
+            linvel, angvel = solver_mod.solve_restitution_sharded(
+                state, packs, mesh, settings.num_restitution_iterations,
+                settings.num_individual_restitution_iterations, plan)
+            state = dataclasses.replace(state, linvel=linvel, angvel=angvel)
 
-    state = apply_gravity(state, dt)
+    with span("rhs_refresh"):
+        state = apply_gravity(state, dt)
 
-    # refresh the rhs rows of the packed tables (rhs_n 48 | rhs_1 49 |
-    # rhs_2 50; spin/roll rhs at C_BASE+27:30)
-    with_sr = parts[0].sA_n is not None
-    for s, p in enumerate(packs):
-        with mesh.scope(s):
-            vel = SimpleNamespace(linvel=state.linvel.to(p.device),
-                                  angvel=state.angvel.to(p.device))
-            rows = solver_mod.refresh_contact_rhs(parts[s], vel, dt,
-                                                  use_rest)
-            parts[s] = rows
-            pad = p.Rp - rows.valid.shape[0]
+        # refresh the rhs rows of the packed tables (rhs_n 48 | rhs_1 49 |
+        # rhs_2 50; spin/roll rhs at C_BASE+27:30)
+        with_sr = parts[0].sA_n is not None
+        for s, p in enumerate(packs):
+            with mesh.scope(s):
+                vel = SimpleNamespace(linvel=state.linvel.to(p.device),
+                                      angvel=state.angvel.to(p.device))
+                rows = solver_mod.refresh_contact_rhs(parts[s], vel, dt,
+                                                      use_rest)
+                parts[s] = rows
+                pad = p.Rp - rows.valid.shape[0]
 
-            def prhs(*xs):
-                return torch.nn.functional.pad(torch.stack(xs), (0, pad))
+                def prhs(*xs):
+                    return torch.nn.functional.pad(torch.stack(xs),
+                                                   (0, pad))
 
-            p.tbl[48:51] = prhs(rows.rn.rhs, rows.r1.rhs, rows.r2.rhs)
-            if with_sr:
-                p.tbl[sk.C_BASE + 27:sk.C_BASE + 30] = prhs(
-                    rows.rhs_spin, rows.rhs_roll1, rows.rhs_roll2)
+                p.tbl[48:51] = prhs(rows.rn.rhs, rows.r1.rhs, rows.r2.rhs)
+                if with_sr:
+                    p.tbl[sk.C_BASE + 27:sk.C_BASE + 30] = prhs(
+                        rows.rhs_spin, rows.rhs_roll1, rows.rhs_roll2)
     if meta.has_joints:
-        jrows, new_jangle = joints_mod.build_joint_rows(
-            state, dt, settings.mass_splitting, types=meta.joint_types,
-            cone_cap=settings.cone_max_violation)
+        with span("joint_rows"):
+            jrows, new_jangle = joints_mod.build_joint_rows(
+                state, dt, settings.mass_splitting, types=meta.joint_types,
+                cone_cap=settings.cone_max_violation)
     else:
         jrows, new_jangle = None, state.joints.angle
 
     # warm start + velocity iterations; deltas travel transposed [6, N]
     N = state.capacity
     M, P = man.point_valid.shape
-    imp_packed = torch.cat([
-        man.normal_impulse[..., None], man.friction_impulse,
-        man.spin_impulse[..., None], man.roll_impulse], dim=-1)
-    flat_imp = imp_packed.reshape(M * P, 6)
-    imp6s = [flat_imp[rows.row_slot.to(home)].to(p.device)
-             for rows, p in zip(parts, packs)]
-    dvw = solver_mod.warm_start_sharded(
-        parts, imp6s, torch.zeros((N, 6), dtype=state.dtype, device=home),
-        mesh).to(home)
     j_imp = state.joints.impulses
-    if meta.has_joints:
-        dvw = joints_mod.warm_start_joints(jrows, j_imp, dvw)
-    imp_ts = [torch.nn.functional.pad(
-        imp6, (0, 0, 0, p.Rp - imp6.shape[0])).T.contiguous()
-        for imp6, p in zip(imp6s, packs)]
+    with span("warm_start"):
+        imp_packed = torch.cat([
+            man.normal_impulse[..., None], man.friction_impulse,
+            man.spin_impulse[..., None], man.roll_impulse], dim=-1)
+        flat_imp = imp_packed.reshape(M * P, 6)
+        imp6s = [flat_imp[rows.row_slot.to(home)].to(p.device)
+                 for rows, p in zip(parts, packs)]
+        dvw = solver_mod.warm_start_sharded(
+            parts, imp6s,
+            torch.zeros((N, 6), dtype=state.dtype, device=home),
+            mesh).to(home)
+        if meta.has_joints:
+            with span("joint_warm_start"):
+                dvw = joints_mod.warm_start_joints(jrows, j_imp, dvw)
+        imp_ts = [torch.nn.functional.pad(
+            imp6, (0, 0, 0, p.Rp - imp6.shape[0])).T.contiguous()
+            for imp6, p in zip(imp6s, packs)]
 
     def joint_pass(d):
         # the joint solve works on [N,6] deltas, after each contact
         # iteration's scatter-add
         nonlocal j_imp
-        j_imp, d = joints_mod.solve_joints_once(jrows, j_imp, d)
+        with span("joint_velocity"):
+            j_imp, d = joints_mod.solve_joints_once(jrows, j_imp, d)
         return d
 
-    imp_ts, dvw = solver_mod.solve_velocities(
-        packs, imp_ts, dvw, with_sr, mesh,
-        settings.num_solver_velocity_iterations, plan,
-        joint_pass if meta.has_joints else None)
+    with span("velocity"):
+        imp_ts, dvw = solver_mod.solve_velocities(
+            packs, imp_ts, dvw, with_sr, mesh,
+            settings.num_solver_velocity_iterations, plan,
+            joint_pass if meta.has_joints else None)
 
-    # store applied impulses for next-step warm starting: one packed
-    # scatter through the row compaction map, invalid rows dropped
-    imp6 = gather([t.T[:rows.valid.shape[0]] for t, rows in zip(imp_ts, parts)],
-                  home)
-    valid = gather([rows.valid for rows in parts], home)
-    slot = gather([rows.row_slot for rows in parts], home)
-    slot_w = torch.where(valid, slot, torch.full_like(slot, M * P))
-    flat = set_drop(flat_imp, slot_w, imp6).reshape(M, P, 6)
-    man = dataclasses.replace(
-        man,
-        normal_impulse=flat[..., 0].contiguous(),
-        friction_impulse=flat[..., 1:3].contiguous(),
-        spin_impulse=flat[..., 3].contiguous(),
-        roll_impulse=flat[..., 4:6].contiguous())
-    joints = dataclasses.replace(state.joints, impulses=j_imp,
-                                 angle=new_jangle)
-    state = dataclasses.replace(state, contacts=man, joints=joints)
+    with span("writeback_integrate"):
+        # store applied impulses for next-step warm starting: one packed
+        # scatter through the row compaction map, invalid rows dropped
+        imp6 = gather([t.T[:rows.valid.shape[0]]
+                       for t, rows in zip(imp_ts, parts)], home)
+        valid = gather([rows.valid for rows in parts], home)
+        slot = gather([rows.row_slot for rows in parts], home)
+        slot_w = torch.where(valid, slot, torch.full_like(slot, M * P))
+        flat = set_drop(flat_imp, slot_w, imp6).reshape(M, P, 6)
+        man = dataclasses.replace(
+            man,
+            normal_impulse=flat[..., 0].contiguous(),
+            friction_impulse=flat[..., 1:3].contiguous(),
+            spin_impulse=flat[..., 3].contiguous(),
+            roll_impulse=flat[..., 4:6].contiguous())
+        joints = dataclasses.replace(state.joints, impulses=j_imp,
+                                     angle=new_jangle)
+        state = dataclasses.replace(state, contacts=man, joints=joints)
+        state = integrate_velocities(state, dvw[:, 0:3], dvw[:, 3:6], dt)
 
-    state = integrate_velocities(state, dvw[:, 0:3], dvw[:, 3:6], dt)
-    state = solve_positions_sharded(state, packs, mesh,
-                                    settings.num_solver_position_iterations,
-                                    plan)
+    with span("position"):
+        state = solve_positions_sharded(
+            state, packs, mesh, settings.num_solver_position_iterations,
+            plan)
     if meta.has_joints:
-        state = joints_mod.solve_joint_positions(
-            state, settings.num_solver_position_iterations,
-            types=meta.joint_types)
+        with span("joint_positions"):
+            state = joints_mod.solve_joint_positions(
+                state, settings.num_solver_position_iterations,
+                types=meta.joint_types)
     return state

@@ -11,8 +11,9 @@ times ``--steps`` steps four times, in turns full, skip, skip, full: "skip"
 with ``SceneMeta.joint_types`` as ``make_world`` derives it (the joint
 passes leave out the sections of types no valid joint has), "full" with
 every joint type in it (the full masked evaluation; held bit-equal to the
-skip by ``tests/test_torch_joints.py``). Each turn gives the per-phase
-ms/step and the device's busy share and kernels per step of
+skip by ``tests/test_torch_joints.py``). Each turn gives the per-span
+ms/step (``joint_rows``, ``joint_velocity``, ``joint_positions``, ...)
+and the device's busy share and kernels per step of
 ``scripts/torch_step_profile.py``. Needs a CUDA device; prints one JSON
 line at the end.
 """
@@ -60,9 +61,9 @@ def main() -> int:
         prof.pop("top")
         turns.append(dict(mode=mode, phases_ms_per_step=phases, **prof))
         print(f"{mode}: step {phases['step']:.3f} ms (joint rows "
-              f"{phases['joint rows']:.3f}, joint velocity solve "
-              f"{phases['joint velocity solve']:.3f}, joint positions "
-              f"{phases['joint positions']:.3f}); under the profiler "
+              f"{phases['joint_rows']:.3f}, joint velocity solve "
+              f"{phases['joint_velocity']:.3f}, joint positions "
+              f"{phases['joint_positions']:.3f}); under the profiler "
               f"{prof['wall_ms_per_step']:.3f} ms/step, device busy "
               f"{prof['device_ms_per_step']:.3f} ms/step, "
               f"{prof['kernel_launches_per_step']:.0f} kernels/step",

@@ -14,21 +14,22 @@ whose joint phases are timed on their own; or, with ``--scene terrain``,
 ``--settle`` steps (or, with ``--scene asleep``, runs ``bench.py``'s
 protocol on ``mixed_pile(--bodies)`` through ``chip_smoke.asleep_path``
 and takes the mostly-asleep world it ends with, ``--settle`` ignored),
-then times ``--steps`` steps twice:
+then times ``--steps`` steps three times:
 
-1. with each phase function of the stepper wrapped in a timer that
-   synchronises the device before and after it, giving milliseconds per
-   step for every phase (the rest of the step is the glue between them),
-   and inside the narrowphase each bucket class on its own row;
-2. under ``torch.profiler`` without the timers, giving the device's busy
-   share of the wall time and the kernels that take the most device time.
+1. with the step's spans recorded (``edyn_tpu_torch.utils.profile``),
+   giving each phase's device milliseconds per step, the narrowphase's
+   bucket classes and the solve's loops as spans of their own (the step's
+   own time outside its phases is ``glue``);
+2. under ``torch.profiler``, giving the device's idle time per step by
+   the span the host was in at each gap;
+3. under ``torch.profiler`` again, giving the device's busy share of the
+   wall time and the kernels that take the most device time.
 
 Needs a CUDA device; prints one JSON line at the end.
 """
 from __future__ import annotations
 
 import argparse
-import collections
 import json
 import os
 import sys
@@ -38,90 +39,92 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 
-def _timed(table, name, fn):
-    import torch
-
-    def wrapper(*a, **k):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn(*a, **k)
-        torch.cuda.synchronize()
-        table[name] += time.perf_counter() - t0
-        return out
-    return wrapper
-
-
 def phase_times(world, steps: int) -> dict:
-    """ms per step of each phase, with synchronising timers installed on the
-    stepper's phase functions for the duration of the run; the
-    narrowphase's bucket classes are rows of their own ("narrowphase:
-    <class>"), parts of the narrowphase row."""
+    """ms per step of each span of the step (``utils.profile``: device
+    extents, ``step`` the whole step, ``glue`` its own time outside its
+    phases), from ``steps`` steps with tracing on; then, from ``steps``
+    more under ``torch.profiler``, the device's idle time per step put
+    down to the innermost span the stepping thread was in at each gap's
+    middle (``idle: <span>``; ``idle: (outside the step)`` between
+    steps)."""
     import torch
-    from edyn_tpu_torch.collision import narrowphase as nph
-    from edyn_tpu_torch.constraints import joints
-    from edyn_tpu_torch.dynamics import islands, scatter, solver
-    from edyn_tpu_torch.dynamics import solver_kernels as sk
-    from edyn_tpu_torch.simulation import stepper
+    from edyn_tpu_torch.utils import profile as spans
+    from torch.profiler import ProfilerActivity
 
-    table = collections.defaultdict(float)
-    patches = [
-        (stepper, "compute_aabbs", "aabbs"),
-        (stepper, "find_pairs", "broadphase"),
-        (stepper, "find_pairs_sweep", "broadphase"),
-        (stepper, "update_slots", "manifold slots"),
-        (stepper, "update_contacts_sharded", "narrowphase"),
-        (islands, "update_sleep", "islands and sleep"),
-        (solver, "build_contact_rows", "contact rows"),
-        (sk, "pack_rows_t", "pack row table"),
-        (solver, "solve_restitution_sharded", "restitution (K3a, K3b)"),
-        (solver, "refresh_contact_rhs", "rhs refresh"),
-        (solver, "warm_start_sharded", "warm start"),
-        (solver, "solve_contacts_sharded", "velocity iterations (K1)"),
-        (solver, "solve_contacts_planned", "velocity iterations (K1)"),
-        (scatter, "for_step", "scatter plan"),
-        (stepper, "solve_positions_sharded", "position iterations (K2)"),
-        (joints, "build_joint_rows", "joint rows"),
-        (joints, "warm_start_joints", "joint warm start"),
-        (joints, "solve_joints_once", "joint velocity solve"),
-        (joints, "solve_joint_positions", "joint positions"),
-    ]
-    names = {getattr(nph, k): k[2:] for k in dir(nph) if k.startswith("B_")}
-    buckets = collections.defaultdict(float)
-    run_bucket = nph._run_bucket
-
-    def timed_bucket(bucket, *a, **k):
-        return _timed(buckets, f"narrowphase: {names[bucket]}",
-                      run_bucket)(bucket, *a, **k)
-    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
-    saved += [(nph, "_run_bucket", run_bucket),
-              (nph, "collide_support_unified", nph.collide_support_unified)]
-    for mod, attr, name in patches:
-        setattr(mod, attr, _timed(table, name, getattr(mod, attr)))
-    nph._run_bucket = timed_bucket
-    nph.collide_support_unified = _timed(
-        buckets, "narrowphase: UNIFIED (K4)", nph.collide_support_unified)
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    spans.reset()
+    torch.cuda.synchronize()
+    with spans.enable():
+        world.step(steps)
+    rec = spans.recorded()
+    out = {k: v["device_ms"] / steps for k, v in rec["spans"].items()}
+    out["glue"] = rec["spans"]["step"]["self_ms"] / steps
+    spans.reset()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
         world.step(steps)
         torch.cuda.synchronize()
-        total = time.perf_counter() - t0
-    finally:
-        for mod, attr, fn in saved:
-            setattr(mod, attr, fn)
-    out = {k: 1e3 * v / steps for k, v in table.items()}
-    out["glue"] = 1e3 * total / steps - sum(out.values())
-    out["step"] = 1e3 * total / steps
-    out.update({k: 1e3 * v / steps for k, v in buckets.items()})
+    spans.reset()
+    for k, ns in idle_by_span(prof.profiler.kineto_results.events(),
+                              set(rec["spans"])).items():
+        out[f"idle: {k}"] = ns * 1e-6 / steps
     return out
 
 
+def idle_by_span(events, names) -> dict:
+    """Nanoseconds with nothing on the device, from the first span's start
+    to the last one's end, by the innermost span (a ``record_function`` of
+    a name in ``names``, on the thread of the ``step`` spans) running at
+    each gap's middle."""
+    dev, marks = [], []
+    for e in events:
+        if "CUDA" in str(e.device_type()):
+            if e.name() not in names:
+                dev.append((e.start_ns(), e.end_ns()))
+        elif e.name() in names:
+            marks.append((e.start_ns(), e.end_ns(), e.name(),
+                          e.start_thread_id()))
+    tid = next(m[3] for m in marks if m[2] == "step")
+    marks = sorted((m for m in marks if m[3] == tid),
+                   key=lambda m: (m[0], -m[1]))
+    w0 = min(m[0] for m in marks)
+    w1 = max(m[1] for m in marks)
+    dev.sort()
+    gaps, reach = [], w0
+    for lo, hi in dev:
+        if lo > reach and reach < w1:
+            gaps.append((reach, min(lo, w1)))
+        reach = max(reach, hi)
+    if reach < w1:
+        gaps.append((reach, w1))
+    # the gaps in the order of their middles, the spans in start order,
+    # the spans open at a middle on a stack (they nest)
+    out: dict = {}
+    stack, j = [], 0
+    for lo, hi in sorted(gaps, key=lambda g: g[0] + g[1]):
+        mid = (lo + hi) // 2
+        while j < len(marks) and marks[j][0] <= mid:
+            while stack and stack[-1][1] < marks[j][0]:
+                stack.pop()
+            stack.append(marks[j])
+            j += 1
+        while stack and stack[-1][1] < mid:
+            stack.pop()
+        inner = stack[-1][2] if stack else "(outside the step)"
+        out[inner] = out.get(inner, 0) + hi - lo
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
 def profile(world, steps: int) -> dict:
-    """Device busy share and the top kernels by device time."""
+    """Device busy share and the top kernels by device time (the step's
+    spans, recorded under the profiler, are the device's annotations, not
+    its work: left out)."""
     import torch
+    from edyn_tpu_torch.utils import profile as spans
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
+    spans.reset()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA]) as prof:
@@ -129,6 +132,8 @@ def profile(world, steps: int) -> dict:
         world.step(steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    names = set(spans.recorded()["spans"])
+    spans.reset()
 
     def dev_us(e):
         for attr in ("self_device_time_total", "self_cuda_time_total"):
@@ -139,7 +144,8 @@ def profile(world, steps: int) -> dict:
     # device events only (kernels, copies, fills): an aten op's entry
     # repeats the device time of the kernels it launched
     kernels = [(e.key, dev_us(e), e.count) for e in prof.key_averages()
-               if e.device_type != DeviceType.CPU and dev_us(e) > 0]
+               if e.device_type != DeviceType.CPU and dev_us(e) > 0
+               and e.key not in names]
     busy = sum(t for _, t, _ in kernels) * 1e-6
     kernels.sort(key=lambda x: -x[1])
     return dict(wall_ms_per_step=1e3 * wall / steps,

@@ -1,7 +1,9 @@
 """The JAX package's async worker, presentation and profile tests
-(``tests/test_async_and_profile.py``, all 7) on the port's CPU worlds,
-and a stress test of the kernels' launch counts from several threads:
-``CASES[0:4]`` here, the others in ``test_torch_async_behaviour_b.py``."""
+(``tests/test_async_and_profile.py``, all 7 but ``profile_step``, which
+the port's spans replace: ``test_torch_profile.py``) on the port's CPU
+worlds, and a stress test of the kernels' launch counts from several
+threads: ``CASES[0:4]`` here, the others in
+``test_torch_async_behaviour_b.py``."""
 import time
 
 import numpy as np
@@ -76,15 +78,6 @@ def counters():
     assert c.num_awake in (0, 1)
 
 
-def profile_step_runs():
-    w, box = _world()
-    w.step(2)
-    timers = profile.profile_step(w, repeats=1)
-    for phase in ("broadphase", "narrowphase", "islands", "solve",
-                  "position_correction", "full_step"):
-        assert phase in timers and timers[phase] >= 0.0
-
-
 def async_raycast_and_query():
     w, box = _world()
     w.step(1)
@@ -147,7 +140,7 @@ def launch_counts_from_threads():
 
 
 CASES = [async_worker_steps_and_applies_ops, presentation_extrapolates,
-         presentation_discontinuity_decays, counters, profile_step_runs,
+         presentation_discontinuity_decays, counters,
          async_raycast_and_query, async_raycasts_are_batched,
          launch_counts_from_threads]
 
