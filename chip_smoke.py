@@ -9,7 +9,7 @@ prints no result):
 1. Device and build: the card's name and power limit from ``nvidia-smi``,
    then one ``nvcc`` per source of ``edyn_tpu_torch/csrc/`` (solver
    kernels K1-K3b, the UNIFIED narrowphase kernel K4, the overlap count
-   K5), all started together.
+   K5, the manifold merge), all started together.
 2. Kernels against their plain PyTorch versions on the card, on random
    inputs at the main path's full width: the solver kernels at C = 97
    table rows, Rp = 160,128; K4 on 190,000 random pairs of the 10k pile's
@@ -180,12 +180,27 @@ prints no result):
    turns, the gathers' and chains' ms, kernels a step, peak memory per
    device, on 13a's end state (pickled by 13a's process). ``--phases
    13`` runs 13a, 13b and 13c in order in one process.
+14. The merge kernel (``csrc/merge_kernel.cu``): the share of rows where
+   PyTorch's own sums on the card add in the orders the kernel repeats
+   (raises below all of them); bit-equal to the plain merge
+   (``merge_kernel.merge_fresh_plain``) on every output leaf, on the
+   crafted tables of ``collision/kernels/merge_cases.py`` at float32 and
+   float64 (each case's rule shown in the kernel's output too) and on the
+   65k drop of ``portbench/configs/pile65k.json`` at its ``max_pairs``
+   (sweep after one dense step, 120 steps), timed there L2-cold against
+   its byte bound (``merge_slot_bytes``) beside the plain merge's one
+   call. Phases 3, 12a, 9 and 13a hold it the same way on every 30th step
+   of their own runs (``MergeWatch``: the 10k drop, its float64 twin, the
+   mostly-asleep steps, every shard of 13a's first run), check one launch
+   a step (a shard a step in 13a) and, but 13a, time it on their last
+   step's inputs. A leaf that differs stops the run.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -224,7 +239,8 @@ SOLVER_KERNELS = {"solve_iteration": "vel_kernel",
                   "ngs_iteration": "ngs_kernel",
                   "restitution_iteration": "rest_kernel",
                   "relvel": "relvel_kernel"}
-SOURCES = ("solver_kernels", "unified_kernel", "overlap_count")
+SOURCES = ("solver_kernels", "unified_kernel", "overlap_count",
+           "merge_kernel")
 K4 = dict(name="collide_support",
           source="edyn_tpu_torch/csrc/unified_kernel.cu",
           replaces="edyn_tpu/collision/kernels/pallas_unified.py:568")
@@ -1508,7 +1524,7 @@ def max_launches_per_step(s) -> dict:
             "solve_iteration": 0, "restitution_iteration": 0,
             "ngs_iteration": 0, "relvel": 0,
             "unified_features": 1, "pair_order": 1, "collide_support": 1,
-            "count_overlaps": 0}
+            "count_overlaps": 0, "merge": 1}
 
 
 # the unfused K1, K3a, K2 and K3b: never on the card's step
@@ -1528,6 +1544,7 @@ def main_path(n_bodies: int, steps: int, dev):
     """Phase 3: the port's main path through the user-facing entry points."""
     import torch
     import edyn_tpu_torch as et
+    from edyn_tpu_torch.collision.kernels import merge_kernel as mk
     from edyn_tpu_torch.collision.kernels import unified_kernel as uk
     from edyn_tpu_torch.dynamics import solver_kernels as sk
     from edyn_tpu_torch.utils.scenes import mixed_pile
@@ -1543,15 +1560,17 @@ def main_path(n_bodies: int, steps: int, dev):
 
     sk.reset_launch_counts()
     uk.reset_launch_counts()
+    mk.reset_launch_counts()
     t0 = time.perf_counter()
     first = max(1, steps - 20)
-    world.step_n(first)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    world.step_n(steps - first)
-    torch.cuda.synchronize()
+    with MergeWatch("10k pile") as watch:
+        world.step_n(first)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        world.step_n(steps - first)
+        torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = dict(sk.LAUNCHES, **uk.LAUNCHES)
+    launches = dict(sk.LAUNCHES, **uk.LAUNCHES, **mk.LAUNCHES)
 
     st = world.state
     per_step = max_launches_per_step(world.settings)
@@ -1569,13 +1588,17 @@ def main_path(n_bodies: int, steps: int, dev):
         if not (0 < n <= most if most else n == 0):
             raise AssertionError(f"{name}: {n} launches in {steps} steps, "
                                  f"expected {f'1..{most}' if most else 0}")
+    if launches["merge"] != steps:
+        raise AssertionError(f"merge: {launches['merge']} launches in "
+                             f"{steps} steps, one a step expected")
     lowest = check_pile(st, -FLOOR_BURIAL, "main")
     log(f"[main] max_pairs grew to {world.meta.max_pairs}")
+    merge = watched_merges(watch, "10k pile, landed")
     return world, launches, dict(
         steps=steps, seconds=t2 - t0, steps_per_s=steps / (t2 - t0),
         last_steps_per_s=(steps - first) / (t2 - t1), rows_count=rows_count,
         awake=awake, overflow=world.overflow_counters(),
-        max_pairs=world.meta.max_pairs, lowest_centre=lowest)
+        max_pairs=world.meta.max_pairs, lowest_centre=lowest, merge=merge)
 
 
 # How deep a body centre may sit below the floor at the end of the main
@@ -2799,19 +2822,22 @@ def _check_world(world, label: str):
 
 
 def _reset_counts():
+    from edyn_tpu_torch.collision.kernels import merge_kernel as mk
     from edyn_tpu_torch.collision.kernels import unified_kernel as uk
     from edyn_tpu_torch.dynamics import solver_kernels as sk
     from edyn_tpu_torch.ops import overlap_count as ov
     sk.reset_launch_counts()
     uk.reset_launch_counts()
     ov.reset_launch_counts()
+    mk.reset_launch_counts()
 
 
 def _read_counts() -> dict:
+    from edyn_tpu_torch.collision.kernels import merge_kernel as mk
     from edyn_tpu_torch.collision.kernels import unified_kernel as uk
     from edyn_tpu_torch.dynamics import solver_kernels as sk
     from edyn_tpu_torch.ops import overlap_count as ov
-    return dict(sk.LAUNCHES, **uk.LAUNCHES, **ov.LAUNCHES)
+    return dict(sk.LAUNCHES, **uk.LAUNCHES, **ov.LAUNCHES, **mk.LAUNCHES)
 
 
 def asleep_path(n_bodies: int, dev):
@@ -2879,10 +2905,12 @@ def asleep_path(n_bodies: int, dev):
                              f"{MIN_ASLEEP}: the mostly-asleep phase is "
                              "not mostly asleep")
     before = _read_counts()
-    mostly = _time_steps(world, BENCH_STEPS)
+    with MergeWatch("mostly asleep") as watch:
+        mostly = _time_steps(world, BENCH_STEPS)
     launches = _read_counts()
     asleep_launches = {k: launches[k] - before[k] for k in launches}
     _check_world(world, "bench mostly asleep")
+    merge = watched_merges(watch, "mostly asleep")
     st, _, rows, _ = prepare_rows(world.state, world.settings, world.meta)
     width = solve_width(rows, world.meta)
     full = rows.valid.shape[0]
@@ -2918,7 +2946,8 @@ def asleep_path(n_bodies: int, dev):
                 asleep_fraction=asleep_frac, first_call_s=first_call,
                 rows_count=int(rows.count), solve_width=width,
                 full_width=full, max_pairs=world.meta.max_pairs,
-                launches=launches, asleep_launches=asleep_launches), \
+                launches=launches, asleep_launches=asleep_launches,
+                merge=merge), \
         launches, asleep_launches, world, ids
 
 
@@ -3662,10 +3691,12 @@ def _leaves(x, name="state"):
 
 
 def _read_counts_f64() -> dict:
+    from edyn_tpu_torch.collision.kernels import merge_kernel as mk
     from edyn_tpu_torch.collision.kernels import unified_kernel as uk
     from edyn_tpu_torch.dynamics import solver_kernels as sk
     from edyn_tpu_torch.ops import overlap_count as ov
-    return dict(sk.LAUNCHES_F64, **uk.LAUNCHES_F64, **ov.LAUNCHES_F64)
+    return dict(sk.LAUNCHES_F64, **uk.LAUNCHES_F64, **ov.LAUNCHES_F64,
+                **mk.LAUNCHES_F64)
 
 
 def check_dtypes(st, label: str):
@@ -3704,11 +3735,12 @@ def f64_path(n_bodies: int, steps: int, dev, f32_main: dict):
         _reset_counts()
         t0 = time.perf_counter()
         first = max(1, steps - 20)
-        world.step_n(first)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        world.step_n(steps - first)
-        torch.cuda.synchronize()
+        with MergeWatch("10k pile f64") as watch:
+            world.step_n(first)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            world.step_n(steps - first)
+            torch.cuda.synchronize()
         t2 = time.perf_counter()
         budget = ov.suggest_max_pairs(world.state)
         f32c, f64c = _read_counts(), _read_counts_f64()
@@ -3722,6 +3754,9 @@ def f64_path(n_bodies: int, steps: int, dev, f32_main: dict):
         if not (0 < n <= most if most else n == 0):
             raise AssertionError(f"[f64] {name}_f64: {n} launches, expected "
                                  f"{f'1..{most}' if most else 0}")
+    if f64c["merge"] != steps:
+        raise AssertionError(f"[f64] merge_f64: {f64c['merge']} launches in "
+                             f"{steps} steps, one a step expected")
     plain = ov.count_overlaps_plain(st.aabb_min, st.aabb_max, st.valid)
     if budget != max(256, int(plain * 1.5)):
         raise AssertionError(f"[f64] suggest_max_pairs gives {budget}, the "
@@ -3733,7 +3768,8 @@ def f64_path(n_bodies: int, steps: int, dev, f32_main: dict):
                f32_steps_per_s=f32_main["steps_per_s"],
                f32_ms_per_step=1e3 * f32_main["seconds"] / f32_main["steps"],
                max_pairs=world.meta.max_pairs, suggest_max_pairs=budget,
-               lowest_centre=lowest)
+               lowest_centre=lowest,
+               merge=watched_merges(watch, "10k pile f64"))
     out["f64_over_f32"] = out["steps_per_s"] / out["f32_steps_per_s"]
     log(f"[f64] {steps} steps in {t2 - t0:.3f} s = "
         f"{out['steps_per_s']:.3f} steps/s ({out['ms_per_step']:.2f} "
@@ -4212,6 +4248,7 @@ def sharded_pile(dev) -> tuple:
                              f"{ref.overflow.tolist()}")
 
     runs = []
+    watch = MergeWatch("10k pile sharded")
     for run, hops in enumerate((False, True)):
         mesh = make_mesh(shard_devices(SHARDS), hop_each_shard=hops)
         step, dev0 = make_sharded_step(mesh, start, settings, meta)
@@ -4220,8 +4257,9 @@ def sharded_pile(dev) -> tuple:
         _sync_all()
         t0 = time.perf_counter()
         ds = dev0
-        for _ in range(SHARD_STEPS):
-            ds = step(ds)
+        with contextlib.nullcontext() if hops else watch:
+            for _ in range(SHARD_STEPS):
+                ds = step(ds)
         _sync_all()
         runs.append(dict(seconds=time.perf_counter() - t0,
                          launches=_read_counts(),
@@ -4256,6 +4294,11 @@ def sharded_pile(dev) -> tuple:
                 raise AssertionError(f"[sharded] shard {s} on "
                                      f"{mesh.devices[s]} launched no "
                                      f"{missing} (or K5): {counts}")
+            if counts.get("merge") != SHARD_STEPS:
+                raise AssertionError(f"[sharded] shard {s}: "
+                                     f"{counts.get('merge')} merges in "
+                                     f"{SHARD_STEPS} steps, one a step "
+                                     f"expected")
     if int(got.overflow.abs().sum()):
         raise AssertionError(f"[sharded] overflow {got.overflow.tolist()}")
     lowest = check_pile(got, -FLOOR_BURIAL, "sharded")
@@ -4274,8 +4317,8 @@ def sharded_pile(dev) -> tuple:
         launches=launches, per_shard_launches=runs[0]["per_shard"],
         k3b_bit_equal_per_shard=True, k3b_active_per_shard=k3b_active,
         live_points=int(got.contacts.point_valid.sum()),
-        lowest_centre=lowest)
-    del ref, runs
+        lowest_centre=lowest, merge=watched_merges(watch))
+    del ref, runs, watch
     return summary, launches, got, settings, meta
 
 
@@ -4509,8 +4552,271 @@ def phase13(dev, a=None, b=None) -> tuple:
     return dict(sharded_pile=a13, jax_cases=b["cases"], timing=c), launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the manifold merge kernel
+# ---------------------------------------------------------------------------
+
+MERGE_HELD_EVERY = 30         # a watched run's calls between held merges
+MERGE_65K_STEPS = 120         # into the landing (1.8M pairs at 120)
+MERGE_65K_CONFIG = os.path.join(ROOT, "portbench", "configs", "pile65k.json")
+# the orders PyTorch adds in on the card, which the kernel repeats
+MERGE_ORDERS = ("sum3_x0_x2_x1", "norm4_x02_x13")
+
+
+def merge_slot_bytes(itemsize: int) -> int:
+    """Bytes one slot of the merge moves: its pair's two ids and two flags,
+    its four carried points read and four written (a validity byte, the
+    attachment and lifetime int32s and 18 scalars each: pivots, normal,
+    distance, six impulses, two scales) and its four fresh points (14
+    scalars each). The two bodies gathered by index are L2 hits, not
+    counted."""
+    point = 1 + 4 + 4 + 18 * itemsize
+    return 4 + 4 + 1 + 1 + 2 * 4 * point + 4 * 14 * itemsize
+
+
+def sum_orders(dev) -> dict:
+    """How PyTorch adds on the card, which the merge kernel repeats: the
+    share of rows where torch.sum over a last dimension of 3 equals
+    (x0 + x2) + x1 (the kernel's order) and (x0 + x1) + x2, and where
+    torch.linalg.vector_norm over 4 equals sqrt((a^2 + c^2) + (b^2 + d^2))
+    (the kernel's order) and sqrt((a^2 + b^2) + (c^2 + d^2)). Raises
+    unless the kernel's orders (``MERGE_ORDERS``) hold on every row."""
+    import torch
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(0)
+    for dt in (torch.float32, torch.float64):
+        x = torch.randn((1 << 20, 3), generator=g, device=dev, dtype=dt)
+        x = x * torch.rand((1 << 20, 1), generator=g, device=dev,
+                           dtype=dt) ** 8
+        s = x.sum(-1)
+        q = torch.randn((1 << 20, 4), generator=g, device=dev, dtype=dt)
+        n, q2 = torch.linalg.vector_norm(q, dim=-1), q * q
+        key = str(dt).split(".")[1]
+        out[key] = dict(
+            sum3_x0_x2_x1=float((s == (x[:, 0] + x[:, 2]) + x[:, 1])
+                                .double().mean()),
+            sum3_left_to_right=float((s == (x[:, 0] + x[:, 1]) + x[:, 2])
+                                     .double().mean()),
+            norm4_x02_x13=float((n == torch.sqrt(
+                (q2[:, 0] + q2[:, 2]) + (q2[:, 1] + q2[:, 3])))
+                .double().mean()),
+            norm4_x01_x23=float((n == torch.sqrt(
+                (q2[:, 0] + q2[:, 1]) + (q2[:, 2] + q2[:, 3])))
+                .double().mean()))
+    log(f"[merge] PyTorch's orders on the card: {out}")
+    off = {k: {o: v[o] for o in MERGE_ORDERS if v[o] != 1.0}
+           for k, v in out.items()}
+    if any(off.values()):
+        raise AssertionError(f"[merge] PyTorch no longer adds in the merge "
+                             f"kernel's orders on every row: {off}")
+    return out
+
+
+def hold_merge(args, label: str) -> dict:
+    """The merge kernel (``merge_kernel.merge_fresh``) against the plain
+    merge on the card, on one call's inputs: every output leaf bit-equal,
+    else each differing leaf with its count and largest gap."""
+    import torch
+    from edyn_tpu_torch.collision.kernels import merge_kernel as mk
+    got = mk.merge_fresh(*args)
+    want = mk.merge_fresh_plain(*args)
+    diff = {}
+    for f in mk.FIELDS:
+        a, b = getattr(got, f), getattr(want, f)
+        if a.is_floating_point():
+            if bits_equal(a, b):
+                continue
+            it = torch.int64 if a.dtype == torch.float64 else torch.int32
+            ne = a.view(it) != b.view(it)
+        else:
+            if torch.equal(a, b):
+                continue
+            ne = a != b
+        gap = (a.double() - b.double()).abs()[ne]
+        diff[f] = dict(n=int(ne.sum()), max_gap=float(gap.max()))
+    man = args[1]
+    return dict(label=label, slots=int(man.key.shape[0]),
+                valid=int(man.valid.sum()),
+                points_in=int(man.point_valid.sum()),
+                points_out=int(want.point_valid.sum()),
+                frozen=int(args[3].sum()), bit_equal=not diff,
+                differing=diff)
+
+
+def held_merges(held: list) -> list:
+    """Logs each ``hold_merge`` result; raises, naming each differing leaf
+    and its largest gap, unless every one is bit-equal."""
+    for r in held:
+        log(f"[merge] {r['label']}: {r['slots']} slots, {r['valid']} "
+            f"valid, points {r['points_in']} -> {r['points_out']}, frozen "
+            f"{r['frozen']}: "
+            f"{'bit-equal' if r['bit_equal'] else r['differing']}")
+    bad = [f"{r['label']}: {leaf} ({d['n']} elements, largest gap "
+           f"{d['max_gap']})" for r in held
+           for leaf, d in r["differing"].items()]
+    if bad:
+        raise AssertionError(f"[merge] the kernel differs from the plain "
+                             f"merge: {'; '.join(bad)}")
+    return held
+
+
+class MergeWatch:
+    """Inside ``with``: the step's merges (``narrowphase.merge_fresh``) run
+    as always, and the inputs of every ``every``-th call of each shard and
+    of the last call are kept. Keeping launches nothing, so the watched
+    steps' times and launch counts stay their own. ``hold()`` then holds
+    each kept merge to the plain merge (``held_merges``); ``last`` keeps
+    the last call's inputs for ``time_merge``."""
+
+    def __init__(self, label: str, every: int = MERGE_HELD_EVERY):
+        self.label, self.every = label, every
+        self.calls, self.kept, self.last = {}, [], None
+
+    def __enter__(self):
+        from edyn_tpu_torch.collision import narrowphase
+        self._orig = narrowphase.merge_fresh
+        narrowphase.merge_fresh = self._call
+        return self
+
+    def __exit__(self, *exc):
+        from edyn_tpu_torch.collision import narrowphase
+        narrowphase.merge_fresh = self._orig
+
+    def _call(self, *args):
+        from edyn_tpu_torch.utils import cuda_lib
+        shard = getattr(cuda_lib._scope, "shard", None)
+        n = self.calls[shard] = self.calls.get(shard, 0) + 1
+        where = f"{self.label} step {n}" + (
+            "" if shard is None else f" shard {shard}")
+        if n % self.every == 0:
+            self.kept.append((where, args))
+        self.last = (where, args)
+        return self._orig(*args)
+
+    def hold(self) -> list:
+        kept, self.kept = self.kept, []
+        if self.last is not None and not (kept and kept[-1][1] is
+                                          self.last[1]):
+            kept.append(self.last)
+        return held_merges([hold_merge(args, where) for where, args in kept])
+
+
+def time_merge(args, label: str) -> dict:
+    """The merge kernel's device time a launch (CUDA-graph replays; the
+    inputs of one call move more than three times the L2 at every width
+    timed here, so each replay reads them from device memory), one call
+    with its host work, the plain merge's one call, and the byte bound."""
+    import torch
+    from edyn_tpu_torch.collision.kernels import merge_kernel as mk
+    M = int(args[1].key.shape[0])
+    per_slot = merge_slot_bytes(args[2].element_size())
+    nbytes = M * per_slot
+    if nbytes < 3 * L2_BYTES:
+        raise AssertionError(f"[merge] {label}: {nbytes} bytes, under "
+                             f"three times the L2: not timed cold")
+    written = M * (per_slot - 10 - 4 * 14 * args[2].element_size()) // 2
+    per_graph = max(2, min(20, int(4e9 // written)))
+    ms = device_ms([lambda: mk.merge_fresh(*args)], per_graph=per_graph)
+    call = call_ms(lambda: mk.merge_fresh(*args), 5)
+    plain = call_ms(lambda: mk.merge_fresh_plain(*args), 3)
+    torch.cuda.synchronize()
+    b = bound(nbytes, 0.0)
+    r = dict(label=label, slots=M, bytes_per_slot=per_slot,
+             us=ms * 1e3, call_us=call * 1e3, plain_ms=plain,
+             bound_us=b["bound_ms"] * 1e3,
+             of_bound=b["bound_ms"] / ms)
+    log(f"[merge] {label}: {M} slots, {r['us']:.2f} us a launch L2-cold "
+        f"(bound {r['bound_us']:.2f}: {100 * r['of_bound']:.1f}%), one "
+        f"call {r['call_us']:.2f} us; plain one call {plain:.2f} ms")
+    return r
+
+
+def watched_merges(watch: MergeWatch, label: str | None = None) -> dict:
+    """``watch``'s held merges and, with ``label``, its last call timed."""
+    out = dict(held=watch.hold())
+    if label is not None:
+        out["timed"] = time_merge(watch.last[1], label)
+    watch.last = None
+    return out
+
+
+def phase14(dev) -> dict:
+    """Phase 14: PyTorch's sum orders on the card (``sum_orders``); the
+    merge kernel bit-equal to the plain merge on the crafted tables of
+    ``collision/kernels/merge_cases.py`` (float32 and float64, each case's
+    rule shown by the kernel's output too) and on the 65k drop of
+    ``portbench/configs/pile65k.json`` at its ``max_pairs``, timed there
+    L2-cold against its byte bound. Phases 3, 9, 12a and 13a hold the
+    kernel on their own steps (``MergeWatch``)."""
+    import dataclasses
+    import torch
+    import edyn_tpu_torch as et
+    from edyn_tpu_torch.collision.kernels import merge_cases
+    from edyn_tpu_torch.collision.kernels import merge_kernel as mk
+    from edyn_tpu_torch.utils.scenes import mixed_pile
+
+    t0 = time.perf_counter()
+    out = dict(sum_orders=sum_orders(dev), crafted=[])
+    for dt in (torch.float32, torch.float64):
+        for case in merge_cases.CASES:
+            c = merge_cases.build(case, dt, device=dev)
+            args = (c.bodies, c.table, c.new_pts, c.frozen, c.dt)
+            r = hold_merge(args, f"{case} {str(dt)[6:]}")
+            r["case_fails"] = merge_cases.check(case, c,
+                                                mk.merge_fresh(*args))
+            out["crafted"].append(r)
+    held_merges(out["crafted"])
+    fails = [f for r in out["crafted"] for f in r["case_fails"]]
+    if fails:
+        raise AssertionError(f"[merge] {fails}")
+
+    # the 65k drop at its max_pairs, under the sweep after a dense step
+    with open(MERGE_65K_CONFIG) as f:
+        cfg = json.load(f)
+    w = cfg["world"]
+    world = et.make_world(
+        mixed_pile(n_bodies=cfg["scene"]["n_bodies"], seed=0)[0],
+        et.Settings(**{k: tuple(v) if isinstance(v, list) else v
+                       for k, v in cfg["settings"].items()}),
+        max_pairs=w["max_pairs"], device=dev)
+    world.meta = dataclasses.replace(
+        world.meta, max_rows=w["max_rows"], bucket_cap=w["bucket_cap"],
+        broadphase_mode="dense")
+    world.step(w["seat_dense_steps"])
+    world.meta = dataclasses.replace(world.meta, broadphase_mode="sweep",
+                                     sweep_window=w["sweep_window"])
+    with MergeWatch("65k drop", every=60) as watch:
+        world.step(MERGE_65K_STEPS)
+    out["drop65k"] = watched_merges(watch, "65k drop")
+    del watch, world
+    out["build"] = build_info("merge_kernel", "merge_kernel")
+    out["build_f64"] = build_info("merge_kernel", "merge_kernel", "double")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[phase 14] {len(out['crafted']) + len(out['drop65k']['held'])} "
+        f"merges held, all bit-equal; registers {out['build']} / "
+        f"{out['build_f64']}; {out['seconds']:.1f} s; gpu: {gpu_line()}")
+    return out
+
+
+def merge_entry(p14: dict, earlier: dict, launches: dict) -> dict:
+    """The merge kernel's line of the kernel table; ``earlier`` holds the
+    watched merges (``watched_merges``) of phases 3, 9, 12a and 13a by
+    name. Every merge held was bit-equal, or the run stopped there."""
+    runs = dict(earlier, drop65k=p14["drop65k"])
+    t = {k: v["timed"] for k, v in runs.items() if "timed" in v}
+    return dict(
+        name="merge", route="cuda", source="edyn_tpu_torch/csrc/"
+        "merge_kernel.cu", replaces=None, launches=launches.get("merge"),
+        launches_per_step=(launches.get("merge") or 0) / STEPS,
+        bit_equal=True, held=len(p14["crafted"]) + sum(
+            len(v["held"]) for v in runs.values()),
+        **{f"{k}_{m}": t[k][m] for k in t
+           for m in ("slots", "us", "bound_us", "of_bound", "plain_ms")},
+        **p14["build"])
+
+
 def run_alone(phases, dev) -> None:
-    """``--phases``: phases 8, 9, 10, 11, 12 and 13 alone, in the order
+    """``--phases``: phases 8, 9, 10, 11, 12, 13 and 14 alone, in the order
     given, after the build (phase 12 after phase 3's main path, whose f32
     figures and landed pile it uses); their summaries are printed, the
     result lines are not."""
@@ -4540,6 +4846,8 @@ def run_alone(phases, dev) -> None:
             out[12], _, _ = phase12(dev, main, landed)
         elif p == 13:
             out[13], _ = phase13(dev)
+        elif p == 14:
+            out[14] = phase14(dev)
         else:
             raise SystemExit(f"--phases: phase {p} does not run alone")
     log(json.dumps(out, default=str))
@@ -4549,7 +4857,7 @@ def run(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="",
-                    help="comma-separated phases among 8-13 "
+                    help="comma-separated phases among 8-14 "
                          "to run alone after the build (a rehearsal: no "
                          "result lines)")
     args = ap.parse_args(argv)
@@ -4730,6 +5038,13 @@ def run(argv=None) -> int:
     phase_13, shard_launches = phase13(dev, sharded, jax_cases)
 
     mark(13)
+
+    # 14. the merge kernel against the plain merge: PyTorch's sum orders,
+    #     the crafted tables, the 65k drop; timed there (phases 3, 9, 12a
+    #     and 13a held it on their own steps)
+    phase_14 = phase14(dev)
+
+    mark(14)
     launch_sets = dict(launches=launches, ragdoll_launches=rag_launches,
                        terrain_launches=ter_launches,
                        bench_launches=bench_launches,
@@ -4877,6 +5192,11 @@ def run(argv=None) -> int:
         edge_cases={k: v["count"] for k, v in k5_edges.items()},
         **build_info("overlap_count", "overlap_kernel")))
     kernels += f64_entries
+    kernels.append(merge_entry(
+        phase_14, dict(pile=main["merge"], asleep=bench["merge"],
+                       f64=phase_12["f64"]["merge"],
+                       sharded=phase_13["sharded_pile"]["merge"]),
+        launches))
     log(json.dumps({"main_path": main, "suggest_max_pairs": suggest,
                     "fused": {"random": fused_rand, "real": fused_real,
                               "terrain": ter_fused, "asleep": fused_asleep},
@@ -4889,7 +5209,8 @@ def run(argv=None) -> int:
                     "terrain_kernels": {"solver": ter_real, "k4": k4_ter},
                     "bench": bench, "asleep_kernels": asleep_real,
                     "paged": paged, "networked": networked,
-                    "phase_12": phase_12, "phase_13": phase_13}))
+                    "phase_12": phase_12, "phase_13": phase_13,
+                    "phase_14": phase_14}))
     log(f"gpu: {line}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

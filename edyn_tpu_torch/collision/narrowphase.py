@@ -22,6 +22,11 @@ elsewhere:
   computes what the JAX package's CPU step computes.
 K4's plain version (``collide_support_plain``) is held against the JAX
 kernel by the tests and against K4 by ``chip_smoke.py``; no step runs it.
+
+The merge of the fresh points into the carried manifolds runs by the
+device too: on CUDA one launch of the merge kernel
+(``merge_kernel.merge_fresh``) over every slot, on the CPU its plain
+version (``merge_fresh_plain``: ``manifold.merge_points``).
 """
 from __future__ import annotations
 
@@ -32,7 +37,6 @@ import torch
 
 from ..config import CONTACT_BREAKING_THRESHOLD
 from ..core.state import KIND_STATIC
-from ..math import quat
 from ..parallel.collectives import Mesh, gather, ranges, replicas, to_device
 from ..shapes.params import ShapeType
 from ..utils.profile import count, host, span
@@ -41,12 +45,12 @@ from .kernels.compound import (
     collide_compound_compound, collide_compound_convex, collide_compound_mesh,
     collide_compound_plane,
 )
+from .kernels.merge_kernel import merge_fresh
 from .kernels.mesh import collide_convex_mesh
 from .kernels.plane_unified import collide_convex_plane
 from .kernels.support import pack_side_table, side_from_packed
 from .kernels.support_sat import collide_support
 from .kernels.unified_kernel import collide_support_unified, pack_side_table_t
-from .manifold import merge_points
 
 S = ShapeType
 # bucket classes (the JAX package's numbers; its B_CYLPLANE = 3 is never
@@ -373,44 +377,3 @@ def fresh_points(state, man, swap, sels: dict, threshold: float,
                                        threshold, has_cyl, packed, dims,
                                        tri_cull)
     return new_pts[:M]
-
-
-def merge_fresh(state, man, new_pts, frozen, dt: float):
-    """Merge ``fresh_points``' output into ``man``; frozen pairs keep
-    their points verbatim."""
-    ba = man.body_a.long()
-    bb = man.body_b.long()
-
-    # rolling analogue of the reference's rolling_tag
-    st = state.shape_type
-    rolling = ((st == S.SPHERE) | (st == S.CAPSULE) | (st == S.CYLINDER)) \
-        & state.is_dynamic
-    org = state.origin_pos()
-    new_attach = new_pts[..., 9].to(torch.int32)
-    new_normal = new_pts[..., 6:9]
-    orn_a = state.orn[ba][:, None, :]
-    orn_b = state.orn[bb][:, None, :]
-    local_n = torch.where(
-        (new_attach == 1)[..., None], quat.rotate_inv(orn_a, new_normal),
-        torch.where((new_attach == 2)[..., None],
-                    quat.rotate_inv(orn_b, new_normal), new_normal))
-    pose = (org[ba], orn_a[:, 0], state.angvel[ba], rolling[ba],
-            org[bb], orn_b[:, 0], state.angvel[bb], rolling[bb])
-    # device branch (narrowphase.py:397 in the JAX package): the merge width
-    # ladder gives identical numbers in every tier, so the full width runs
-    merged = merge_points(man, new_pts[..., 0:3], new_pts[..., 3:6], local_n,
-                          new_attach, new_pts[..., 10], new_pts[..., 11] > 0.5,
-                          pose=pose, dt=dt, scales=new_pts[..., 12:14])
-    # frozen pairs keep their points verbatim
-    fr = frozen & man.valid
-    fields = ("point_valid", "pivot_a", "pivot_b", "local_normal",
-              "normal_attachment", "distance", "lifetime", "normal_impulse",
-              "friction_impulse", "spin_impulse", "roll_impulse",
-              "friction_scale", "restitution_scale")
-
-    def keep_frozen(f):
-        old, new = getattr(man, f), getattr(merged, f)
-        return torch.where(fr.reshape(fr.shape + (1,) * (old.dim() - 1)),
-                           old, new)
-
-    return dataclasses.replace(merged, **{f: keep_frozen(f) for f in fields})
