@@ -66,7 +66,7 @@ def measure(cell: spec.Cell, seed: int, seconds: float, trace: bool,
         raise ValueError("only float32 configurations are run")
     spans: dict = {}
     drive = traffic.Drive(et, cell.config, cell.traffic, seed, device, spans,
-                          sync)
+                          sync, cell.bench_dir)
     drive.warm(seed)
     gc.collect()
     sync()
@@ -82,7 +82,8 @@ def measure(cell: spec.Cell, seed: int, seconds: float, trace: bool,
         tracer = trace_mod.Tracer(
             float(cell.traffic.get("trace", {}).get("from", 0.0)),
             on_start=cuda_lib.reset_device_launches)
-    win = window_mod.run(drive, seconds, seed, sampled, on_start, tracer)
+    win = window_mod.run(drive, seconds, seed, sampled, on_start, tracer,
+                         launch_counts)
     out = SimpleNamespace(
         win=win, launches=launch_counts(),
         peak=torch.cuda.max_memory_allocated(device) if cuda else 0,
@@ -97,7 +98,7 @@ def measure(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     out.trace = None
     if trace:
         t0 = time.perf_counter()
-        out.trace = trace_mod.reduce(tracer.results)
+        out.trace = trace_mod.reduce(tracer.results, win.launch_marks)
         out.trace.update(stop_s=tracer.stop_s,
                          reduce_s=time.perf_counter() - t0)
         tracer.results = None
@@ -123,7 +124,8 @@ def check(cell: spec.Cell, run: SimpleNamespace, device,
         run.desc, st["gravity"], {f: getattr(run.built, f).cpu().numpy()
                                   for f in semantics.START_FIELDS}, dtype))
     del frames
-    ref_world = compare.reference_world(cell.config, run.desc, device)
+    ref_world = compare.reference_world(cell.config, run.desc, device,
+                                        cell.bench_dir)
     numbers.update(compare.check_frames(run.win.samples, ref_world,
                                         control, witness))
     if control or witness:
@@ -191,8 +193,8 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
         f"{run.setup_s:.3f} s (" + ", ".join(
             f"{k} {v:.3f} s" for k, v in run.spans.items())
         + f"), frames checked {checked} (free bodies "
-        f"{numbers['free_bodies']}, quiet bodies {numbers['quiet_bodies']}),"
-        f" check {check_s:.1f} s")
+        f"{numbers['free_bodies']}, free groups {numbers['free_groups']}, "
+        f"quiet bodies {numbers['quiet_bodies']}), check {check_s:.1f} s")
     if win.overflow_frames:
         log(f"frames that dropped work (frame, overflow): "
             f"{win.overflow_frames}")

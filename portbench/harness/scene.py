@@ -1,20 +1,33 @@
-"""The benchmark's frozen scenes, as plain descriptions built through any
-package with the engine's builder API.
+"""The benchmark's frozen scenes, found by name: a configuration's
+``scene.kind`` names the file ``scenes/<kind>.py``, whose
 
-``mixed_pile`` draws the same bodies, from the same seed and in the same
-order of draws, as ``edyn_tpu_torch.utils.scenes.mixed_pile`` did when the
-benchmark was written (and, before it, the repository's ``bench.py`` pile):
-a floor plane and four inward walls; spheres, boxes, capsules, cylinders
-and tetrahedra on a jittered grid with random orientations; restitution
-0.2, roll friction 0.005. A later change to the program's scene helpers
-does not change the benchmark's scene.
+- ``describe(seed, **params)`` draws the scene from the seed as plain
+  data (the description);
+- ``build(pkg, desc)`` builds it through any package with the engine's
+  builder and joint API (``WorldBuilder``, ``make_rigidbody``,
+  ``make_point_constraint``, ``make_cone_constraint``,
+  ``make_hinge_constraint``), the program and the reference alike, and
+  returns (builder, dynamic ids);
+- ``small(params, n_bodies)`` gives the parameters of a small world of the
+  same scene, about ``n_bodies`` bodies (a mix's warm-up).
+
+Every description holds ``scene`` (its kind), ``planes`` [(normal,
+constant)], and per body, in the order ``build`` adds them after the
+planes: ``pos`` [n,3] and ``orn`` [n,4] (xyzw) as built, ``radius`` (the
+bounding radius about the centre of mass), ``mass`` (0: static),
+``inertia_inv`` [n,3] (the diagonal of the inverse inertia in the body's
+frame; NaN where the start check does not judge it), ``material``
+({"friction", "restitution", "roll_friction"}: [n] each); and ``joints``,
+one dict a joint: ``type`` ("point", "cone" or "hinge"), the bodies ``a``
+and ``b`` (indices into the bodies), ``pivot_a`` and ``pivot_b`` (each in
+its body's frame, relative to the centre of mass), and what else the
+scene's ``build`` needs. ``reference.semantics`` reads nothing else.
 """
 from __future__ import annotations
 
 import numpy as np
 
-TET = np.array([[0.15, 0.15, 0.15], [0.15, -0.15, -0.15],
-                [-0.15, 0.15, -0.15], [-0.15, -0.15, 0.15]], np.float32)
+from . import spec
 
 
 def rng_for(seed: int) -> np.random.Generator:
@@ -22,63 +35,29 @@ def rng_for(seed: int) -> np.random.Generator:
     return np.random.default_rng(int(seed) % (1 << 64))
 
 
-def mixed_pile(n_bodies: int, seed: int, spacing: float = 0.55,
-               bin_half: float | None = None, polyhedra: bool = True) -> dict:
-    """The pile as arrays: ``planes`` [(normal, constant)], and per body
-    ``kind`` (i % 5: sphere, box, capsule, cylinder, tetrahedron),
-    ``pos`` [n,3] and ``orn`` [n,4] (xyzw), float64."""
-    rng = rng_for(seed)
-    if bin_half is None:
-        bin_half = max(4.0, 0.18 * float(n_bodies) ** (1 / 3) * 6)
-    planes = [((0, 1, 0), 0.0)] + [
-        (nrm, -bin_half)
-        for nrm in ((1, 0, 0), (-1, 0, 0), (0, 0, 1), (0, 0, -1))]
-    side = int(np.ceil(n_bodies ** (1 / 3)))
-    pos = np.zeros((n_bodies, 3))
-    orn = np.zeros((n_bodies, 4))
-    i = 0
-    for ix in range(side):
-        for iy in range(side):
-            for iz in range(side):
-                if i >= n_bodies:
-                    break
-                jitter = rng.uniform(-0.05, 0.05, 3)
-                pos[i] = ((ix - side / 2) * spacing + jitter[0],
-                          1.0 + iy * spacing + jitter[1],
-                          (iz - side / 2) * spacing + jitter[2])
-                q = rng.normal(size=4)
-                orn[i] = q / np.linalg.norm(q)
-                i += 1
-    return dict(planes=planes, kind=np.arange(n_bodies) % 5, pos=pos,
-                orn=orn, polyhedra=polyhedra)
+def params(scene: dict) -> dict:
+    """A configuration's ``scene`` entry without its ``kind``."""
+    return {k: v for k, v in scene.items() if k != "kind"}
 
 
-def build(pkg, desc: dict):
-    """A ``pkg.WorldBuilder`` holding ``desc``'s bodies, in the order the
-    scene draws them (the walls first). Returns (builder, dynamic ids)."""
-    b = pkg.WorldBuilder()
-    for nrm, c in desc["planes"]:
-        b.make_rigidbody(pkg.RigidBodyDef(
-            kind=pkg.KIND_STATIC, shape=pkg.PlaneShape(nrm, c),
-            material=pkg.Material(friction=0.6)))
-    shapes = (pkg.SphereShape(0.15), pkg.BoxShape((0.15, 0.12, 0.18)),
-              pkg.CapsuleShape(0.1, 0.15), pkg.CylinderShape(0.12, 0.15),
-              pkg.PolyhedronShape(TET) if desc["polyhedra"]
-              else pkg.SphereShape(0.12))
-    ids = []
-    for k, p, q in zip(desc["kind"], desc["pos"], desc["orn"]):
-        ids.append(b.make_rigidbody(pkg.RigidBodyDef(
-            mass=1.0, shape=shapes[k], position=tuple(p),
-            orientation=tuple(q),
-            material=pkg.Material(friction=0.5, restitution=0.2,
-                                  roll_friction=0.005))))
-    return b, ids
-
-
-SCENES = {"mixed_pile": mixed_pile}
-
-
-def describe(scene: dict, seed: int) -> dict:
+def describe(scene: dict, seed: int, bench_dir=spec.BENCH_DIR) -> dict:
     """The description of a configuration's ``scene`` entry."""
-    params = {k: v for k, v in scene.items() if k != "kind"}
-    return SCENES[scene["kind"]](seed=seed, **params)
+    return spec.scene_module(scene["kind"], bench_dir).describe(
+        seed=seed, **params(scene))
+
+
+def build(pkg, desc: dict, bench_dir=spec.BENCH_DIR):
+    """(builder, dynamic ids) of a description, by its scene's ``build``."""
+    return spec.scene_module(desc["scene"], bench_dir).build(pkg, desc)
+
+
+def small(scene: dict, n_bodies: int, bench_dir=spec.BENCH_DIR) -> dict:
+    """A configuration's ``scene`` entry for a small world of the same
+    scene, about ``n_bodies`` bodies."""
+    mod = spec.scene_module(scene["kind"], bench_dir)
+    return dict(mod.small(params(scene), n_bodies), kind=scene["kind"])
+
+
+def mixed_pile(n_bodies: int, seed: int, **kw) -> dict:
+    """The pile's description (``scenes/mixed_pile.py``) by its sizes."""
+    return describe(dict(kind="mixed_pile", n_bodies=n_bodies, **kw), seed)

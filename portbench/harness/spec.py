@@ -2,6 +2,8 @@
 checkout, and the files it names, each found by its name alone.
 
 - ``configs/<config>.json``: one configuration (scene, sizes, settings);
+- ``scenes/<kind>.py``: the scene a configuration's ``scene.kind`` names
+  (``harness.scene`` says what it gives);
 - ``traffic/<traffic>.json``: one traffic mix, the parameters that
   ``harness.traffic`` reads;
 - ``metrics/<metric>.py``: one metric, a ``read(ctx)`` function; a metric
@@ -10,7 +12,7 @@ checkout, and the files it names, each found by its name alone.
   end-to-end metric or hold a bound of their own;
 - ``limits/<workload>.json``: the limits that decide a cell's ``correct``.
 
-A new cell, configuration, mix or metric is a new entry in
+A new cell, configuration, scene, mix or metric is a new entry in
 ``BENCHMARK.json`` and a new file here: nothing that exists is edited.
 """
 from __future__ import annotations
@@ -56,6 +58,10 @@ def traffic_file(name: str, bench_dir: Path = BENCH_DIR) -> Path:
     return Path(bench_dir) / "traffic" / f"{name}.json"
 
 
+def scene_file(kind: str, bench_dir: Path = BENCH_DIR) -> Path:
+    return Path(bench_dir) / "scenes" / f"{kind}.py"
+
+
 def metric_file(name: str, bench_dir: Path = BENCH_DIR) -> Path:
     """``metrics/<name>.py``, else, for a name ``<metric>.<part>``,
     ``metrics/<metric>.py``."""
@@ -80,9 +86,12 @@ def load_cell(workload: str, bench_dir: Path = BENCH_DIR,
         raise KeyError(f"no workload {workload!r} in BENCHMARK.json "
                        f"(have {sorted(cells)})")
     w = cells[workload]
+    config = load_json(config_file(w["config"], bench_dir))
+    if not scene_file(config["scene"]["kind"], bench_dir).exists():
+        raise FileNotFoundError(
+            f"no scene {config['scene']['kind']!r} for {workload!r}")
     return Cell(
-        name=workload, chips=int(w["chips"]),
-        config=load_json(config_file(w["config"], bench_dir)),
+        name=workload, chips=int(w["chips"]), config=config,
         traffic=load_json(traffic_file(w["traffic"], bench_dir)),
         end_to_end=[m for m in bench["end_to_end"]
                     if _reports(m, workload)],
@@ -91,11 +100,22 @@ def load_cell(workload: str, bench_dir: Path = BENCH_DIR,
         bench_dir=bench_dir)
 
 
-def metric_reader(name: str, bench_dir: Path = BENCH_DIR):
-    """The ``read(ctx)`` function of ``metrics/<name>.py``."""
-    path = metric_file(name, bench_dir)
+def load_module(path: Path, name: str):
+    """The module of a benchmark file, loaded from its path."""
     spec = importlib.util.spec_from_file_location(
-        f"portbench_metric_{name.replace('.', '_').replace('-', '_')}", path)
+        name.replace(".", "_").replace("-", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def metric_reader(name: str, bench_dir: Path = BENCH_DIR):
+    """The ``read(ctx)`` function of ``metrics/<name>.py``."""
+    return load_module(metric_file(name, bench_dir),
+                       f"portbench_metric_{name}").read
+
+
+def scene_module(kind: str, bench_dir: Path = BENCH_DIR):
+    """The module of ``scenes/<kind>.py`` (``describe``, ``build``,
+    ``small``)."""
+    return load_module(scene_file(kind, bench_dir), f"portbench_scene_{kind}")

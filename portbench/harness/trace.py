@@ -15,8 +15,15 @@ metrics and the result's ``breakdown`` read:
   thread's operators and the CUDA runtime's calls; gaps under
   ``SHORT_GAP_NS`` together as one entry);
 - ``kernels``: for each kernel named in ``KERNELS``, its launches as
-  (frame, nanoseconds), the frame being the window's frame whose
-  annotation (``FRAME_MARK``) holds the launch.
+  (frame, nanoseconds) in the order they ran. With ``marks`` (the
+  program's launch counts after each traced frame, as ``window.run``
+  keeps them) the frame is the one whose launches the program counted it
+  among: the n-th launch of a kernel belongs to the first frame after
+  which the program had counted more than n. That reads no clock: the
+  profiler puts the device's events and the host's annotations on one
+  time line, and the two can disagree by more than the launch's distance
+  to a frame's edge. Without ``marks``, the frame whose annotation
+  (``FRAME_MARK``) holds the launch's start.
 
 The benchmark's own device work in the window (the live-row counts of
 ``window.run``, annotated ``ROWS_MARK``) is left out of every number.
@@ -112,8 +119,10 @@ def _intervals(evs) -> tuple:
     return lo, hi
 
 
-def reduce(results) -> dict:
-    """The reduction of a traced window (``Tracer.results``)."""
+def reduce(results, marks=None) -> dict:
+    """The reduction of a traced window (``Tracer.results``); ``marks``,
+    where given, the program's launch counts by kernel after each traced
+    frame, counted from the trace's start."""
     events = results.events()
     w0 = w1 = None
     dev, host, frames, rows = [], [], [], []
@@ -181,8 +190,19 @@ def reduce(results) -> dict:
                 if rx.search(name):
                     f = int(np.searchsorted(f_lo, starts[i], "right")) - 1
                     ok = f >= 0 and starts[i] <= f_hi[f]
-                    kernels[k].append((f if ok else None, dur))
+                    kernels[k].append((f if ok else None, dur,
+                                       int(starts[i])))
                     break
+
+    for k, launches in kernels.items():
+        launches.sort(key=lambda fs: fs[2])
+        if marks is not None:
+            counted = np.array([m.get(k, 0) for m in marks], np.int64)
+            frame = np.searchsorted(counted, np.arange(len(launches)),
+                                    "right")
+            launches[:] = [(int(f) if f < len(counted) else None, d, t)
+                           for f, (_, d, t) in zip(frame, launches)]
+        kernels[k] = [(f, d) for f, d, _ in launches]
 
     idle = _name_gaps(host, main_tid, gap_lo, gap_hi)
     top = sorted(ops.items(), key=lambda kv: -kv[1])[:10]

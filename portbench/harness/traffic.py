@@ -17,9 +17,10 @@ ended. A mix's keys:
   snapshot: the program's state is immutable, so the restore is a
   reference);
 - ``warm``: {"pile_bodies": n, "pile_steps": k, "frames": f}: before the
-  window, a small world of the same configuration is stepped k times (so
-  every kernel of a landed pile has run once), then the cell's world is
-  stepped f frames and put back where it was;
+  window, a small world of the same configuration, about n bodies of its
+  scene (the scene's ``small``), is stepped k times (so every kernel of a
+  landed world has run once), then the cell's world is stepped f frames
+  and put back where it was;
 - ``check``: {"sampled_frames": k}: how many frames of the window, drawn
   from the seed, the reference checks besides the last one;
 - ``trace``: {"from": f}: a ``--trace 1`` run starts the profiler once
@@ -37,7 +38,7 @@ import time
 
 import numpy as np
 
-from . import scene
+from . import scene, spec
 
 OPS = ("step", "sleep_and_relaunch")
 
@@ -48,13 +49,14 @@ def settings_of(pkg, config: dict):
 
 
 def make_world(pkg, config: dict, desc: dict, device, spans: dict | None,
-               sync=lambda: None):
-    """``pkg``'s world of ``desc`` under ``config``: the builder, then
-    ``make_world`` (timed into ``spans["make_world"]``), then the
-    configuration's capacities and broadphase. Returns (world, ids)."""
+               sync=lambda: None, bench_dir=spec.BENCH_DIR):
+    """``pkg``'s world of ``desc`` under ``config``: the scene's builder
+    (found under ``bench_dir``), then ``make_world`` (timed into
+    ``spans["make_world"]``), then the configuration's capacities and
+    broadphase. Returns (world, ids)."""
     w = config["world"]
     t0 = time.perf_counter()
-    b, ids = scene.build(pkg, desc)
+    b, ids = scene.build(pkg, desc, bench_dir)
     if spans is not None:
         spans["builder"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -132,12 +134,12 @@ class Drive:
     """The program's world of one cell and seed, through its traffic."""
 
     def __init__(self, pkg, config: dict, traffic: dict, seed: int, device,
-                 spans: dict, sync=lambda: None):
+                 spans: dict, sync=lambda: None, bench_dir=spec.BENCH_DIR):
         self.pkg, self.config, self.traffic = pkg, config, traffic
-        self.device, self.sync = device, sync
-        self.desc = scene.describe(config["scene"], seed)
+        self.device, self.sync, self.bench_dir = device, sync, bench_dir
+        self.desc = scene.describe(config["scene"], seed, bench_dir)
         self.world, self.ids = make_world(pkg, config, self.desc, device,
-                                          spans, sync)
+                                          spans, sync, bench_dir)
         # the built world, before any step: the reference's start check
         self.built = self.world.state
         self.spans = spans
@@ -163,12 +165,14 @@ class Drive:
             # the configuration's broadphase at the small world's own
             # capacities (16 pairs a body, the port's default)
             cfg = dict(self.config,
-                       scene=dict(self.config["scene"], n_bodies=n),
+                       scene=scene.small(self.config["scene"], n,
+                                         self.bench_dir),
                        world=dict(self.config["world"], max_pairs=32 * n,
                                   max_rows=32 * n, bucket_cap=16 * n))
-            small, _ = make_world(self.pkg, cfg,
-                                  scene.describe(cfg["scene"], seed),
-                                  self.device, None)
+            small, _ = make_world(
+                self.pkg, cfg, scene.describe(cfg["scene"], seed,
+                                              self.bench_dir),
+                self.device, None, bench_dir=self.bench_dir)
             seat(small, cfg)
             small.step(warm.get("pile_steps", 0))
             readback(small.state)

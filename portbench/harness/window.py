@@ -11,7 +11,9 @@ In a traced run the window's end is traced (``trace.Tracer``): each
 traced frame is annotated (``trace.FRAME_MARK``), and after its timed
 part the live contact rows of its step are counted on the device
 (``roofline.live_rows``, annotated ``trace.ROWS_MARK``, read after the
-window): the solver kernels' roofline reckons with them.
+window): the solver kernels' roofline reckons with them; and the
+program's launch counts after each traced frame are kept (``counts``), by
+which the trace's launches are given their frames (``trace.reduce``).
 
 For the correctness check, the window keeps the last frame and
 ``sampled_frames`` others drawn from the seed, uniformly over however many
@@ -52,6 +54,7 @@ class Window:
     overflow_frames: list
     live_rows: list      # traced runs: live contact rows of each traced frame
     first: Sample = None  # the window's first frame (pose, velocities, asleep)
+    launch_marks: list = None  # traced runs: ``counts()`` after each frame
 
     def checked(self) -> list:
         """Every frame kept for a check, the first one first."""
@@ -69,14 +72,15 @@ def sampling_rng(seed: int) -> np.random.Generator:
 
 
 def run(drive, seconds: float, seed: int, sampled_frames: int,
-        on_start=lambda: None, tracer=None) -> Window:
+        on_start=lambda: None, tracer=None, counts=None) -> Window:
     """The window; with ``tracer`` (a ``trace.Tracer``) its part after the
-    share ``tracer.start_at`` is traced."""
+    share ``tracer.start_at`` is traced, and ``counts()``, where given (the
+    program's launch counts by kernel), is read after each traced frame."""
     import torch
     rng = sampling_rng(seed)
     reservoir: list = []
     last = first = None
-    frame_s, failed, overflow_frames, rows = [], 0, [], []
+    frame_s, failed, overflow_frames, rows, marks = [], 0, [], [], []
 
     def mark(name):
         return (torch.profiler.record_function(name) if traced
@@ -100,6 +104,8 @@ def run(drive, seconds: float, seed: int, sampled_frames: int,
         t1 = time.perf_counter()
         frame_s.append(t1 - t0)
         if traced:
+            if counts is not None:
+                marks.append(counts())
             with mark(trace_mod.ROWS_MARK):
                 rows.append(roofline.live_rows(post))
         if bad:
@@ -128,4 +134,4 @@ def run(drive, seconds: float, seed: int, sampled_frames: int,
     samples = [s for s in reservoir if s.frame != last.frame] + [last]
     live = torch.stack(rows).cpu().tolist() if rows else []
     return Window(frame_s, seconds_run, failed, samples, overflow_frames,
-                  live, first)
+                  live, first, marks if counts is not None else None)

@@ -91,11 +91,13 @@ def meta_differ(a, b) -> int:
     return sum(str(da[f]) != str(db[f]) for f in META_FIELDS)
 
 
-def reference_world(pkg_config: dict, desc: dict, device):
-    """The reference's own world of ``desc`` (its builder, ``make_world``
-    and the configuration's capacities, as the program's is made)."""
-    from harness import traffic
-    world, _ = traffic.make_world(ref, pkg_config, desc, device, None)
+def reference_world(pkg_config: dict, desc: dict, device, bench_dir=None):
+    """The reference's own world of ``desc`` (its scene's builder, found
+    under ``bench_dir``, ``make_world`` and the configuration's
+    capacities, as the program's is made)."""
+    from harness import spec, traffic
+    world, _ = traffic.make_world(ref, pkg_config, desc, device, None,
+                                  bench_dir=bench_dir or spec.BENCH_DIR)
     return world
 
 
@@ -188,8 +190,10 @@ def check_frames(samples, ref_world, control: bool = False,
 
 
 def verdict(numbers: dict, limits: dict) -> tuple:
-    """(correct, {name: {"value", "limit"}}) for every number that has a
-    limit; a number without one, or a limit without its number, fails."""
+    """(correct, {name: {"value", "limit"}}) over the numbers that
+    ``limits`` (a cell's ``limits/<cell>.json``) names, and only those: a
+    number without a limit is not judged and not listed; a limit whose
+    number is missing, or not at most the limit, fails."""
     out, ok = {}, True
     for name, limit in limits.items():
         value = numbers.get(name)

@@ -3,8 +3,9 @@ modules of ``edyn_tpu_torch`` that build a world and step it (the builder,
 the state, the broadphase, the narrowphase, the manifolds, the contact
 rows, the restitution pre-pass, the velocity and position iterations,
 integration, islands and sleep), taken when the benchmark was written and
-cut down to the plain, joint-free step of the benchmark's scenes (convex
-shapes and planes; one shard on one device):
+cut down to the plain step of the benchmark's scenes (convex shapes and
+planes; the point, cone and hinge joints, whose factories, rows, solve and
+position correction were copied later; one shard on one device):
 
 - every kernel of the step is its plain PyTorch version, on the CPU and
   on the card alike (K4's ``collide_support_plain`` for the UNIFIED bucket
@@ -12,7 +13,8 @@ shapes and planes; one shard on one device):
   K1, K3a, K3b and K2), and no hand-written kernel is built or launched;
 - the solve phase keeps the unfused path (gather, plain iteration,
   ``index_sum``) that the program's fused kernels replace on the card;
-- joints, meshes, compounds, spawning and the runtime API are left out.
+- the other joint types, meshes, compounds, spawning and the runtime API
+  are left out.
 
 It imports nothing of the program: a later change to the program does not
 change it. Being a copy of the program's own plain layers, it holds the
@@ -22,6 +24,9 @@ check written from the step's semantics instead. Its sums on the card keep
 ``index_sum``'s order.
 """
 from .config import Settings
+from .constraints.api import (
+    make_cone_constraint, make_hinge_constraint, make_point_constraint,
+)
 from .core.builder import Material, RigidBodyDef, WorldBuilder
 from .core.state import KIND_DYNAMIC, KIND_KINEMATIC, KIND_STATIC, WorldState
 from .core.world import World, derive_meta, make_world
@@ -36,5 +41,6 @@ __all__ = [
     "World", "make_world", "derive_meta", "SceneMeta", "physics_step",
     "KIND_DYNAMIC", "KIND_KINEMATIC", "KIND_STATIC",
     "SphereShape", "BoxShape", "CapsuleShape", "CylinderShape", "PlaneShape",
-    "PolyhedronShape",
+    "PolyhedronShape", "make_point_constraint", "make_cone_constraint",
+    "make_hinge_constraint",
 ]

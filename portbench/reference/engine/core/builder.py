@@ -127,6 +127,14 @@ class WorldBuilder:
                 self._compounds.append(sh)
         return idx
 
+    def exclude_collision(self, a: int, b: int):
+        self.exclusions.append((a, b))
+
+    def _add_joint(self, **kw) -> int:
+        """Stage one joint (called by the ``constraints.api`` factories)."""
+        self.joints.append(kw)
+        return len(self.joints) - 1
+
     def finalize(self, capacity: Optional[int] = None,
                  max_manifolds: Optional[int] = None,
                  max_joints: Optional[int] = None,

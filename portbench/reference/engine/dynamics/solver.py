@@ -555,14 +555,17 @@ def solve_contacts_sharded(packs, imp_ts, dvw_t, with_sr: bool, mesh: Mesh):
 
 
 def solve_velocities(packs, imp_ts, dvw, with_sr: bool, mesh: Mesh,
-                     iterations: int):
+                     iterations: int, after=None):
     """The velocity iterations from the [N,6] deltas ``dvw``
-    (``solve_contacts_sharded`` over transposed [6,N] deltas). Returns
+    (``solve_contacts_sharded`` over transposed [6,N] deltas). ``after``
+    (the joint solve) maps the [N,6] deltas after each iteration. Returns
     (the shards' impulses, the [N,6] deltas)."""
     dvw_t = dvw.T.contiguous()
     for _ in range(iterations):
         imp_ts, dvw_t = solve_contacts_sharded(packs, imp_ts, dvw_t,
                                                with_sr, mesh)
+        if after is not None:
+            dvw_t = after(dvw_t.T).T.contiguous()
     return imp_ts, dvw_t.T
 
 

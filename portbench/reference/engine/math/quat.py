@@ -68,3 +68,15 @@ def to_matrix(q):
     ], dim=-2)
 
 
+def shortest_arc(v0, v1):
+    """Quaternion rotating unit vector v0 onto v1 (reference:
+    include/edyn/math/quaternion.hpp shortest_arc). Batched [...,3]."""
+    c = vec.cross(v0, v1)
+    d = torch.sum(v0 * v1, dim=-1, keepdim=True)
+    w = 1.0 + d
+    # antiparallel fallback: rotate pi about any orthogonal axis
+    t1, _ = vec.orthonormal_basis(v0)
+    anti = w < 1e-6
+    xyz = torch.where(anti, t1, c)
+    q = torch.cat([xyz, torch.where(anti, torch.zeros_like(w), w)], dim=-1)
+    return normalize(q)

@@ -4,11 +4,13 @@ stepper_sequential.cpp:28-152, solver.cpp:387-468). Phase order:
 
   AABBs -> broadphase (or the pair-list carry) -> manifold slots ->
   narrowphase -> islands & sleep -> contact rows -> solve phase
-  (restitution -> gravity -> rhs refresh -> warm start -> velocity
-  iterations -> impulse writeback -> integrate -> position iterations)
+  (restitution -> gravity -> rhs refresh -> joint rows -> warm start ->
+  velocity iterations, each followed by the joint solve -> impulse
+  writeback -> integrate -> position iterations -> joint positions)
 
-The reference's copy steps no joints (``physics_step`` refuses a world
-with joints).
+The reference's copy steps the point, cone and hinge joints
+(``constraints.joints.STEPPED``); ``physics_step`` refuses a world with
+any other type.
 
 PyTorch runs eagerly, so each device-side branch of the JAX step
 (``lax.cond`` / ``while_loop``) is a host-synced Python branch here; each
@@ -38,6 +40,7 @@ from ..collision.broadphase import (
 from ..collision.manifold import set_drop, update_slots
 from ..collision.narrowphase import update_contacts_sharded
 from ..config import PAIR_SEPARATION_MARGIN, Settings
+from ..constraints import joints as joints_mod
 from ..dynamics import islands as islands_mod
 from ..dynamics import solver as solver_mod
 from ..dynamics import solver_kernels as sk
@@ -232,8 +235,10 @@ def physics_step(state, settings: Settings, meta: SceneMeta):
     """One fixed-dt step of the whole world, over ``meta.shard_mesh`` when
     it is set (the state then lives on its home device) and else as one
     shard on the state's device."""
-    if meta.has_joints:
-        raise ValueError("the reference steps no joints")
+    if meta.has_joints and not meta.joint_types <= joints_mod.STEPPED:
+        raise ValueError("the reference steps the point, cone and hinge "
+                         "joints only, not "
+                         f"{sorted(t.name for t in meta.joint_types)}")
     dt = settings.fixed_dt
     use_rest = settings.num_restitution_iterations > 0
     mesh = step_mesh(state, meta)
@@ -264,12 +269,14 @@ def _shard_rows(rows, meta: SceneMeta, mesh: Mesh) -> list:
 def _solve_phase(state, man, parts, settings: Settings, meta: SceneMeta,
                  use_rest: bool, mesh: Mesh):
     """Everything row-dependent between narrowphase and the step epilogue
-    (restitution -> gravity -> rhs refresh -> warm start -> velocity
-    iterations -> impulse writeback -> integrate -> position iterations),
+    (restitution -> gravity -> rhs refresh -> joint rows -> warm start ->
+    velocity iterations, each followed by the joint solve -> impulse
+    writeback -> integrate -> position iterations -> joint positions),
     over the shards' contact rows (``parts``, one ``ContactRows`` on each
     shard's device): each shard packs its table and runs its own K3b, K3a,
     K1 and K2; the deltas meet in ordered chains on the home device, where
-    the impulse writeback and the integration run."""
+    the joints (always at their full width), the impulse writeback and the
+    integration run."""
     dt = settings.fixed_dt
     home = mesh.home
     packs = []
@@ -303,10 +310,17 @@ def _solve_phase(state, man, parts, settings: Settings, meta: SceneMeta,
             if with_sr:
                 p.tbl[sk.C_BASE + 27:sk.C_BASE + 30] = prhs(
                     rows.rhs_spin, rows.rhs_roll1, rows.rhs_roll2)
+    if meta.has_joints:
+        jrows, new_jangle = joints_mod.build_joint_rows(
+            state, dt, settings.mass_splitting, types=meta.joint_types,
+            cone_cap=settings.cone_max_violation)
+    else:
+        jrows, new_jangle = None, state.joints.angle
 
     # warm start + velocity iterations; deltas travel transposed [6, N]
     N = state.capacity
     M, P = man.point_valid.shape
+    j_imp = state.joints.impulses
     imp_packed = torch.cat([
         man.normal_impulse[..., None], man.friction_impulse,
         man.spin_impulse[..., None], man.roll_impulse], dim=-1)
@@ -316,13 +330,23 @@ def _solve_phase(state, man, parts, settings: Settings, meta: SceneMeta,
     dvw = solver_mod.warm_start_sharded(
         parts, imp6s, torch.zeros((N, 6), dtype=state.dtype, device=home),
         mesh).to(home)
+    if meta.has_joints:
+        dvw = joints_mod.warm_start_joints(jrows, j_imp, dvw)
     imp_ts = [torch.nn.functional.pad(
         imp6, (0, 0, 0, p.Rp - imp6.shape[0])).T.contiguous()
         for imp6, p in zip(imp6s, packs)]
 
+    def joint_pass(d):
+        # the joint solve works on [N,6] deltas, after each contact
+        # iteration's scatter-add
+        nonlocal j_imp
+        j_imp, d = joints_mod.solve_joints_once(jrows, j_imp, d)
+        return d
+
     imp_ts, dvw = solver_mod.solve_velocities(
         packs, imp_ts, dvw, with_sr, mesh,
-        settings.num_solver_velocity_iterations)
+        settings.num_solver_velocity_iterations,
+        joint_pass if meta.has_joints else None)
 
     # store applied impulses for next-step warm starting: one packed
     # scatter through the row compaction map, invalid rows dropped
@@ -338,8 +362,15 @@ def _solve_phase(state, man, parts, settings: Settings, meta: SceneMeta,
         friction_impulse=flat[..., 1:3].contiguous(),
         spin_impulse=flat[..., 3].contiguous(),
         roll_impulse=flat[..., 4:6].contiguous())
-    state = dataclasses.replace(state, contacts=man)
+    joints = dataclasses.replace(state.joints, impulses=j_imp,
+                                 angle=new_jangle)
+    state = dataclasses.replace(state, contacts=man, joints=joints)
 
     state = integrate_velocities(state, dvw[:, 0:3], dvw[:, 3:6], dt)
-    return solve_positions_sharded(state, packs, mesh,
-                                   settings.num_solver_position_iterations)
+    state = solve_positions_sharded(state, packs, mesh,
+                                    settings.num_solver_position_iterations)
+    if meta.has_joints:
+        state = joints_mod.solve_joint_positions(
+            state, settings.num_solver_position_iterations,
+            types=meta.joint_types)
+    return state

@@ -1,49 +1,66 @@
 """An independent check of a run's start and frames, written in NumPy from
 the step's semantics (upstream edyn's: gravity on awake dynamic bodies,
 semi-implicit Euler, the exponential-map orientation update, sleeping
-islands that do not move), not from the program's code. It imports
-nothing of the program and nothing of ``reference.engine``, and takes the
-bodies' shapes and the walls from the benchmark's own scene description.
+islands that do not move, joints whose impulses act between their two
+bodies), not from the program's code. It imports nothing of the program
+and nothing of ``reference.engine``, and takes the bodies (radius, mass,
+inertia, material), the joints and the walls from the benchmark's own
+scene description (``harness.scene``).
 
-Two kinds of body can be judged without following a single contact:
+A joint links its two bodies into one group. Three kinds of body can be
+judged without following a single contact:
 
-- A free body: awake before the step, out of reach of every other body
-  and every wall, and either moving faster than ``MIN_SPEED`` or quiet for
-  less than ``TIME_TO_SLEEP`` less two steps (so that its island cannot
-  fall asleep in this step; edyn's island time to sleep is 2 s). Its step
-  is ballistic: ``v' = v + g dt``, ``w' = w``, ``x' = x + v' dt``,
-  ``q' = normalize(exp(w' dt / 2) q)``.
-- A body of a quiet group: a group of bodies linked by reach, all asleep
-  before the step. No awake body can touch it, so its island stays asleep
-  and nothing of it moves: the position it is read back with is the one it
-  had, to the bit, its velocities are zero, and its orientation is the one
-  it had up to rounding (the program may normalize every orientation
-  again, which moves a quaternion by an ulp or so).
+- A free body: a body of no joint, awake before the step, out of reach of
+  every other body and every wall, and either moving faster than
+  ``MIN_SPEED`` or quiet for less than ``TIME_TO_SLEEP`` less two steps
+  (so that its island cannot fall asleep in this step; edyn's island time
+  to sleep is 2 s). Its step is ballistic: ``v' = v + g dt``, ``w' = w``,
+  ``x' = x + v' dt``, ``q' = normalize(exp(w' dt / 2) q)``.
+- A free group: the bodies of a joint group, none static, each awake and
+  moving or young as a free body is, and none in reach of a body outside
+  the group or of a wall. Inside it joints and contacts push its bodies
+  about, but every impulse acts on both of its bodies with their plain
+  inverse masses, equal and opposite (mass splitting enters only a row's
+  effective mass), and so do the position corrections. Its centre of mass
+  (the description's masses) moves ballistically: ``v_cm' = v_cm + g dt``,
+  ``x_cm' = x_cm + v_cm' dt``.
+- A body of a quiet group: a group of bodies linked by reach or by a
+  joint, all asleep before the step. No awake body can touch it, so its
+  island stays asleep and nothing of it moves: the position it is read
+  back with is the one it had, to the bit, its velocities are zero, and
+  its orientation is the one it had up to rounding (the program may
+  normalize every orientation again, which moves a quaternion by an ulp or
+  so).
 
 Reach is conservative: two bodies are within reach when their bounding
-spheres (about the body's position, the centre of mass of every shape of
-the scene) come within ``MARGIN`` plus twice the distance their relative
-velocity (with one step of gravity) covers in a step. ``MARGIN`` is 0.1 m,
-five times the widest band in which the engine keeps a contact (contact
-points are made within the collision threshold of 0.01 m and kept within
-the breaking threshold of 0.02 m; pairs are admitted within 1.3 times
-that). A body in reach of anything is left to the step-by-step reference.
+spheres (about the body's position, the centre of mass, with the
+description's radius) come within ``MARGIN`` plus twice the distance their
+relative velocity (with one step of gravity) covers in a step. ``MARGIN``
+is 0.1 m, five times the widest band in which the engine keeps a contact
+(contact points are made within the collision threshold of 0.01 m and
+kept within the breaking threshold of 0.02 m; pairs are admitted within
+1.3 times that). A body in reach of anything outside its group is left to
+the step-by-step reference.
 
 The start is judged the same way, against the scene description: every
 body of the built world at its drawn position and orientation, at rest,
-awake, with its material (friction 0.5, restitution 0.2, roll friction
-0.005), unit mass, the configuration's gravity, and, for the spheres and
-boxes, the inverse inertia of a solid of unit mass
-(``start_bodies_differ``, limit 0: a body any of whose values lies further
-than ``START_RTOL`` of it from the description's).
+awake, with its material and mass, the configuration's gravity, and the
+inverse inertia where the description gives it (``start_bodies_differ``,
+limit 0: a body any of whose values lies further than ``START_RTOL`` of it
+from the description's).
 
 The numbers of the frames, each the largest over the checked frames:
 ``free_pos_gap_m``, ``free_orn_gap``, ``free_linvel_gap_mps``,
 ``free_angvel_gap_radps``: the largest component of a free body's gap;
+``free_group_pos_gap_m``, ``free_group_linvel_gap_mps``: the largest
+component of a free group's centre-of-mass gap; ``joint_pivot_gap_m``: the
+largest distance, in the frame's read-back, between the two world-space
+pivots of a joint that pins them together (``PINNED``);
 ``quiet_bodies_moved``: bodies of quiet groups whose position or velocity
-changed (limit 0); ``quiet_orn_gap``: the largest component of a quiet
-body's change of orientation; ``free_bodies_absent``: 1 when no checked
-frame held a free body (the check would have judged nothing; limit 0).
+changed (limit 0);
+``quiet_orn_gap``: the largest component of a quiet body's change of
+orientation; ``free_bodies_absent``: 1 when no checked frame held a free
+body or a free group (the check would have judged nothing; limit 0).
 """
 from __future__ import annotations
 
@@ -55,20 +72,15 @@ MIN_SPEED = 0.05
 TIME_TO_SLEEP = 2.0
 FREE_GAPS = ("free_pos_gap_m", "free_orn_gap", "free_linvel_gap_mps",
              "free_angvel_gap_radps")
-NUMBERS = FREE_GAPS + ("quiet_bodies_moved", "quiet_orn_gap",
-                       "free_bodies_absent")
-
-
-def bounding_radius(kind: int) -> float:
-    """The radius about the centre of mass that holds every point of the
-    scene's shape ``kind`` (sphere, box, capsule, cylinder, tetrahedron, as
-    ``harness.scene.build`` makes them)."""
-    from harness import scene
-    return (0.15,
-            float(np.linalg.norm((0.15, 0.12, 0.18))),
-            0.1 + 0.15,
-            float(np.hypot(0.12, 0.15)),
-            float(np.linalg.norm(scene.TET, axis=1).max()))[int(kind)]
+GROUP_GAPS = ("free_group_pos_gap_m", "free_group_linvel_gap_mps")
+WORST = FREE_GAPS + GROUP_GAPS + ("joint_pivot_gap_m", "quiet_bodies_moved",
+                                  "quiet_orn_gap")
+NUMBERS = WORST + ("free_bodies_absent",)
+COUNTS = ("free_bodies", "free_groups", "quiet_bodies")
+# joint types whose rows hold their two pivots together (upstream edyn's
+# point_constraint and hinge_constraint; its cone_constraint bounds only
+# the angle between the two axes, and a rig pairs it with a point joint)
+PINNED = ("point", "hinge")
 
 
 def quat_mul(a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -112,11 +124,18 @@ def rounder(dtype):
         np.float64)
 
 
+def quat_rotate(q: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """``v`` rotated by the unit quaternions ``q`` (x, y, z, w)."""
+    u, w = q[..., :3], q[..., 3:]
+    t = 2 * np.cross(u, v)
+    return v + w * t + np.cross(u, t)
+
+
 def reach(desc: dict, pos, linvel, gravity, dt):
     """(pairs [k,2] of bodies in reach of each other, in reach of a wall
     [n]) over the scene's bodies, indexed from 0 in the scene's order."""
     from scipy.spatial import cKDTree
-    radius = np.array([bounding_radius(k) for k in range(5)])[desc["kind"]]
+    radius = np.asarray(desc["radius"], np.float64)
     gdt = float(np.linalg.norm(gravity)) * dt
     speed = np.linalg.norm(linvel, axis=1)
     far = 2 * radius.max() + MARGIN + 2 * dt * (2 * speed.max() + gdt)
@@ -133,15 +152,51 @@ def reach(desc: dict, pos, linvel, gravity, dt):
     return pairs.reshape(-1, 2), wall
 
 
-def quiet_groups(n: int, pairs, asleep) -> np.ndarray:
-    """The bodies whose group (linked by reach) is all asleep."""
+def components(n: int, pairs) -> np.ndarray:
+    """Each body's group [n] over the links ``pairs`` [k,2]."""
     from scipy.sparse import coo_matrix
     from scipy.sparse.csgraph import connected_components
     m = coo_matrix((np.ones(len(pairs)), (pairs[:, 0], pairs[:, 1])),
                    shape=(n, n))
-    _, label = connected_components(m, directed=False)
+    return connected_components(m, directed=False)[1]
+
+
+def quiet_groups(n: int, pairs, asleep) -> np.ndarray:
+    """The bodies whose group (linked by ``pairs``) is all asleep."""
+    label = components(n, pairs)
     awake_groups = np.unique(label[~asleep])
     return asleep & ~np.isin(label, awake_groups)
+
+
+def joint_links(desc: dict) -> np.ndarray:
+    """[k,2]: the two bodies of each of the description's joints."""
+    return np.array([(j["a"], j["b"]) for j in desc["joints"]],
+                    np.int64).reshape(-1, 2)
+
+
+def pivot_gap(desc: dict, pos, orn) -> float:
+    """The largest distance between the two world-space pivots of a joint
+    of ``PINNED`` type, at the poses ``pos`` [n,3], ``orn`` [n,4]."""
+    js = [j for j in desc["joints"] if j["type"] in PINNED]
+    if not js:
+        return 0.0
+    a = np.array([j["a"] for j in js])
+    b = np.array([j["b"] for j in js])
+    pa = np.array([j["pivot_a"] for j in js], np.float64)
+    pb = np.array([j["pivot_b"] for j in js], np.float64)
+    pos, orn = np.asarray(pos, np.float64), np.asarray(orn, np.float64)
+    d = (pos[a] + quat_rotate(orn[a], pa)) - (pos[b] + quat_rotate(orn[b],
+                                                                   pb))
+    return float(np.nan_to_num(np.linalg.norm(d, axis=1), nan=np.inf).max())
+
+
+def centres(label, mass, *xs):
+    """The mass-weighted mean of each ``xs`` [k,3] over the groups
+    ``label`` [k] (numbered from 0)."""
+    total = np.bincount(label, mass)
+    return tuple(np.stack([np.bincount(label, mass * x[:, c])
+                           for c in range(3)], 1) / total[:, None]
+                 for x in xs)
 
 
 def judge(desc: dict, gravity, dt, pre: dict, host, post_vel,
@@ -151,37 +206,62 @@ def judge(desc: dict, gravity, dt, pre: dict, host, post_vel,
     host arrays over every slot); ``host``: the frame's read-back
     [slots, 7]; ``post_vel``: (linvel, angvel) after the step. With
     ``dtype`` other than float64 the expectation in that precision stands
-    in the program's place (the control)."""
+    in the program's place (the control; its joints' pivots are read at
+    the poses before the step, in that precision)."""
     s = len(desc["planes"])
-    n = len(desc["kind"])
+    n = len(desc["pos"])
     body = slice(s, s + n)
     pos, orn = pre["pos"][body], pre["orn"][body]
     lin, ang = pre["linvel"][body], pre["angvel"][body]
     asleep = pre["asleep"][body].astype(bool)
     pairs, wall = reach(desc, pos, lin, gravity, dt)
+    links = joint_links(desc)
+    group = components(n, links)
+    jointed = np.bincount(group)[group] > 1
     touched = wall.copy()
-    touched[pairs.ravel()] = True
+    touched[pairs[group[pairs[:, 0]] != group[pairs[:, 1]]].ravel()] = True
     young = pre["sleep_timer"][body] < TIME_TO_SLEEP - 2 * dt
-    free = ~asleep & ~touched & (young | (np.linalg.norm(lin, axis=1)
+    able = ~asleep & ~touched & (young | (np.linalg.norm(lin, axis=1)
                                           > MIN_SPEED))
-    quiet = quiet_groups(n, pairs, asleep)
+    able &= np.asarray(desc["mass"]) > 0
+    free = able & ~jointed
+    in_group = jointed & (np.bincount(group, ~able)[group] == 0)
+    quiet = quiet_groups(n, np.concatenate([pairs, links]), asleep)
 
     expect = ballistic(pos[free], orn[free], lin[free], ang[free], gravity,
                        dt)
+    sel = np.flatnonzero(in_group)
+    label = np.unique(group[sel], return_inverse=True)[1]
+    mass = np.asarray(desc["mass"], np.float64)[sel]
+    g = np.asarray(gravity, np.float64)
+    x_cm, v_cm = centres(label, mass, *(np.asarray(x[sel], np.float64)
+                                        for x in (pos, lin)))
+    v_want = v_cm + g * dt
+    expect_cm = (x_cm + v_want * dt, v_want)
     if dtype == np.float64:
         got = (host[body, :3][free], host[body, 3:7][free],
                post_vel[0][body][free], post_vel[1][body][free])
+        got_cm = centres(label, mass, *(np.asarray(x[sel], np.float64) for x
+                                        in (host[body, :3],
+                                            post_vel[0][body])))
         now = (host[body, :3][quiet], host[body, 3:7][quiet],
                post_vel[0][body][quiet], post_vel[1][body][quiet])
+        pivots = pivot_gap(desc, host[body, :3], host[body, 3:7])
     else:
         got = ballistic(pos[free], orn[free], lin[free], ang[free], gravity,
                         dt, dtype)
         r = rounder(dtype)
+        xc, vc = centres(label, mass, r(pos[sel]), r(lin[sel]))
+        v = r(r(vc) + r(g * float(r(np.float64(dt)))))
+        got_cm = (r(r(xc) + r(v * float(r(np.float64(dt))))), v)
         now = tuple(r(x[quiet]) for x in (pos, orn, lin, ang))
+        pivots = pivot_gap(desc, r(pos), r(orn))
     out = {}
-    for name, a, b in zip(FREE_GAPS, got, expect):
+    for name, a, b in zip(FREE_GAPS + GROUP_GAPS, got + tuple(got_cm),
+                          expect + expect_cm):
         d = np.abs(np.asarray(a, np.float64) - b)
         out[name] = float(np.nan_to_num(d, nan=np.inf).max(initial=0.0))
+    out["joint_pivot_gap_m"] = pivots
     was = (pos[quiet], np.zeros_like(lin[quiet]), np.zeros_like(ang[quiet]))
     moved = np.zeros(int(quiet.sum()), bool)
     for a, b in zip(now[:1] + now[2:], was):
@@ -191,6 +271,7 @@ def judge(desc: dict, gravity, dt, pre: dict, host, post_vel,
     out["quiet_orn_gap"] = float(np.nan_to_num(d, nan=np.inf).max(
         initial=0.0))
     out["free_bodies"] = int(free.sum())
+    out["free_groups"] = int(label.max(initial=-1) + 1)
     out["quiet_bodies"] = int(quiet.sum())
     return out
 
@@ -198,28 +279,16 @@ def judge(desc: dict, gravity, dt, pre: dict, host, post_vel,
 def check(desc: dict, gravity, dt, frames, dtype=np.float64) -> dict:
     """The numbers over ``frames``, each (pre, host, post_vel) as
     ``judge`` takes them: the largest of each, the counts summed."""
-    worst = dict.fromkeys(NUMBERS, 0)
-    worst.update(free_bodies=0, quiet_bodies=0)
+    worst = dict.fromkeys(NUMBERS + COUNTS, 0)
     for pre, host, post_vel in frames:
         g = judge(desc, gravity, dt, pre, host, post_vel, dtype)
-        for k in FREE_GAPS + ("quiet_bodies_moved", "quiet_orn_gap"):
+        for k in WORST:
             worst[k] = max(worst[k], g[k])
-        worst["free_bodies"] += g["free_bodies"]
-        worst["quiet_bodies"] += g["quiet_bodies"]
-    worst["free_bodies_absent"] = int(worst["free_bodies"] == 0)
+        for k in COUNTS:
+            worst[k] += g[k]
+    worst["free_bodies_absent"] = int(worst["free_bodies"]
+                                      + worst["free_groups"] == 0)
     return worst
-
-
-def solid_inverse_inertia(kind: int):
-    """The diagonal of a unit-mass solid's inverse inertia about its centre
-    of mass in its own frame, for the scene's spheres and boxes (None for
-    the other shapes, which the start check does not judge by inertia)."""
-    if kind == 0:
-        return np.full(3, 1 / (0.4 * 0.15 ** 2))
-    if kind == 1:
-        h2 = np.square(2 * np.array([0.15, 0.12, 0.18]))
-        return 12 / (h2.sum() - h2)
-    return None
 
 
 def start(desc: dict, gravity, built: dict, dtype=np.float64) -> dict:
@@ -231,24 +300,30 @@ def start(desc: dict, gravity, built: dict, dtype=np.float64) -> dict:
     (the control)."""
     r = rounder(dtype) if dtype != np.float64 else (
         lambda x: np.asarray(x, np.float64))
-    s, n = len(desc["planes"]), len(desc["kind"])
+    s, n = len(desc["planes"]), len(desc["pos"])
     b = {k: r(v[s:s + n]) for k, v in built.items()}
+    mass = np.asarray(desc["mass"], np.float64)
+    mat = desc["material"]
     want = dict(pos=desc["pos"], orn=desc["orn"],
                 linvel=np.zeros((n, 3)), angvel=np.zeros((n, 3)),
-                mass_inv=np.ones(n), gravity=np.tile(gravity, (n, 1)),
-                friction=np.full(n, 0.5), restitution=np.full(n, 0.2),
-                roll_friction=np.full(n, 0.005))
+                mass_inv=np.divide(1.0, mass, out=np.zeros(n),
+                                   where=mass > 0),
+                gravity=np.tile(gravity, (n, 1)),
+                friction=mat["friction"], restitution=mat["restitution"],
+                roll_friction=mat["roll_friction"])
     bad = b["asleep"].astype(bool).copy()
     for k, w in want.items():
+        w = np.asarray(w, np.float64)
         d = np.abs(b[k] - w).reshape(n, -1)
         bad |= np.any(d > START_RTOL * np.maximum(1.0, np.abs(w)).reshape(
             n, -1), axis=1)
-    inv = b["inertia_inv"].reshape(n, 3, 3)
-    for i, k in enumerate(desc["kind"]):
-        diag = solid_inverse_inertia(k)
-        if diag is not None:
-            bad[i] |= bool(np.any(np.abs(inv[i] - np.diag(diag))
-                                  > START_RTOL * diag.max()))
+    diag = np.asarray(desc["inertia_inv"], np.float64)
+    judged = ~np.isnan(diag).any(1)
+    inv = b["inertia_inv"].reshape(n, 3, 3)[judged]
+    diag = diag[judged]
+    d = np.abs(inv - diag[:, :, None] * np.eye(3))
+    bad[judged] |= np.any(d > (START_RTOL * diag.max(1))[:, None, None],
+                          axis=(1, 2))
     return {"start_bodies_differ": int(bad.sum())}
 
 

@@ -84,3 +84,83 @@ def small_bench(tmp: Path, traffic: str = "drop", n_bodies: int = 60,
             m["workloads"].append(name)
     (tmp / "BENCHMARK.json").write_text(json.dumps(bench))
     return dst
+
+
+# the jointed cell's own limits beside the pile's: the free groups' as the
+# free bodies', and joints held within a quarter metre (a torn joint reads
+# metres)
+JOINT_LIMITS = dict(free_group_pos_gap_m=0.001,
+                    free_group_linvel_gap_mps=0.0001,
+                    joint_pivot_gap_m=0.25)
+
+
+def jointed_bench(tmp: Path, n_chains: int = 4) -> Path:
+    """``small_bench`` with a jointed cell ``chains.landing`` added as a
+    later configuration adds one, in new files and entries only: the scene
+    ``tests/scenes/chains.py`` as ``scenes/chains.py``; a configuration of
+    ``n_chains`` chains, every other one dropped 2 m higher; a mix that
+    steps 20 frames first, so that every frame of the window holds landed
+    chains, whose joints work, and falling ones, which the independent
+    check judges as free groups; and limits of its own."""
+    dst = small_bench(tmp)
+    tr = json.loads((dst / "traffic" / "small_drop.json").read_text())
+    tr.update(name="landing", prelude=[dict(op="step", n=20)])
+    (dst / "traffic" / "landing.json").write_text(json.dumps(tr))
+    shutil.copy(BENCH / "tests" / "scenes" / "chains.py",
+                dst / "scenes" / "chains.py")
+    cfg = json.loads((dst / "configs" / "small.json").read_text())
+    cfg.update(name="chains", scene=dict(kind="chains", n_chains=n_chains,
+                                         height=1.7, stagger=2.0))
+    cfg["settings"]["cone_max_violation"] = 2.0
+    (dst / "configs" / "chains.json").write_text(json.dumps(cfg))
+    limits = json.loads((BENCH / "limits" / "pile10k.drop.json").read_text())
+    limits.update(JOINT_LIMITS)
+    (dst / "limits" / "chains.landing.json").write_text(json.dumps(limits))
+    bench = json.loads((tmp / "BENCHMARK.json").read_text())
+    bench["configs"].append(dict(name="chains", source="test", reduced=[],
+                                 file="portbench/configs/chains.json",
+                                 why="jointed chains for the CPU"))
+    bench["workloads"].append(dict(name="chains.landing", config="chains",
+                                   chips=1, traffic="landing", why="test"))
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if "workloads" in m and "small.drop" in m["workloads"]:
+            m["workloads"].append("chains.landing")
+    (tmp / "BENCHMARK.json").write_text(json.dumps(bench))
+    return dst
+
+
+def falling_frame(n=40, seed=3, asleep_every=0, nudge=0.0):
+    """A frame of the pile's bodies falling as built (or asleep, every
+    ``asleep_every``-th one), stepped as the semantics say, its second
+    body read back ``nudge`` metres higher: (desc, pre, host, post_vel)."""
+    import numpy as np
+    from harness import scene
+    from reference import semantics
+    desc = scene.mixed_pile(n, seed)
+    s = len(desc["planes"])
+    rng = np.random.default_rng(seed)
+    pos = np.zeros((s + n, 3))
+    pos[s:] = desc["pos"]
+    pos[s:, 1] += 5.0
+    orn = np.zeros((s + n, 4))
+    orn[:, 3] = 1
+    orn[s:] = desc["orn"]
+    lin = np.zeros((s + n, 3))
+    lin[s:, 1] = -2.0
+    ang = np.zeros((s + n, 3))
+    ang[s:] = rng.normal(size=(n, 3))
+    asleep = np.zeros(s + n, bool)
+    if asleep_every:
+        asleep[s::asleep_every] = True
+        lin[asleep] = ang[asleep] = 0
+    pre = dict(pos=pos.astype(np.float32), orn=orn.astype(np.float32),
+               linvel=lin.astype(np.float32), angvel=ang.astype(np.float32),
+               asleep=asleep, sleep_timer=np.zeros(s + n, np.float32))
+    x, q, v, w = semantics.ballistic(pre["pos"], pre["orn"], pre["linvel"],
+                                     pre["angvel"], (0, -9.8, 0), 1 / 60,
+                                     np.float32)
+    x[asleep], q[asleep] = pre["pos"][asleep], pre["orn"][asleep]
+    v[asleep] = w[asleep] = 0
+    host = np.concatenate([x, q], 1)
+    host[s + 1, 1] += nudge
+    return desc, pre, host, (v, w)

@@ -10,7 +10,8 @@ import time
 import pytest
 import torch
 
-from conftest import BENCH, CELLS, small_bench
+from conftest import (BENCH, CELLS, JOINT_LIMITS, falling_frame,
+                      jointed_bench, small_bench)
 
 
 def _limits(cell):
@@ -39,13 +40,71 @@ def test_reference_steps_the_pile_as_the_program_does_on_the_cpu():
     assert float(st.pos[st.is_dynamic][:, 1].min()) > 0.0
 
 
-def test_dynamic_fields_cover_what_a_step_changes():
-    """Every state field outside ``compare.DYNAMIC`` is the same after 40
-    steps as when built: the reference's own build may stand for it."""
+def _chains():
+    from harness import spec
+    return spec.load_module(BENCH / "tests" / "scenes" / "chains.py",
+                            "portbench_test_chains")
+
+
+def test_reference_steps_a_jointed_world_as_the_program_does_on_the_cpu():
+    """The reference's own world of four jointed chains (point, cone and
+    hinge joints, ``tests/scenes/chains.py``), stepped 60 times on the CPU
+    through the fall and the landing, equals the program's at every step:
+    the joint rows, their warm start, the joint solve after each velocity
+    iteration and the joints' position correction, with the cone's cap."""
+    import edyn_tpu_torch as et
+    from reference import compare, engine
+    chains = _chains()
+    desc = chains.describe(2**31 + 5, n_chains=4, height=1.7, stagger=0.6)
+    bp, _ = chains.build(et, desc)
+    br, _ = chains.build(engine, desc)
+    wp = et.make_world(bp, et.Settings(cone_max_violation=2.0), device="cpu")
+    wr = engine.make_world(br, engine.Settings(cone_max_violation=2.0),
+                           device="cpu")
+    assert wr.meta.joint_types == wp.meta.joint_types == {
+        engine.constraints.joints.JointType.POINT,
+        engine.constraints.joints.JointType.CONE,
+        engine.constraints.joints.JointType.HINGE}
+    assert compare.leaves_differ(wp.state, wr.state) == 0
+    for _ in range(60):
+        wp.step()
+        wr.step()
+        assert compare.leaves_differ(wp.state, wr.state) == 0
+    st = wr.state
+    assert int(st.contacts.point_valid.sum()) > 0
+    assert float(st.joints.impulses.abs().max()) > 0
+
+
+def test_the_reference_refuses_a_joint_it_does_not_step():
+    """A world with a joint type the copy has not taken (here a distance
+    joint) is refused, not stepped without it."""
+    from reference import engine
+    chains = _chains()
+    desc = chains.describe(3, n_chains=1)
+    b, _ = chains.build(engine, desc)
+    b._add_joint(jtype=engine.constraints.joints.JointType.DISTANCE,
+                 body_a=5, body_b=6, params=(0.3,))
+    w = engine.make_world(b, engine.Settings(), device="cpu")
+    with pytest.raises(ValueError, match="point, cone and hinge"):
+        w.step()
+
+
+@pytest.mark.parametrize("world", ["pile", "chains"])
+def test_dynamic_fields_cover_what_a_step_changes(world):
+    """Every state field outside ``compare.DYNAMIC`` (and, of the joints,
+    outside ``compare.DYNAMIC_JOINT``) is the same after 40 steps as when
+    built: the reference's own build may stand for it."""
     from harness import scene
     from reference import compare, engine
-    b, _ = scene.build(engine, scene.mixed_pile(60, 5))
-    w = engine.make_world(b, engine.Settings(), device="cpu")
+    if world == "pile":
+        b, _ = scene.build(engine, scene.mixed_pile(60, 5))
+        settings = engine.Settings()
+    else:
+        chains = _chains()
+        b, _ = chains.build(engine, chains.describe(5, n_chains=2,
+                                                    height=1.7))
+        settings = engine.Settings(cone_max_violation=2.0)
+    w = engine.make_world(b, settings, device="cpu")
     built = w.state
     w.step(40)
     static = dataclasses.replace(
@@ -140,6 +199,32 @@ def test_a_broken_step_is_not_correct(tmp_path, monkeypatch, fault):
     assert res["correct"] is False
 
 
+def _skip(name):
+    if name == "solve_joints_once":
+        return lambda rows, impulses, dvw: (impulses, dvw)
+    return lambda state, *args, **kwargs: state
+
+
+@pytest.mark.parametrize("phase", [None, "solve_joints_once",
+                                   "solve_joint_positions"],
+                         ids=["sound", "no_joint_velocity",
+                              "no_joint_positions"])
+def test_a_step_without_a_joint_phase_is_not_correct(tmp_path, monkeypatch,
+                                                     phase):
+    """A jointed cell added as new files (``jointed_bench``): the sound
+    step is ``correct``; a step that leaves out the joint solve of the
+    velocity iterations, or the joints' position correction, is not."""
+    from edyn_tpu_torch.constraints import joints
+    from harness import runner, spec
+    if phase:
+        monkeypatch.setattr(joints, phase, _skip(phase))
+    dst = jointed_bench(tmp_path)
+    cell = spec.load_cell("chains.landing", dst)
+    res = runner.run_cell(cell, 2**31 + 61, 0.5, False, "cpu",
+                          time.perf_counter(), log=lambda line: None)
+    assert res["correct"] is (phase is None), res["check"]
+
+
 def test_a_sound_run_is_correct(tmp_path):
     assert _run(tmp_path)["correct"] is True
 
@@ -147,42 +232,6 @@ def test_a_sound_run_is_correct(tmp_path):
 def test_a_sound_asleep_run_is_correct(tmp_path):
     assert _run(tmp_path, "asleep", limits_of="pile10k.asleep")[
         "correct"] is True
-
-
-def _falling_frame(n=40, seed=3, asleep_every=0):
-    """A frame of a scene's bodies falling as built (or asleep, every
-    ``asleep_every``-th one), stepped as the semantics say: (desc, pre,
-    host, post_vel)."""
-    import numpy as np
-    from harness import scene
-    from reference import semantics
-    desc = scene.mixed_pile(n, seed)
-    s = len(desc["planes"])
-    rng = np.random.default_rng(seed)
-    pos = np.zeros((s + n, 3))
-    pos[s:] = desc["pos"]
-    pos[s:, 1] += 5.0
-    orn = np.zeros((s + n, 4))
-    orn[:, 3] = 1
-    orn[s:] = desc["orn"]
-    lin = np.zeros((s + n, 3))
-    lin[s:, 1] = -2.0
-    ang = np.zeros((s + n, 3))
-    ang[s:] = rng.normal(size=(n, 3))
-    asleep = np.zeros(s + n, bool)
-    if asleep_every:
-        asleep[s::asleep_every] = True
-        lin[asleep] = ang[asleep] = 0
-    pre = dict(pos=pos.astype(np.float32), orn=orn.astype(np.float32),
-               linvel=lin.astype(np.float32), angvel=ang.astype(np.float32),
-               asleep=asleep, sleep_timer=np.zeros(s + n, np.float32))
-    x, q, v, w = semantics.ballistic(pre["pos"], pre["orn"], pre["linvel"],
-                                     pre["angvel"], (0, -9.8, 0), 1 / 60,
-                                     np.float32)
-    x[asleep], q[asleep] = pre["pos"][asleep], pre["orn"][asleep]
-    v[asleep] = w[asleep] = 0
-    host = np.concatenate([x, q], 1)
-    return desc, pre, host, (v, w)
 
 
 @pytest.mark.parametrize("fault", [None, "unchanged", "no_gravity",
@@ -194,7 +243,7 @@ def test_the_semantic_check_catches_faults_by_itself(fault):
     free body's spin or moves an asleep body reads far above it."""
     import numpy as np
     from reference import semantics
-    desc, pre, host, vel = _falling_frame(60, 5, 0 if fault != "quiet_moved"
+    desc, pre, host, vel = falling_frame(60, 5, 0 if fault != "quiet_moved"
                                           else 1)
     if fault == "unchanged":
         host = np.concatenate([pre["pos"], pre["orn"]], 1)
@@ -242,3 +291,60 @@ def test_the_start_is_judged_against_the_description(fault):
         built["inertia_inv"][k, 2, 2] *= 1.01
     out = semantics.start(desc, (0, -9.8, 0), built)
     assert out["start_bodies_differ"] == (0 if fault is None else 1)
+
+
+@pytest.mark.parametrize("fault", [None, "no_gravity", "torn", "control",
+                                   "quiet_moved"])
+def test_the_semantic_check_judges_joints(fault):
+    """Jointed chains falling as built, every body stepped ballistically
+    (joints at rest do nothing in free fall): each chain is one free
+    group, none of its bodies a free body, its centre of mass on
+    rounding's terms and its pivots together. A step that leaves gravity
+    out, a body torn off its joints, or the control (the expectation in
+    bfloat16) read above the jointed limits; a joint inside an asleep
+    group keeps the group quiet, and a body of it that moves is caught."""
+    import numpy as np
+    from reference import semantics
+    chains = _chains()
+    desc = chains.describe(11, n_chains=4)
+    s, n = len(desc["planes"]), len(desc["pos"])
+    pos = np.zeros((s + n, 3))
+    pos[s:] = desc["pos"]
+    orn = np.zeros((s + n, 4))
+    orn[:, 3] = 1
+    orn[s:] = desc["orn"]
+    asleep = np.zeros(s + n, bool)
+    if fault == "quiet_moved":
+        asleep[s:] = True
+    pre = dict(pos=pos.astype(np.float32), orn=orn.astype(np.float32),
+               linvel=np.zeros((s + n, 3), np.float32),
+               angvel=np.zeros((s + n, 3), np.float32), asleep=asleep,
+               sleep_timer=np.zeros(s + n, np.float32))
+    x, q, v, w = semantics.ballistic(pre["pos"], pre["orn"], pre["linvel"],
+                                     pre["angvel"], (0, -9.8, 0), 1 / 60,
+                                     np.float32)
+    if fault == "quiet_moved":
+        x, q, v, w = pre["pos"].copy(), pre["orn"], v * 0, w
+        x[s + 7, 0] += 1e-3
+    elif fault == "no_gravity":
+        v = pre["linvel"]
+        x = pre["pos"].copy()
+    elif fault == "torn":
+        x[s + 2] += (0.0, 0.5, 0.0)
+    host = np.concatenate([x, q], 1)
+    out = semantics.check(desc, (0, -9.8, 0), 1 / 60, [(pre, host, (v, w))],
+                          "bfloat16" if fault == "control" else np.float64)
+    limits = JOINT_LIMITS
+    over = {k for k in limits if out[k] > limits[k]}
+    assert out["free_bodies"] == 0
+    if fault == "quiet_moved":
+        assert out["free_groups"] == 0 and out["quiet_bodies"] == n
+        assert out["quiet_bodies_moved"] == 1 and out["free_bodies_absent"]
+        return
+    assert out["free_groups"] == 4
+    if fault is None:
+        assert not over and out["joint_pivot_gap_m"] < 1e-6
+    elif fault == "torn":
+        assert over == {"free_group_pos_gap_m", "joint_pivot_gap_m"}
+    else:
+        assert over >= {"free_group_pos_gap_m", "free_group_linvel_gap_mps"}

@@ -8,7 +8,7 @@ import time
 
 import pytest
 
-from conftest import BENCH, CELLS, ROOT, small_bench
+from conftest import BENCH, CELLS, ROOT, jointed_bench, small_bench
 
 
 def _bench():
@@ -25,6 +25,7 @@ def test_every_name_resolves():
         assert json.loads(path.read_text())["name"] == c["name"]
     for w in bench["workloads"]:
         cell = spec.load_cell(w["name"])
+        assert spec.scene_file(cell.config["scene"]["kind"]).exists()
         assert cell.config["name"] == w["config"]
         assert cell.traffic["name"] == w["traffic"]
         assert set(cell.limits) >= {"start_leaves_differ", "pos_gap_m",
@@ -42,10 +43,15 @@ def test_every_name_resolves():
 
 
 def test_new_files_are_found_without_edits(tmp_path):
-    from harness import spec
-    dst = small_bench(tmp_path)
+    """A new metric, and a jointed configuration with its own scene,
+    traffic mix and limits (``jointed_bench``), are found in a copy of the
+    benchmark by their names alone; the jointed cell runs on the CPU
+    through ``runner.run_cell`` (what ``run.py`` calls on the card) to a
+    ``correct`` result; no file of the harness changed."""
+    from harness import runner, spec
     before = {p: hashlib.sha256(p.read_bytes()).hexdigest()
               for p in BENCH.rglob("*.py") if "tests" not in p.parts}
+    dst = jointed_bench(tmp_path)
     (dst / "metrics" / "frames_seen.py").write_text(
         "def read(ctx):\n    return ctx.frames\n")
     bench = json.loads((tmp_path / "BENCHMARK.json").read_text())
@@ -60,6 +66,14 @@ def test_new_files_are_found_without_edits(tmp_path):
     assert "frames_seen" in [m["name"] for m in cell.per_layer]
     assert spec.metric_reader("frames_seen", dst)(
         type("C", (), {"frames": 3})) == 3
+    cell = spec.load_cell("chains.landing", dst)
+    assert cell.config["scene"]["kind"] == "chains"
+    assert spec.scene_file("chains", dst).exists()
+    assert not spec.scene_file("chains").exists()
+    res = runner.run_cell(cell, 2**31 + 73, 0.5, False, "cpu",
+                          time.perf_counter(), log=lambda line: None)
+    assert res["correct"] is True, res["check"]
+    assert {"joint_pivot_gap_m", "free_group_pos_gap_m"} <= set(res["check"])
     after = {p: hashlib.sha256(p.read_bytes()).hexdigest()
              for p in BENCH.rglob("*.py") if "tests" not in p.parts}
     assert before == after

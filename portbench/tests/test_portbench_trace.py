@@ -71,3 +71,30 @@ def test_reduce_a_made_up_trace():
     idle = dict(out["idle_gaps"])
     assert abs(idle["cudaStreamSynchronize"] - 290e-9) < 1e-15  # 100..390
     assert abs(out["device_ops"][0][1] - 150e-9) < 1e-15
+
+
+def test_launches_take_their_frames_from_the_program_counts():
+    """Device and host clocks that disagree move a launch out of its
+    frame's annotation; the program's counts after each frame place it
+    all the same."""
+    k = "void (anonymous namespace)::vel_fused_kernel<float>(float const*)"
+    events = [
+        Ev(trace.WINDOW_MARK, CPU, 0, 1000),
+        Ev(trace.FRAME_MARK, CPU, 0, 500),
+        Ev(trace.FRAME_MARK, CPU, 500, 950),
+        Ev(k, CUDA, 505, 540, corr=2),    # frame 0's, read 10 ns late
+        Ev(k, CUDA, 50, 100, corr=1),
+        Ev(k, CUDA, 960, 990, corr=3),    # frame 1's, read 20 ns late
+    ]
+    plain = trace.reduce(_results(events))
+    assert plain["kernels"]["solve_iteration_fused"] == [
+        (0, 50), (1, 35), (None, 30)]
+    marks = [{"solve_iteration_fused": 2}, {"solve_iteration_fused": 3}]
+    out = trace.reduce(_results(events), marks)
+    assert out["kernels"]["solve_iteration_fused"] == [(0, 50), (0, 35),
+                                                       (1, 30)]
+    assert out["kernels"]["segment_sum"] == []
+    # a launch the program did not count has no frame
+    out = trace.reduce(_results(events), marks[:1])
+    assert out["kernels"]["solve_iteration_fused"] == [(0, 50), (0, 35),
+                                                       (None, 30)]
